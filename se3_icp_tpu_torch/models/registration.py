@@ -1,0 +1,546 @@
+"""The SE(3)-ICP registration engine, natively batched over pairs.
+
+One program for the reference's four ``run_*`` methods, selected by
+(mode, variant):
+
+  mode='icp'      -> run_icp
+  mode='se3'      -> run_se3_icp
+  mode='se3_cf'   -> run_se3_icp_with_cf
+  mode='se3_pure' -> run_se3_pure
+
+Mechanics:
+  * clouds are padded to bucket sizes with per-pair valid counts;
+  * the SE(3)->R3 "switch to vanilla ICP" annealing is not a branch:
+    both phases run through the SAME 12-D match kernel, with the
+    rotation block of the query/target embeddings zeroed after the
+    switch (which reduces the 12-D chordal metric exactly to the 3-D
+    euclidean one), so pairs of one batch may be in different phases;
+  * setup (this slice): ONE exact sorted kNN per cloud, prefix-sliced by
+    every consumer (TOLDI k, normals kNN-30, GICP kNN-20);
+  * each iteration is two hand-written kernels -- the fused match
+    (``ops/cuda_knn.py``) and the fused epilogue (``ops/cuda_loop.py``)
+    -- plus a 6x6 solve or 3x3 SVD;
+  * every state update is masked by a per-pair ``done`` flag, and the
+    host reads ``done.all()`` back only every ``_POLL_EVERY`` steps:
+    the extra steps after the last pair converged are no-ops.
+
+Behavioural parity notes, all reproduced:
+  * the 12-D match uses alpha/beta-weighted frames, but trimming/MSE use
+    the R3 translation distance;
+  * with_cf solves with confidence *weights* only, and weights multiply
+    the GICP whitening matrix, so they act quadratically;
+  * with_cf packs the *unweighted* target points as the 12-D translation
+    rows vs the beta-weighted ones in run_se3_icp;
+  * post-switch convergence compares against ``scaling * mse`` while
+    vanilla ICP uses plain ``mse``;
+  * "MSE" is a mean of (non-squared) distances, and with_cf recomputes
+    euclidean point distances instead.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, knn, lrf, solve
+from se3_icp_tpu_torch.utils.config import (RegistrationConfig,
+                                            parse_algorithm)
+
+_BIG = 1e7  # the reference initializes its mse trackers to 1e7
+_POLL_EVERY = 4
+
+
+@dataclass
+class RegistrationResult:
+    """Host-side result mirroring the reference's public outputs
+    (``current_estimated_T_``, ``num_iterations_``,
+    ``num_pure_se3_iterations_``)."""
+
+    transformation: np.ndarray          # [4,4]
+    num_iterations: int
+    num_pure_se3_iterations: int
+    # per-iteration accumulated transforms (``estimated_history_``);
+    # filled when record_history=True
+    history: np.ndarray | None = None   # [num_iterations,4,4]
+
+
+@dataclass
+class MatchState:
+    """Everything the iteration loop needs, built once in setup (or from
+    another package's setup products, see ``utils/convert.py``)."""
+
+    feat16: torch.Tensor                # [B,Ns,16] static query features
+    targets: cuda_knn.MatchTargets      # dual-phase targets + payload
+    src_cT: torch.Tensor                # [B,3,Ns] centred+scaled source
+    n_src: torch.Tensor                 # [B] integer valid source counts
+    variant: str                        # effective: pt2pt | pt2pl | gicp
+    is_se3: bool
+    use_cf: bool
+    pay_off: dict = field(default_factory=dict)   # payload row offsets
+    cov_src6: torch.Tensor | None = None          # [B,6,Ns] (gicp)
+    conf_src: torch.Tensor | None = None          # [B,Ns]   (with_cf)
+
+
+@dataclass
+class Preprocess:
+    """Centre + scale applied before the loop (identity for icp)."""
+
+    cen_s: torch.Tensor                 # [B,3]
+    cen_t: torch.Tensor                 # [B,3]
+    scaling: torch.Tensor               # [B]
+
+
+def resolve_device(device) -> torch.device:
+    """The entry points run on the card unless the caller asks for the
+    CPU; asking for the card without one raises (no silent CPU run)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "se3_icp_tpu_torch runs on a CUDA device by default and none "
+            "is available; pass device='cpu' to run the plain versions")
+    return dev
+
+
+def lounge_point_confidence(points: torch.Tensor) -> torch.Tensor:
+    """Depth-based RGB-D confidence (from LSG-CPD), [...,3] -> [...].
+
+    conf = (p1*min_d + p2*min_d + p3) / (p1*d^2 + p2*d + p3); the
+    numerator uses min_depth linearly in the quadratic term too -- that
+    is what the reference computes; kept verbatim."""
+    d = points[..., 2]
+    p1, p2, p3, min_d = 0.002203, -0.001028, 0.0005351, 0.4
+    err = p1 * d * d + p2 * d + p3
+    return (p1 * min_d + p2 * min_d + p3) / err
+
+
+def _masked_centroid(pts, valid, n):
+    w = valid.to(pts.dtype)[..., None]
+    return (pts * w).sum(1) / n.to(pts.dtype).clamp_min(1.0)[:, None]
+
+
+def _largest_radius(pts, center, valid):
+    d = torch.linalg.norm(pts - center[:, None], dim=-1)
+    return torch.where(valid, d, torch.full_like(d, -1.0)).amax(-1)
+
+
+def _embed12(rot, trans):
+    """[B,N,3,3] frame rotations (columns x,y,z) + [B,N,3] translations
+    -> [B,N,12] column-major flattening (the reference's layout)."""
+    cols = rot.mT.flatten(2)                      # c1,c2,c3 stacked
+    return torch.cat([cols, trans], dim=-1)
+
+
+def preprocess(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, is_se3):
+    """Centre each cloud at its own centroid and scale both by
+    s = scale_preprocessing / max_radius; padded rows go to 0."""
+    dtype = src.dtype
+    bsz = src.shape[0]
+    src_valid = torch.arange(src.shape[1], device=src.device) < n_src[:, None]
+    tgt_valid = torch.arange(tgt.shape[1], device=src.device) < n_tgt[:, None]
+    if is_se3:
+        cen_s = _masked_centroid(src, src_valid, n_src)
+        cen_t = _masked_centroid(tgt, tgt_valid, n_tgt)
+        r_s = _largest_radius(src, cen_s, src_valid)
+        r_t = _largest_radius(tgt, cen_t, tgt_valid)
+        scaling = cfg.scale_preprocessing / torch.maximum(
+            r_s, r_t).clamp_min(1e-30)
+        src_c = (src - cen_s[:, None]) * scaling[:, None, None]
+        tgt_c = (tgt - cen_t[:, None]) * scaling[:, None, None]
+    else:
+        cen_s = torch.zeros((bsz, 3), dtype=dtype, device=src.device)
+        cen_t = torch.zeros_like(cen_s)
+        scaling = torch.ones(bsz, dtype=dtype, device=src.device)
+        src_c, tgt_c = src, tgt
+    src_c = torch.where(src_valid[..., None], src_c, torch.zeros_like(src_c))
+    tgt_c = torch.where(tgt_valid[..., None], tgt_c, torch.zeros_like(tgt_c))
+    return src_c, tgt_c, Preprocess(cen_s, cen_t, scaling)
+
+
+def pack_match_state(src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, *,
+                     rot_src=None, rot_tgt=None, tgt_normals=None,
+                     cov_src6=None, cov_tgt6=None, conf_src=None,
+                     conf_tgt=None) -> MatchState:
+    """Pack the setup products into the loop's layouts: the dual-phase
+    12-D target embeddings, the per-target payload (everything the loop
+    body needs FROM the matched target row, so it never gathers), and
+    the static ``feat16`` query features.
+
+    src_c/tgt_c [B,N,3] centred+scaled clouds; rot_* [B,N,3,3] frames
+    (SE(3) modes); tgt_normals [B,Nt,3] (pt2pl); cov_*6 [B,6,N] (gicp);
+    conf_* [B,N] (with_cf)."""
+    dtype = src_c.dtype
+    bsz, ns, _ = src_c.shape
+    nt = tgt_c.shape[1]
+    is_se3 = mode != "icp"
+    use_cf = mode == "se3_cf"
+    eff_variant = "gicp" if use_cf else variant
+    dev = src_c.device
+    zeros_rot = torch.zeros((bsz, nt, 3, 3), dtype=dtype, device=dev)
+    # phase-B target embedding: zero rotation block + raw points == plain
+    # 3-D euclidean NN through the same kernel
+    tgt_embed_B = _embed12(zeros_rot, tgt_c)
+    pay_parts, pay_off, off = [tgt_c], {"tgt_c": 0}, 3
+
+    def pay_add(name, arr, width):
+        nonlocal off
+        pay_parts.append(arr)
+        pay_off[name] = off
+        off += width
+
+    if is_se3:
+        # rotation block alpha-weighted; translation rows are
+        # beta-weighted points for run_se3_icp / run_se3_pure but the
+        # RAW centred+scaled points for with_cf (reference quirk)
+        tgt_tr_A = tgt_c if use_cf else tgt_c * cfg.beta_transl
+        tgt_embed_A = _embed12(rot_tgt * cfg.alpha_rot, tgt_tr_A)
+        # beta-weighted target translations: phase-A trim distance
+        pay_add("tr_beta", tgt_c * cfg.beta_transl, 3)
+        feat9 = rot_src.mT.flatten(2)
+    else:
+        tgt_embed_A = tgt_embed_B
+        feat9 = torch.zeros((bsz, ns, 9), dtype=dtype, device=dev)
+    if eff_variant == "pt2pl":
+        pay_add("normals", tgt_normals, 3)
+    elif eff_variant == "gicp":
+        pay_add("cov", cov_tgt6.mT, 6)
+        if use_cf:
+            pay_add("conf_t", conf_tgt[..., None], 1)
+    payload = torch.cat(pay_parts, dim=-1)                   # [B,Nt,P]
+    targets = cuda_knn.pack_match_targets(tgt_embed_A, tgt_embed_B,
+                                          payload, n_tgt)
+    # q = feat @ W is affine in [F^T(9) | s(3) | 1], with R/t/alpha/
+    # beta/phase folded into a [16,16] matrix built in the loop body
+    feat16 = torch.cat(
+        [feat9, src_c, torch.ones((bsz, ns, 1), dtype=dtype, device=dev),
+         torch.zeros((bsz, ns, 3), dtype=dtype, device=dev)], dim=-1)
+    return MatchState(
+        feat16=feat16.contiguous(), targets=targets,
+        src_cT=src_c.mT.contiguous(), n_src=n_src, variant=eff_variant,
+        is_se3=is_se3, use_cf=use_cf, pay_off=pay_off,
+        cov_src6=(cov_src6.contiguous() if eff_variant == "gicp" else None),
+        conf_src=(conf_src.contiguous() if use_cf else None))
+
+
+def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
+          variant: str):
+    """Everything before the loop: confidences, preprocessing, the
+    sorted-kNN setup (frames, normals, covariances) and the packing.
+    Returns (MatchState, Preprocess)."""
+    is_se3 = mode != "icp"
+    use_cf = mode == "se3_cf"
+    eff_variant = "gicp" if use_cf else variant
+    if is_se3 and cfg.lrf_method != "toldi":
+        raise NotImplementedError(
+            f"lrf_method={cfg.lrf_method!r}: SHOT frames are a later "
+            "slice of the port; this one has TOLDI")
+    conf_src = conf_tgt = None
+    if use_cf:  # on ORIGINAL coordinates
+        conf_src = lounge_point_confidence(src)
+        conf_tgt = lounge_point_confidence(tgt)
+    src_c, tgt_c, pre = preprocess(src, n_src, tgt, n_tgt, cfg, is_se3)
+
+    need_tgt_nrm = eff_variant == "pt2pl"
+    need_cov = eff_variant == "gicp"
+    k_lrf = cfg.number_of_nn_for_lrf if is_se3 else 0
+    k_src = max(k_lrf, cfg.gicp_normals_knn if need_cov else 0)
+    k_tgt = max(k_lrf, cfg.normals_knn if need_tgt_nrm else 0,
+                cfg.gicp_normals_knn if need_cov else 0)
+    # +1 column: rank sets are recovered from midpoint thresholds, which
+    # needs the first EXCLUDED order statistic too
+    d2_src = d2_tgt = None
+    if k_src:
+        _, d2_src = knn.knn_self(src_c, k_src + 1, n_src)
+    if k_tgt:
+        _, d2_tgt = knn.knn_self(tgt_c, k_tgt + 1, n_tgt)
+
+    rot_src = rot_tgt = tgt_normals = cov_src6 = cov_tgt6 = None
+    if is_se3:
+        rot_src = lrf.toldi_frames_dense(src_c, d2_src[..., :k_lrf], n_src)
+        rot_tgt = lrf.toldi_frames_dense(tgt_c, d2_tgt[..., :k_lrf], n_tgt)
+    if need_tgt_nrm:
+        tgt_normals = lrf.normals_dense(tgt_c, d2_tgt, cfg.normals_knn,
+                                        n_tgt)
+    elif need_cov:
+        cov_src6 = lrf._sym_to_6(lrf.gicp_covariances_dense(
+            src_c, d2_src, cfg.gicp_normals_knn, cfg.gicp_epsilon, n_src))
+        cov_tgt6 = lrf._sym_to_6(lrf.gicp_covariances_dense(
+            tgt_c, d2_tgt, cfg.gicp_normals_knn, cfg.gicp_epsilon, n_tgt))
+    state = pack_match_state(
+        src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, rot_src=rot_src,
+        rot_tgt=rot_tgt, tgt_normals=tgt_normals, cov_src6=cov_src6,
+        cov_tgt6=cov_tgt6, conf_src=conf_src, conf_tgt=conf_tgt)
+    return state, pre
+
+
+def epilogue_options(ms: MatchState, cfg: RegistrationConfig) -> dict:
+    """The static arguments of ``loop_epilogue_batched`` for a state."""
+    return dict(variant=ms.variant, is_se3=ms.is_se3, use_cf=ms.use_cf,
+                do_trim=cfg.estimated_overlap < 1.0,
+                off_tr=ms.pay_off.get("tr_beta", 0),
+                off_nrm=ms.pay_off.get("normals", 0),
+                off_cov=ms.pay_off.get("cov", 0),
+                off_conf=ms.pay_off.get("conf_t", 0))
+
+
+def iteration_inputs(ms: MatchState, cfg: RegistrationConfig, T, switched,
+                     done):
+    """Per-iteration operands of the two kernels at pose T [B,4,4]:
+
+      W [B,16,16]  the affine that turns ``feat16`` into the 12-D query:
+                   q = feat16 @ W, from (R, t, alpha, beta, phase);
+      ph2 [B,2]    int32 [phase, done]: done pairs skip the match
+                   kernel's compute, their (unspecified) outputs are
+                   discarded by the done-masked state update;
+      pf [B,24]    the epilogue's scalars (``cuda_loop.PF_*`` layout).
+    """
+    dtype, dev = ms.feat16.dtype, ms.feat16.device
+    bsz = T.shape[0]
+    R = T[:, :3, :3]
+    tvec = T[:, :3, 3]
+    Rt = R.mT
+    swf = switched.to(dtype)
+    W = torch.zeros((bsz, 16, 16), dtype=dtype, device=dev)
+    if ms.is_se3:
+        blk = ((1.0 - swf) * cfg.alpha_rot)[:, None, None] * Rt
+        c_s = swf + (1.0 - swf) * cfg.beta_transl
+        W[:, 0:3, 0:3] = blk
+        W[:, 3:6, 3:6] = blk
+        W[:, 6:9, 6:9] = blk
+        W[:, 9:12, 9:12] = c_s[:, None, None] * Rt
+    else:
+        W[:, 9:12, 9:12] = Rt
+    W[:, 12, 9:12] = tvec
+    ph2 = torch.stack([switched, done], 1).to(torch.int32)
+    n_src_f = ms.n_src.to(dtype)
+    cnt_f = (torch.floor(cfg.estimated_overlap * n_src_f)
+             if cfg.estimated_overlap < 1.0 else n_src_f)
+    pf = torch.zeros((bsz, cuda_loop.PF_WIDTH), dtype=dtype, device=dev)
+    pf[:, cuda_loop.PF_T:cuda_loop.PF_T + 3] = tvec
+    pf[:, cuda_loop.PF_BETA] = cfg.beta_transl
+    pf[:, cuda_loop.PF_SWITCHED] = swf
+    pf[:, cuda_loop.PF_NSRC] = n_src_f
+    pf[:, cuda_loop.PF_COUNT] = cnt_f
+    pf[:, cuda_loop.PF_R:cuda_loop.PF_R + 9] = R.reshape(bsz, 9)
+    return W, ph2, pf
+
+
+def run_loop(ms: MatchState, scaling: torch.Tensor,
+             cfg: RegistrationConfig, mode: str, T_init=None,
+             record_history: bool = False, stats: dict | None = None):
+    """The iteration loop in the preprocessed frame.
+
+    Returns (T [B,4,4], it [B], pure_it [B], hist [B,H,4,4] | None).
+    ``stats`` (optional dict) receives ``loop_steps`` and ``host_syncs``.
+    """
+    dtype, dev = ms.feat16.dtype, ms.feat16.device
+    bsz = ms.feat16.shape[0]
+
+    # --- loop limits per mode
+    if mode == "icp":
+        start_switched = True       # R3 NN from the start, no SE3 phase
+        max_iters = cfg.max_num_iterations
+        stop_thresh = torch.full((bsz,), cfg.mse, dtype=dtype, device=dev)
+    else:
+        start_switched = False
+        max_iters = (cfg.max_num_se3_iterations if mode == "se3_pure"
+                     else cfg.max_num_iterations)
+        stop_thresh = cfg.mse * scaling     # uses scaling * mse
+    hybrid = mode in ("se3", "se3_cf")
+
+    T = (torch.eye(4, dtype=dtype, device=dev).repeat(bsz, 1, 1)
+         if T_init is None else T_init.clone())
+    it = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    pure_it = torch.zeros_like(it)
+    mse_cur = torch.full((bsz,), _BIG, dtype=dtype, device=dev)
+    mse_prev = mse_cur.clone()
+    switched = torch.full((bsz,), start_switched, dtype=torch.bool,
+                          device=dev)
+    done = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    # +1: in hybrid mode the loop can run max(caps)+1 iterations (the
+    # done test uses the pre-switch 'switched')
+    hist_len = max(cfg.max_num_iterations, cfg.max_num_se3_iterations) + 1
+    hist = (torch.zeros((bsz, hist_len, 4, 4), dtype=dtype, device=dev)
+            if record_history else None)
+
+    ar = torch.arange(bsz, device=dev)
+    ep_kw = epilogue_options(ms, cfg)
+    steps = syncs = 0
+    while steps < hist_len:
+        it1 = it + 1
+
+        # --- correspondence search + fused epilogue (trim, MSE, the
+        #     estimator's reduction)
+        W, ph2, pf = iteration_inputs(ms, cfg, T, switched, done)
+        _, matched_T = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets,
+                                                ph2)
+        A66, b8, st = cuda_loop.loop_epilogue_batched(
+            ms.src_cT, matched_T, pf, ms.cov_src6, ms.conf_src, **ep_kw)
+        mse_val, wsum = st[:, 0], st[:, 1]
+        if ms.variant == "pt2pt":
+            T_i = solve.solve_pt2pt_from_moments(
+                A66[:, :3, :3], b8[:, 0:3], b8[:, 3:6], wsum)
+        else:
+            T_i = solve.solve_from_normal(A66, b8[:, :6], wsum)
+
+        mse_rel = (mse_val - mse_cur).abs()
+        T_new = T_i @ T
+        t_change = torch.linalg.norm((T - T_new).flatten(1), dim=1)
+
+        # --- phase switch / stopping
+        stop = (it1 >= max_iters) | (mse_rel < stop_thresh)
+        if hybrid:
+            hit_switch = ((it1 >= cfg.max_num_se3_iterations)
+                          | (t_change < cfg.mse_switch_error))
+            new_switched = switched | hit_switch
+            new_done = switched & stop
+        else:
+            new_switched = switched
+            new_done = stop
+
+        # --- done-masked state update
+        active = ~done
+        T = torch.where(active[:, None, None], T_new, T)
+        it = torch.where(active, it1, it)
+        pure_it = torch.where(active & ~switched, pure_it + 1, pure_it)
+        mse_prev = torch.where(active, mse_cur, mse_prev)
+        mse_cur = torch.where(active, mse_val, mse_cur)
+        switched = torch.where(active, new_switched, switched)
+        done = done | new_done
+        if record_history:
+            # per-iteration accumulated transform; finished pairs write
+            # their final T past their own num_iterations
+            hist[ar, (it1 - 1).clamp(max=hist_len - 1).to(torch.int64)] = T
+
+        steps += 1
+        if steps % _POLL_EVERY == 0 and steps < hist_len:
+            syncs += 1
+            if bool(done.all()):        # the loop's only host sync
+                break
+    if stats is not None:
+        stats["loop_steps"] = stats.get("loop_steps", 0) + steps
+        stats["host_syncs"] = stats.get("host_syncs", 0) + syncs
+    return T, it, pure_it, hist
+
+
+def to_original(T, pre: Preprocess, is_se3: bool):
+    """Map [B,(H,)4,4] transforms of the preprocessed frame back to
+    original coordinates."""
+    if not is_se3:
+        return T
+    extra = (None,) * (T.dim() - 3)
+    Rp = T[..., :3, :3]
+    tp = T[..., :3, 3]
+    cen_s = pre.cen_s[(slice(None),) + extra]
+    cen_t = pre.cen_t[(slice(None),) + extra]
+    sc = pre.scaling[(slice(None),) + extra + (None,)]
+    t_orig = tp / sc - (Rp @ cen_s[..., None])[..., 0] + cen_t
+    out = torch.zeros_like(T)
+    out[..., :3, :3] = Rp
+    out[..., :3, 3] = t_orig
+    out[..., 3, 3] = 1.0
+    return out
+
+
+def check_supported(cfg: RegistrationConfig) -> None:
+    if cfg.anderson_m == 1:
+        raise ValueError("anderson_m must be 0 (off) or >= 2 (window)")
+    if cfg.anderson_m:
+        raise NotImplementedError(
+            "anderson_m != 0: Anderson acceleration is a later slice of "
+            "the port (it needs se3_exp/se3_log)")
+
+
+def register_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
+                    mode: str, variant: str, record_history: bool = False,
+                    initial_T=None, stats: dict | None = None):
+    """Register a batch of padded pairs on the tensors' device.
+
+    src [B,Ns,3] / tgt [B,Nt,3] padded clouds, n_src / n_tgt [B] integer
+    valid counts.  ``initial_T`` [B,4,4]: optional warm start in
+    ORIGINAL coordinates (the reference always starts at identity).
+    Returns (T [B,4,4] in original coordinates, num_iterations [B],
+    num_pure_se3_iterations [B]), plus the per-iteration history
+    [B,H,4,4] when ``record_history`` (entries at index >=
+    num_iterations are undefined).
+    """
+    check_supported(cfg)
+    knn.require_full_precision()
+    is_se3 = mode != "icp"
+    with torch.no_grad():
+        ms, pre = setup(src, n_src, tgt, n_tgt, cfg, mode, variant)
+        T_init = None
+        if initial_T is not None:
+            # the loop runs in the preprocessed frame: map T0 through
+            # the inverse of to_original
+            T0 = initial_T.to(src.dtype)
+            R0 = T0[:, :3, :3]
+            tp0 = (T0[:, :3, 3] + (R0 @ pre.cen_s[..., None])[..., 0]
+                   - pre.cen_t) * pre.scaling[:, None]
+            T_init = torch.zeros_like(T0)
+            T_init[:, :3, :3] = R0
+            T_init[:, :3, 3] = tp0
+            T_init[:, 3, 3] = 1.0
+        T, it, pure_it, hist = run_loop(ms, pre.scaling, cfg, mode, T_init,
+                                        record_history, stats)
+        T = to_original(T, pre, is_se3)
+        if record_history:
+            return T, it, pure_it, to_original(hist, pre, is_se3)
+    return T, it, pure_it
+
+
+def _bucket(n: int, quantum: int = 512) -> int:
+    """Round up to a bucket size (bounds the number of distinct shapes)."""
+    return max(quantum, -(-n // quantum) * quantum)
+
+
+def sanitize_cloud(points) -> np.ndarray:
+    """Drop non-finite rows host-side: a single NaN point would poison
+    every distance-matrix row it appears in.  Returns [M,3] float64."""
+    pts = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    mask = np.isfinite(pts).all(axis=1)
+    if mask.all():
+        return pts
+    return pts[mask]
+
+
+def register_pair(source_points, target_points,
+                  algorithm: str = "se3_pt2pl",
+                  cfg: RegistrationConfig | None = None,
+                  dtype=torch.float32, record_history: bool = False,
+                  initial_T=None, device="cuda") -> RegistrationResult:
+    """Host-facing entry point over the reference's algorithm-name
+    surface (pt2pt/pt2pl/gicp, se3_*, se3_gicp_with_cf, se3_pure_*).
+
+    Runs on the card unless ``device='cpu'``.  ``initial_T``: optional
+    [4,4] warm start in original coordinates."""
+    dev = resolve_device(device)
+    mode, variant = parse_algorithm(algorithm)
+    cfg = cfg or RegistrationConfig()
+    src = sanitize_cloud(source_points)
+    tgt = sanitize_cloud(target_points)
+    ns, nt = len(src), len(tgt)
+    src_p = np.zeros((1, _bucket(ns), 3), np.float64)
+    src_p[0, :ns] = src
+    tgt_p = np.zeros((1, _bucket(nt), 3), np.float64)
+    tgt_p[0, :nt] = tgt
+    T0 = None
+    if initial_T is not None:
+        T0 = torch.as_tensor(np.asarray(initial_T, np.float64)[None],
+                             dtype=dtype, device=dev)
+    out = register_arrays(
+        torch.as_tensor(src_p, dtype=dtype, device=dev),
+        torch.tensor([ns], dtype=torch.int32, device=dev),
+        torch.as_tensor(tgt_p, dtype=dtype, device=dev),
+        torch.tensor([nt], dtype=torch.int32, device=dev),
+        cfg, mode, variant, record_history=record_history, initial_T=T0)
+    n_it = int(out[1][0])
+    history = None
+    if record_history:
+        history = out[3][0, :n_it].double().cpu().numpy()
+    return RegistrationResult(
+        transformation=out[0][0].double().cpu().numpy(),
+        num_iterations=n_it,
+        num_pure_se3_iterations=int(out[2][0]),
+        history=history)

@@ -1,0 +1,134 @@
+"""Builds and loads the hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``
+into ONE shared library with a plain C interface, loaded with
+``ctypes``; no PyTorch header is involved, so the build takes seconds.
+It happens at first use, from the sources in the package and nothing
+else, into ``<package>/build/`` (git-ignored).  The library's name
+carries a hash of sources and flags, so an edited source rebuilds and an
+unchanged one is reused, also by a second process.
+
+A missing ``nvcc`` or a failing build raises: nothing here gives way to
+a kernel's plain version.
+
+Each exported C function launches on the stream it is handed, allocates
+nothing and returns ``cudaGetLastError()``; ``check`` turns a non-zero
+code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> argtypes; every function returns the cudaError_t as int
+SIGNATURES = {
+    # feat, w, emb, tn, payload, n_tgt, phase, d2, matchedT,
+    # B, Nq, Nt, P, stream
+    "se3icp_match_affine": [_P] * 9 + [_I] * 4 + [_P],
+    # srcT, matchedT, pf, cov6, conf, A, b, st,
+    # B, N, P, variant, is_se3, use_cf, do_trim,
+    # off_tr, off_nrm, off_cov, off_conf, isteps, stream
+    "se3icp_loop_epilogue": [_P] * 8 + [_I] * 12 + [_P],
+}
+
+
+def find_nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            cands.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA "
+        "kernels of se3_icp_tpu_torch cannot be built")
+
+
+def sources() -> list[Path]:
+    srcs = sorted(CSRC.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(force: bool = False, verbose: bool = False) -> Path:
+    """Compile every source (one ``nvcc`` per source, all started
+    together), link, and return the library's path.  Reuses a library
+    already built from the same sources and flags unless ``force``."""
+    srcs = sources()
+    tag = _digest(srcs)
+    lib = BUILD_DIR / f"libse3icp_{tag}.so"
+    if lib.exists() and not force:
+        return lib
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    extra = ["-Xptxas", "-v"] if verbose else []
+    uniq = f"{tag}_{os.getpid()}"
+    objs, procs = [], []
+    for s in srcs:
+        obj = BUILD_DIR / f"{s.stem}_{uniq}.o"
+        objs.append(obj)
+        procs.append((s, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for s, p in procs:
+        out, _ = p.communicate()
+        logs.append(out)
+        if p.returncode != 0:
+            failed.append(f"--- {s.name} (exit {p.returncode})\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = BUILD_DIR / f"libse3icp_{uniq}.so.tmp"
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)        # atomic: a concurrent loader sees all or none
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if verbose:
+        print("".join(logs), flush=True)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built if need be on the first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {code}")

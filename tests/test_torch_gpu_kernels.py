@@ -1,0 +1,175 @@
+"""The port's two CUDA kernels against their plain PyTorch versions, on
+the card.  These tests need a CUDA device and ``nvcc``; elsewhere they
+skip (a CUDA kernel has no interpret mode).  Run them on a GPU machine
+with ``python -m pytest tests/test_torch_gpu_kernels.py -q --noconftest``
+(they need no jax, which ``conftest.py`` would import); the full
+on-card check at the main path's shapes is ``python3 chip_smoke.py``.
+
+Tolerances as in ``chip_smoke.py``: the match's shifted d2 to 1e-4
+absolute with at most 1% of rows matched to another (near-tied) target;
+the epilogue's kept count exact, sums to 1e-5 (gicp 1e-4) of the
+largest entry.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from se3_icp_tpu_torch.datasets import fixtures
+from se3_icp_tpu_torch.models import registration as reg
+from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop
+from se3_icp_tpu_torch.parallel import pairs
+from se3_icp_tpu_torch.utils import metrics_host
+from se3_icp_tpu_torch.utils.config import GOLDEN, parse_algorithm
+
+# the suite runs several worker processes side by side: keep each
+# one's torch thread pool small
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _state(card, alg, cfg):
+    probs = [fixtures.golden_shape_problem(seed=s, n=n)
+             for s, n in ((1, 900), (2, 777), (3, 1024))]
+    src, n_src, tgt, n_tgt = pairs.pack_pairs(
+        [(p.source, p.target) for p in probs])
+    t = lambda a: torch.as_tensor(a, device=card)
+    mode, variant = parse_algorithm(alg)
+    ms, _ = reg.setup(t(src), t(n_src), t(tgt), t(n_tgt), cfg, mode,
+                      variant)
+    eye = torch.eye(4, device=card).repeat(len(probs), 1, 1)
+    switched = torch.tensor([False, True, False], device=card)
+    W, phase, pf = reg.iteration_inputs(ms, cfg, eye, switched,
+                                        torch.zeros_like(switched))
+    return ms, W, phase, pf
+
+
+@pytest.mark.parametrize("alg,overlap", [
+    ("se3_pt2pl", 1.0), ("se3_pt2pl", 0.75), ("se3_pt2pt", 0.75),
+    ("se3_gicp", 1.0), ("se3_gicp_with_cf", 0.75), ("pt2pl", 1.0),
+])
+def test_kernels_match_their_plain_versions(card, alg, overlap):
+    cfg = GOLDEN.replace(estimated_overlap=overlap)
+    ms, W, phase, pf = _state(card, alg, cfg)
+    n0 = cuda_knn.nn_match_affine.launches
+    d2, mt = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets, phase)
+    assert cuda_knn.nn_match_affine.launches == n0 + 1
+    d2p, mtp = cuda_knn.nn_match_affine_plain(ms.feat16, W, ms.targets,
+                                              phase)
+    assert float((d2 - d2p).abs().max()) <= 1e-4
+    assert float((mt != mtp).any(1).float().mean()) <= 0.01
+    kw = reg.epilogue_options(ms, cfg)
+    args = (ms.src_cT, mtp, pf, ms.cov_src6, ms.conf_src)
+    A, b, st = cuda_loop.loop_epilogue_batched(*args, **kw)
+    Ap, bp, stp = cuda_loop.loop_epilogue_plain(*args, **kw)
+    assert bool((st[:, 1] == stp[:, 1]).all())
+    rel = 1e-4 if ms.variant == "gicp" else 1e-5
+    for k, p in ((A, Ap), (b, bp)):
+        scale = p.abs().flatten(1).amax(1).clamp_min(1.0)
+        assert float(((k - p).abs().flatten(1).amax(1) / scale).max()) <= rel
+    np.testing.assert_allclose(st[:, 0].cpu().numpy(),
+                               stp[:, 0].cpu().numpy(), rtol=1e-5)
+
+
+def test_kernels_refuse_what_they_do_not_take(card):
+    ms, W, phase, _ = _state(card, "se3_pt2pl", GOLDEN)
+    with pytest.raises(TypeError):
+        cuda_knn.nn_match_affine(ms.feat16.double(), W, ms.targets, phase)
+    with pytest.raises(ValueError):
+        cuda_knn.nn_match_affine(ms.feat16[:, :, :12], W, ms.targets, phase)
+    with pytest.raises(ValueError):
+        cuda_knn.nn_match_affine(ms.feat16, W.cpu(), ms.targets, phase)
+
+
+@pytest.mark.parametrize("n_tied", [2, 3, 5])
+def test_match_kernel_averages_exact_ties(card, n_tied):
+    """A target present n_tied times: the kernel averages the tied
+    payload rows -- two gathered directly, three or more through its
+    second pass over the targets."""
+    rng = np.random.default_rng(8)
+    nq, nt, p = 200, 300, 4
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=card)
+    emb = np.zeros((1, nt, 12))
+    emb[:, :, 9:12] = rng.normal(size=(1, nt, 3))
+    emb[0, 1:n_tied, 9:12] = emb[0, 0, 9:12]
+    emb[0, n_tied:, 9:12] += 100.0
+    pay = rng.normal(size=(1, nt, p)).astype(np.float32)
+    feat = np.zeros((1, nq, 16))
+    feat[:, :, 12] = 1.0
+    feat[0, :, 9:12] = emb[0, 0, 9:12] + 1e-3 * rng.normal(size=(nq, 3))
+    W = np.zeros((1, 16, 16))
+    W[:, 9:12, 9:12] = np.eye(3)
+    targets = cuda_knn.pack_match_targets(
+        t(emb), t(emb), t(pay),
+        torch.tensor([nt], dtype=torch.int32, device=card))
+    phase = torch.tensor([[1, 0]], dtype=torch.int32, device=card)
+    _, m = cuda_knn.nn_match_affine(t(feat), t(W), targets, phase)
+    _, mp = cuda_knn.nn_match_affine_plain(t(feat), t(W), targets, phase)
+    want = np.broadcast_to(pay[0, :n_tied].mean(0), (nq, p))
+    np.testing.assert_allclose(m[0].cpu().numpy().T, want, rtol=1e-6)
+    np.testing.assert_allclose(m.cpu().numpy(), mp.cpu().numpy(), rtol=1e-6)
+
+
+def test_register_pairs_on_the_card_matches_the_cpu_route(card):
+    probs = [fixtures.golden_shape_problem(seed=s, n=600) for s in (1, 2)]
+    pl = [(p.source, p.target) for p in probs]
+    on_card = pairs.register_pairs(pl, "se3_pt2pl", GOLDEN)
+    on_cpu = pairs.register_pairs(pl, "se3_pt2pl", GOLDEN, device="cpu")
+    for p, a, b in zip(probs, on_card, on_cpu):
+        assert metrics_host.success(p.T_gt, a.transformation)
+        assert a.num_iterations == b.num_iterations
+        assert metrics_host.angular_error_so3(
+            a.transformation[:3, :3], b.transformation[:3, :3]) < 1e-3
+
+
+def test_kernels_at_the_kitti_bucket(card):
+    """N = 15360: the trim keys of one pair (61 KB) exceed the 48 KB a
+    block gets without asking, so the epilogue takes its opt-in
+    shared-memory path; the match walks 120 target tiles."""
+    rng = np.random.default_rng(0)
+    bsz, n, p = 2, 15360, 9
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=card)
+    srcT = t(rng.normal(size=(bsz, 3, n)))
+    mt = rng.normal(size=(bsz, p, n))
+    mt[:, 6:9] /= np.linalg.norm(mt[:, 6:9], axis=1, keepdims=True)
+    pf = np.zeros((bsz, cuda_loop.PF_WIDTH))
+    pf[:, cuda_loop.PF_BETA] = 1.0
+    pf[:, cuda_loop.PF_SWITCHED] = (0.0, 1.0)
+    pf[:, cuda_loop.PF_NSRC] = (15360, 14001)
+    pf[:, cuda_loop.PF_COUNT] = np.floor(0.7 * pf[:, cuda_loop.PF_NSRC])
+    pf[:, cuda_loop.PF_R:cuda_loop.PF_R + 9] = np.eye(3).reshape(9)
+    kw = dict(variant="pt2pl", is_se3=True, use_cf=False, do_trim=True,
+              off_tr=3, off_nrm=6)
+    A, b, st = cuda_loop.loop_epilogue_batched(srcT, t(mt), t(pf), **kw)
+    Ap, bp, stp = cuda_loop.loop_epilogue_plain(srcT, t(mt), t(pf), **kw)
+    assert st[:, 1].tolist() == stp[:, 1].tolist() == \
+        pf[:, cuda_loop.PF_COUNT].tolist()
+    for k, q in ((A, Ap), (b, bp), (st, stp)):
+        scale = q.abs().flatten(1).amax(1).clamp_min(1.0)
+        assert float(((k - q).abs().flatten(1).amax(1) / scale).max()) <= 1e-5
+
+    feat = np.zeros((bsz, n, 16))
+    feat[:, :, 9:12] = rng.normal(size=(bsz, n, 3))
+    feat[:, :, 12] = 1.0
+    W = np.zeros((bsz, 16, 16))
+    W[:, 9:12, 9:12] = np.eye(3)
+    emb = np.zeros((bsz, n, 12))
+    emb[:, :, 9:12] = rng.normal(size=(bsz, n, 3))
+    targets = cuda_knn.pack_match_targets(
+        t(emb), t(emb), t(rng.normal(size=(bsz, n, p))),
+        torch.tensor([15360, 15000], dtype=torch.int32, device=card))
+    phase = torch.tensor([[1, 0], [1, 0]], dtype=torch.int32, device=card)
+    d2, m = cuda_knn.nn_match_affine(t(feat), t(W), targets, phase)
+    d2p, mp = cuda_knn.nn_match_affine_plain(t(feat), t(W), targets, phase)
+    assert float((d2 - d2p).abs().max()) <= 1e-4
+    assert float((m != mp).any(1).float().mean()) <= 0.01
