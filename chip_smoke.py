@@ -8,16 +8,19 @@ for an H100, sm_90a) and the CUDA toolkit:
 
 It builds the CUDA kernels from ``se3_icp_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card at the main path's
-shapes (64 pairs, 4608-point bucket), drives the main path through the
-public entry points (``register_pairs`` with ``se3_pt2pl`` / ``GOLDEN``
-on 64 seed-made golden-shape pairs, then smaller batches of the other
-algorithms, then the CLI as a subprocess), gates every result at
-2 deg / 0.25, and shows from the wrappers' launch counts that the main
-path went through the kernels.  Every phase prints one JSON line; any
-failed phase raises, so the exit code is non-zero and the final
-``{"ok": true, ...}`` line is not printed.  Without a CUDA device it
-exits with code 2 and prints no result.  ``--profile`` adds one line
-with the main path's device time by kernel name.
+shapes (64 pairs, 4608-point bucket): the setup kernels K1-K3 of the
+sort-free threshold route and the loop kernels K4, K5.  It then drives
+the main path through the public entry points (``register_pairs`` with
+``se3_pt2pl`` / ``GOLDEN`` on 64 seed-made golden-shape pairs, on the
+default threshold route and again with ``exact_knn=True``), then
+smaller batches of the other algorithms, then the CLI as a subprocess;
+it gates every result at 2 deg / 0.25, and shows from the wrappers'
+launch counts that each path went through its kernels.  Every phase
+prints one JSON line; any failed phase raises, so the exit code is
+non-zero and the final ``{"ok": true, ...}`` line is not printed.
+Without a CUDA device it exits with code 2 and prints no result.
+``--profile`` adds one line with the main path's device time by kernel
+name.
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ SMALL_BATCH = 8              # the other algorithms' batch
 K4_D2_TOL = 1e-4             # abs; d2 sums ~40-magnitude float32 terms
 K4_FLIP_SHARE = 0.01         # rows whose two nearest targets tie in rounding
 K5_REL_TOL = {"pt2pt": 1e-5, "pt2pl": 1e-5, "gicp": 1e-4}
+K2_REL_TOL = 1e-5            # of each row's largest entry: f32 sums, other order
+K3_REL_TOL = 1e-4            # weights are products of four rounded factors
 
 
 def emit(phase: str, **kw) -> None:
@@ -262,6 +267,180 @@ def k5_case(name, ms, cfg, matched_T, pf):
                 trim=cfg.estimated_overlap)
 
 
+def bound(ops, nbytes):
+    """The least time for ``ops`` float32 operations and ``nbytes`` moved
+    (each input read once, each output written once), and what sets it."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def row_rel_err(got, ref, nv):
+    """max over (pair, component row) of max |got - ref| / max |ref|, over
+    the valid queries; [B,C,N] or [B,N]."""
+    if got.dim() == 2:
+        got, ref = got[:, None], ref[:, None]
+    col = torch.arange(got.shape[-1], device=got.device)
+    valid = (col[None, :] < nv[:, None])[:, None, :]
+    diff = torch.where(valid, (got - ref).abs(), 0.0).amax(-1)
+    scale = torch.where(valid, ref.abs(), 0.0).amax(-1).clamp_min(1e-30)
+    return float((diff / scale).max())
+
+
+def setup_clouds(problems):
+    """The main path's setup inputs: the packed pairs on the card,
+    centred and scaled as ``registration.preprocess`` does."""
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    src, n_src, tgt, n_tgt = (torch.as_tensor(a, device="cuda")
+                              for a in pairs.pack_pairs(
+                                  [(p.source, p.target) for p in problems]))
+    src_c, tgt_c, _ = reg.preprocess(src, n_src, tgt, n_tgt, GOLDEN, True)
+    return (src_c, n_src), (tgt_c, n_tgt)
+
+
+def k1_case(name, points, nv, counts, with_topk=False):
+    """K1 against its plain version: the thresholds must be the same
+    bits (same rounding steps).  Returns (case, thr)."""
+    from se3_icp_tpu_torch.ops import cuda_moments as cm, knn
+    cloud = cm.setup_cloud(points, nv)
+    bsz, n, _ = points.shape
+    cc = torch.tensor(counts, dtype=torch.int32,
+                      device=points.device).expand(bsz, -1)
+    thr = cm.neighborhood_thresholds_batched(points, nv, cc, cloud=cloud)
+    torch.cuda.synchronize()
+    thr_p = cm.neighborhood_thresholds_plain(points, nv, cc, cloud=cloud)
+    check(bool(torch.isfinite(thr).all()), f"{name}: thresholds not finite")
+    n_diff = int((thr != thr_p).sum())
+    check(n_diff == 0, f"{name}: {n_diff} thresholds differ from the "
+          "plain version's bits")
+    # ball sizes the thresholds give (float32 distances, valid rows)
+    d2 = knn._pairwise_d2(points[:1, :int(nv[0])], points[:1, :int(nv[0])])
+    sizes = (d2[0, :, None, :] <= thr[0, :, :int(nv[0])].mT[:, :, None]) \
+        .sum(-1).float()                                       # [n, T]
+    ms_k = time_ms(lambda: cm.neighborhood_thresholds_batched(
+        points, nv, cc, cloud=cloud))
+    ms_p = time_ms(lambda: cm.neighborhood_thresholds_plain(
+        points, nv, cc, cloud=cloud), reps=3)
+    nvd = nv.double()
+    # fold: 8 operations per (valid query, valid target); search: a
+    # compare and an add per candidate lane and probe
+    ops = (8 * float((nvd * nvd).sum())
+           + 2 * cm.CAND * sum(cm.plan(len(counts))) * float(nvd.sum()))
+    case = dict(name=name, max_abs_err=float((thr - thr_p).abs().max()),
+                bit_equal=True, thresholds_differing=n_diff,
+                ms=ms_k, plain_ms=ms_p,
+                **bound(ops, 4 * bsz * n * (4 + len(counts))),
+                library_ms=None,
+                counts=list(counts),
+                ball_size_pair0=dict(
+                    median=sizes.median(0).values.tolist(),
+                    min=sizes.amin(0).tolist(), max=sizes.amax(0).tolist()),
+                shape=dict(B=bsz, N=n, T=len(counts)),
+                n_valid=[int(nv.min()), int(nv.max())])
+    if with_topk:
+        # context, not a yardstick: the exact route's sorted kNN of the
+        # same cloud (one of the two torch.topk calls it makes)
+        case["exact_route_topk_ms"] = time_ms(
+            lambda: knn.knn_self(points, 91, nv), reps=3)
+    return case, thr
+
+
+def k2_case(name, points, nv, thr3):
+    """K2 against its plain version: equal ball counts, sums within
+    K2_REL_TOL of each row's largest entry.  Returns (case, moments)."""
+    from se3_icp_tpu_torch.ops import cuda_moments as cm
+    cloud = cm.setup_cloud(points, nv)
+    args = (points, nv, *thr3)
+    mom = cm.moments_batched(*args, cloud=cloud)
+    torch.cuda.synchronize()
+    mom_p = cm.moments_plain(*args, cloud=cloud)
+    for key in ("cen_cnt", "cov_cnt", "all_cnt"):
+        check(bool((mom[key] == mom_p[key]).all()),
+              f"{name}: {key} differs from the plain version")
+    errs = {k: row_rel_err(mom[k], mom_p[k], nv)
+            for k in ("cen_sum", "cen_p9", "cov_sum", "cov_p9", "all_sum")}
+    rel = max(errs.values())
+    check(rel <= K2_REL_TOL,
+          f"{name}: sums differ by {rel:.2e} > {K2_REL_TOL:.0e}")
+    ms_k = time_ms(lambda: cm.moments_batched(*args, cloud=cloud))
+    ms_p = time_ms(lambda: cm.moments_plain(*args, cloud=cloud), reps=3)
+    bsz, n, _ = points.shape
+    nvd = nv.double()
+    valid = torch.arange(n, device=nv.device)[None, :] < nv[:, None]
+    members = sum(float(((mom[k] + 1.0) * valid).sum())
+                  for k in ("cen_cnt", "cov_cnt", "all_cnt"))
+    # distance (7) and three compares per (valid query, valid target);
+    # six products and ten adds per member and ball
+    ops = 10 * float((nvd * nvd).sum()) + 16 * members
+    return dict(name=name, max_abs_err=rel, max_rel_err=errs,
+                counts_equal=True, tolerance=K2_REL_TOL, ms=ms_k,
+                plain_ms=ms_p, **bound(ops, 4 * bsz * n * (4 + 3 + 30)),
+                library_ms=None, members_per_query=members / float(
+                    nvd.sum()), shape=dict(B=bsz, N=n)), mom
+
+
+def k3_case(name, points, nv, thr_k, mom):
+    """K3 against its plain version at the main path's inputs (the TOLDI
+    normals of the moments)."""
+    from se3_icp_tpu_torch.ops import cuda_moments as cm, lrf
+    cloud = cm.setup_cloud(points, nv)
+    normal_t, ndotq, radius = lrf.toldi_axis_inputs(mom, thr_k, 30)
+    args = (points, nv, normal_t, ndotq, radius, thr_k)
+    w_p, w_sum = cm.axis_sums_batched(*args, cloud=cloud)
+    torch.cuda.synchronize()
+    pw_p, pw_sum = cm.axis_sums_plain(*args, cloud=cloud)
+    check(bool(torch.isfinite(w_p).all() and torch.isfinite(w_sum).all()),
+          f"{name}: sums not finite")
+    rel = max(row_rel_err(w_p, pw_p, nv), row_rel_err(w_sum, pw_sum, nv))
+    check(rel <= K3_REL_TOL,
+          f"{name}: sums differ by {rel:.2e} > {K3_REL_TOL:.0e}")
+    ms_k = time_ms(lambda: cm.axis_sums_batched(*args, cloud=cloud))
+    ms_p = time_ms(lambda: cm.axis_sums_plain(*args, cloud=cloud), reps=3)
+    bsz, n, _ = points.shape
+    nvd = nv.double()
+    valid = torch.arange(n, device=nv.device)[None, :] < nv[:, None]
+    members = float(((mom["all_cnt"] + 1.0) * valid).sum())
+    # distance (7) and a compare per (valid query, valid target); ~20
+    # operations per member (sqrt, n.t, weight, three FMAs and an add)
+    ops = 8 * float((nvd * nvd).sum()) + 20 * members
+    return dict(name=name, max_abs_err=rel, tolerance=K3_REL_TOL, ms=ms_k,
+                plain_ms=ms_p, **bound(ops, 4 * bsz * n * (4 + 6 + 4)),
+                library_ms=None, members_per_query=members / float(
+                    nvd.sum()), shape=dict(B=bsz, N=n))
+
+
+def setup_kernels_phase():
+    """K1-K3 against their plain versions on the main path's clouds (both
+    sides of 64 golden-shape pairs, 4167 of 4608 rows valid) with the
+    main path's counts {90, 31, 30}; then K1 with GICP's count set and
+    with n_valid varying over the batch."""
+    problems = golden_pairs(N_PAIRS)
+    k1, k2, k3 = [], [], []
+    for side, (pts, nv) in zip(("", "[target]"), setup_clouds(problems)):
+        case, thr = k1_case(f"neighborhood_thresholds_batched{side}", pts,
+                            nv, (90, 31, 30), with_topk=True)
+        k1.append(case)
+        case, mom = k2_case(f"moments_batched{side}", pts, nv,
+                            (thr[:, 2], thr[:, 1], thr[:, 0]))
+        k2.append(case)
+        k3.append(k3_case(f"axis_sums_batched{side}", pts, nv, thr[:, 0],
+                          mom))
+        if not side:
+            k1.append(k1_case("neighborhood_thresholds_batched[gicp, T=4]",
+                              pts, nv, (90, 31, 30, 20))[0])
+            gen = torch.Generator(device="cpu").manual_seed(0)
+            nv_mixed = torch.randint(2048, 4168, (N_PAIRS,), generator=gen,
+                                     dtype=torch.int32).to(pts.device)
+            k1.append(k1_case(
+                "neighborhood_thresholds_batched[n_valid 2048..4167]",
+                pts, nv_mixed, (90, 31, 30))[0])
+        del thr, mom
+        torch.cuda.empty_cache()
+    return k1, k2, k3
+
+
 def kernels_phase():
     """Each kernel against its plain version at the main path's shapes."""
     from se3_icp_tpu_torch.ops import cuda_knn
@@ -311,9 +490,45 @@ def kernels_phase():
     return k4_cases, k5_cases
 
 
+class SetupSplit:
+    """Host time of each setup kernel wrapper inside one setup call:
+    the wrappers are wrapped (within the ``with`` block only) so that
+    each call is bracketed by synchronizations."""
+
+    NAMES = ("neighborhood_thresholds_batched", "moments_batched",
+             "axis_sums_batched")
+
+    def __enter__(self):
+        from se3_icp_tpu_torch.ops import cuda_moments as cm
+        self.cm, self.orig, self.seconds = cm, {}, dict.fromkeys(
+            self.NAMES, 0.0)
+        for name in self.NAMES:
+            fn = self.orig[name] = getattr(cm, name)
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[_name] += time.perf_counter() - t0
+                return out
+            # a wrapper counts its launches through its module name,
+            # which is this stand-in while the block runs
+            timed.launches = 0
+            setattr(cm, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cm, name, fn)
+
+
 def phases_line(problems):
     """Where one main-path call spends its time: the same batch through
-    setup and loop separately, each ended by a synchronize."""
+    setup and loop separately, each ended by a synchronize.  Setup is
+    split into the thresholds (K1), the moments and axis sums (K2, K3)
+    and the glue around them; the exact route's setup is timed beside
+    it."""
     from se3_icp_tpu_torch.models import registration as reg
     from se3_icp_tpu_torch.ops import knn
     from se3_icp_tpu_torch.parallel import pairs
@@ -334,6 +549,11 @@ def phases_line(problems):
     with torch.no_grad():
         (ms, pre), setup_s = timed(lambda: reg.setup(
             src, n_src, tgt, n_tgt, GOLDEN, "se3", "pt2pl"))
+        with SetupSplit() as split:
+            _, split_s = timed(lambda: reg.setup(
+                src, n_src, tgt, n_tgt, GOLDEN, "se3", "pt2pl"))
+        _, exact_s = timed(lambda: reg.setup(
+            src, n_src, tgt, n_tgt, GOLDEN, "se3", "pt2pl", exact_knn=True))
         src_c, tgt_c, _ = reg.preprocess(src, n_src, tgt, n_tgt, GOLDEN,
                                          True)
         _, knn_s = timed(lambda: (knn.knn_self(src_c, 91, n_src),
@@ -341,10 +561,18 @@ def phases_line(problems):
         stats = {}
         _, loop_s = timed(lambda: reg.run_loop(ms, pre.scaling, GOLDEN,
                                                "se3", stats=stats))
+    sec = split.seconds
+    kernels_s = sum(sec.values())
     emit("phases", pairs=len(problems), host_pack_seconds=pack_s,
          upload_seconds=upload_s, setup_seconds=setup_s,
-         setup_knn_seconds=knn_s, loop_seconds=loop_s,
-         loop_steps=stats["loop_steps"],
+         setup_split=dict(
+             seconds=split_s,
+             thresholds_seconds=sec["neighborhood_thresholds_batched"],
+             moments_axis_seconds=(sec["moments_batched"]
+                                   + sec["axis_sums_batched"]),
+             glue_seconds=split_s - kernels_s),
+         setup_exact_seconds=exact_s, setup_exact_knn_seconds=knn_s,
+         loop_seconds=loop_s, loop_steps=stats["loop_steps"],
          loop_ms_per_step=1e3 * loop_s / stats["loop_steps"])
 
 
@@ -366,7 +594,8 @@ def profile_line(pair_list):
     total = sum(r[0] for r in rows)
     own = {tag: dict(ms=sum(r[0] for r in rows if tag in r[2]) / 1e3,
                      calls=sum(r[1] for r in rows if tag in r[2]))
-           for tag in ("match_affine_kernel", "epilogue_kernel")}
+           for tag in ("thresholds_kernel", "moments_kernel", "axis_kernel",
+                       "match_affine_kernel", "epilogue_kernel")}
     emit("profile", device_ms_total=total / 1e3,
          device_kernel_launches=sum(r[1] for r in rows),
          hand_written=own,
@@ -374,49 +603,104 @@ def profile_line(pair_list):
               for r in rows[:10]])
 
 
+def wrappers():
+    """name -> the launch-counting wrapper of every ported kernel."""
+    from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, cuda_moments
+    return dict(
+        neighborhood_thresholds_batched=(
+            cuda_moments.neighborhood_thresholds_batched),
+        moments_batched=cuda_moments.moments_batched,
+        axis_sums_batched=cuda_moments.axis_sums_batched,
+        nn_match_affine=cuda_knn.nn_match_affine,
+        loop_epilogue_batched=cuda_loop.loop_epilogue_batched)
+
+
+def zero_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def check_launches(what, launches, loop_steps, setup):
+    """The loop kernels launch once per loop step; the setup kernels
+    ``setup`` = (K1, K2, K3) times, as the count sets give."""
+    for name in ("nn_match_affine", "loop_epilogue_batched"):
+        check(launches[name] == loop_steps > 0,
+              f"{what} launched {name} {launches[name]} times in "
+              f"{loop_steps} loop steps")
+    want = dict(zip(("neighborhood_thresholds_batched", "moments_batched",
+                     "axis_sums_batched"), setup))
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{what} launched {name} {launches[name]} times, not {n}")
+
+
+def main_path_run(pair_list, problems, exact_knn):
+    """One timed 64-pair call of the main path, gated, with its launch
+    counts: (line fields, launches)."""
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    zero_launches()
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = pairs.register_pairs(pair_list, "se3_pt2pl", GOLDEN,
+                                   stats=stats, exact_knn=exact_knn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    route = "exact_knn" if exact_knn else "threshold"
+    rot, tra = gate(problems, results, f"main path se3_pt2pl ({route})")
+    iters = [r.num_iterations for r in results]
+    check(stats["loop_steps"] >= max(iters), "loop steps < iterations")
+    # threshold route: K1 once per cloud; K2 once per cloud (the target's
+    # normals ride its TOLDI pass); K3 once per cloud
+    check_launches(f"main path ({route})", launches, stats["loop_steps"],
+                   (0, 0, 0) if exact_knn else (2, 2, 2))
+    return dict(route=route, algorithm="se3_pt2pl", config="GOLDEN",
+                pairs=N_PAIRS, points=4167, bucket=4608, seconds=wall,
+                pairs_per_s=N_PAIRS / wall,
+                mean_iterations=float(np.mean(iters)),
+                max_iterations=max(iters), loop_steps=stats["loop_steps"],
+                host_syncs=stats["host_syncs"], launches=launches,
+                worst_rot_deg=rot, worst_trans=tra,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), launches
+
+
+# K1/K2/K3 launches of one call per algorithm, from its count sets
+ALGORITHM_SETUP_LAUNCHES = {
+    "se3_gicp": (2, 4, 2),          # frames, then the GICP normals' pass
+    "se3_gicp_with_cf": (2, 4, 2),
+    "se3_pt2pt": (2, 2, 2),
+    "pt2pl": (1, 1, 0),             # target normals only, no frames
+}
+
+
 def main_path_phase(with_profile: bool = False):
-    """The port's main path through its public entry points."""
+    """The port's main path through its public entry points, on the
+    threshold route (the default) and on the exact route."""
     from se3_icp_tpu_torch.datasets.fixtures import NOISY, SMALL_POSE
-    from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop
     from se3_icp_tpu_torch.parallel import pairs
     from se3_icp_tpu_torch.utils.config import GOLDEN, LOUNGE
 
     problems = golden_pairs(N_PAIRS)
     pair_list = [(p.source, p.target) for p in problems]
     check(all(len(p.source) == 4167 for p in problems), "cloud size")
-    # warm-up call (allocator, cuBLAS/cuSOLVER handles), not counted
+    # warm-up calls (allocator, cuBLAS/cuSOLVER handles), not counted
     t0 = time.perf_counter()
-    pairs.register_pairs(pair_list[:SMALL_BATCH], "se3_pt2pl", GOLDEN)
+    for exact in (False, True):
+        pairs.register_pairs(pair_list[:SMALL_BATCH], "se3_pt2pl", GOLDEN,
+                             exact_knn=exact)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    cuda_knn.nn_match_affine.launches = 0
-    cuda_loop.loop_epilogue_batched.launches = 0
-    stats = {}
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    results = pairs.register_pairs(pair_list, "se3_pt2pl", GOLDEN,
-                                   stats=stats)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(
-        nn_match_affine=cuda_knn.nn_match_affine.launches,
-        loop_epilogue_batched=cuda_loop.loop_epilogue_batched.launches)
-    rot, tra = gate(problems, results, "main path se3_pt2pl")
-    iters = [r.num_iterations for r in results]
-    for name, n in launches.items():
-        check(n >= max(iters) > 0,
-              f"main path launched {name} {n} times for {max(iters)} "
-              "iterations")
-    check(launches["nn_match_affine"] == stats["loop_steps"],
-          "launch count and loop steps disagree")
-    emit("main_path", algorithm="se3_pt2pl", config="GOLDEN",
-         pairs=N_PAIRS, points=4167, bucket=4608, seconds=wall,
-         pairs_per_s=N_PAIRS / wall, warmup_seconds=warm_s,
-         mean_iterations=float(np.mean(iters)), max_iterations=max(iters),
-         loop_steps=stats["loop_steps"], host_syncs=stats["host_syncs"],
-         launches=launches, worst_rot_deg=rot, worst_trans=tra,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    line, launches = main_path_run(pair_list, problems, exact_knn=False)
+    emit("main_path", warmup_seconds=warm_s, **line)
+    line, _ = main_path_run(pair_list, problems, exact_knn=True)
+    emit("main_path_exact", **line)
 
     phases_line(problems)
     if with_profile:
@@ -437,7 +721,7 @@ def main_path_phase(with_profile: bool = False):
               and mh.translation_error(a.transformation[:3, 3],
                                        b.transformation[:3, 3]) < 1e-4,
               "card and CPU plain route disagree")
-    emit("card_vs_cpu", pairs=2, points=600,
+    emit("card_vs_cpu", route="threshold", pairs=2, points=600,
          iterations=[r.num_iterations for r in on_card], agree=True)
 
     # the other algorithms, smaller batches, same entry point and gate
@@ -450,22 +734,18 @@ def main_path_phase(with_profile: bool = False):
         walls = []
         for _ in range(2):      # the first call pays one-off library set-up
             st = {}
-            cuda_knn.nn_match_affine.launches = 0
-            cuda_loop.loop_epilogue_batched.launches = 0
+            zero_launches()
             t0 = time.perf_counter()
             res = pairs.register_pairs(
                 [(p.source, p.target) for p in probs], alg, cfg, stats=st)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        alg_launches = dict(
-            nn_match_affine=cuda_knn.nn_match_affine.launches,
-            loop_epilogue_batched=cuda_loop.loop_epilogue_batched.launches)
+        alg_launches = read_launches()
         rot, tra = gate(probs, res, alg)
         iters = [r.num_iterations for r in res]
-        for name, n in alg_launches.items():
-            check(n == st["loop_steps"] and n >= max(iters) > 0,
-                  f"{alg} launched {name} {n} times for {max(iters)} "
-                  f"iterations in {st['loop_steps']} loop steps")
+        check(st["loop_steps"] >= max(iters), f"{alg}: loop steps")
+        check_launches(alg, alg_launches, st["loop_steps"],
+                       ALGORITHM_SETUP_LAUNCHES[alg])
         emit("algorithm_run", algorithm=alg, config=cfg_name, pairs=SMALL_BATCH,
              first_call_seconds=walls[0], seconds=walls[1],
              mean_iterations=float(np.mean(iters)), max_iterations=max(iters),
@@ -509,6 +789,7 @@ def main() -> int:
 
     device = device_phase()
     build_phase()
+    k1_cases, k2_cases, k3_cases = setup_kernels_phase()
     k4_cases, k5_cases = kernels_phase()
     launches = main_path_phase(with_profile="--profile" in sys.argv[1:])
     cli_phase()
@@ -520,6 +801,15 @@ def main() -> int:
         return head
 
     kernels = [
+        entry(k1_cases, "neighborhood_thresholds_batched",
+              "se3_icp_tpu_torch/csrc/thresholds.cu",
+              "se3_icp_tpu/ops/pallas_moments.py:457"),
+        entry(k2_cases, "moments_batched",
+              "se3_icp_tpu_torch/csrc/moments.cu",
+              "se3_icp_tpu/ops/pallas_moments.py:45"),
+        entry(k3_cases, "axis_sums_batched",
+              "se3_icp_tpu_torch/csrc/moments.cu",
+              "se3_icp_tpu/ops/pallas_moments.py:79"),
         entry(k4_cases, "nn_match_affine",
               "se3_icp_tpu_torch/csrc/match_affine.cu",
               "se3_icp_tpu/ops/pallas_knn.py:596"),

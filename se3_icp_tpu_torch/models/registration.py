@@ -15,8 +15,13 @@ Mechanics:
     rotation block of the query/target embeddings zeroed after the
     switch (which reduces the 12-D chordal metric exactly to the 3-D
     euclidean one), so pairs of one batch may be in different phases;
-  * setup (this slice): ONE exact sorted kNN per cloud, prefix-sliced by
-    every consumer (TOLDI k, normals kNN-30, GICP kNN-20);
+  * setup: by default the sort-free threshold route the JAX package
+    takes on its accelerator -- one threshold kernel call per cloud
+    (``ops/cuda_moments.py``, K1) gives every consumer (TOLDI k, normals
+    30, GICP 20) its ball, and the frames, normals and covariances are
+    sums over those balls (K2, K3, glue in ``ops/lrf.py``);
+    ``exact_knn=True`` takes ONE exact sorted kNN per cloud instead,
+    prefix-sliced by every consumer;
   * each iteration is two hand-written kernels -- the fused match
     (``ops/cuda_knn.py``) and the fused epilogue (``ops/cuda_loop.py``)
     -- plus a 6x6 solve or 3x3 SVD;
@@ -44,7 +49,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, knn, lrf, solve
+from se3_icp_tpu_torch.ops import (cuda_knn, cuda_loop, cuda_moments, knn,
+                                   lrf, solve)
 from se3_icp_tpu_torch.utils.config import (RegistrationConfig,
                                             parse_algorithm)
 
@@ -223,11 +229,115 @@ def pack_match_state(src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, *,
         conf_src=(conf_src.contiguous() if use_cf else None))
 
 
+def _count_sets(cfg: RegistrationConfig, is_se3: bool, need_tgt_nrm: bool,
+                need_cov: bool):
+    """The threshold route's self-inclusive counts per cloud, unique and
+    DESCENDING (the order K1's chained brackets want): TOLDI {k//3,
+    k//3+1, k}, plus the pt2pl normals' count on the target and the GICP
+    normals' count on both."""
+    k = cfg.number_of_nn_for_lrf if is_se3 else 0
+    lrf_counts = [k // 3, k // 3 + 1, k] if k else []
+    gicp = [cfg.gicp_normals_knn] if need_cov else []
+    src = sorted(set(lrf_counts + gicp), reverse=True)
+    tgt = sorted(set(lrf_counts + ([cfg.normals_knn] if need_tgt_nrm
+                                   else []) + gicp), reverse=True)
+    return src, tgt
+
+
+def _thresholds(points, n_valid, counts):
+    """(SetupCloud, {count: thr [B,N]}) of one cloud, or (None, {})."""
+    if not counts:
+        return None, {}
+    cloud = cuda_moments.setup_cloud(points, n_valid)
+    cc = torch.tensor(counts, dtype=torch.int64, device=points.device)
+    thr = cuda_moments.neighborhood_thresholds_batched(
+        points, n_valid, cc.expand(points.shape[0], -1), cloud=cloud)
+    return cloud, {c: thr[:, i] for i, c in enumerate(counts)}
+
+
+def _setup_thr(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
+               need_cov):
+    """The sort-free threshold setup (the JAX package's accelerator
+    route): one K1 call per cloud, then the frames (K2 + K3, with the
+    pt2pl normals fused into the target's K2 pass when normals_knn ==
+    k//3), normals and covariances (K2).  Kernels in float32, glue in
+    the caller's dtype."""
+    cu_src, cu_tgt = _count_sets(cfg, is_se3, need_tgt_nrm, need_cov)
+    cloud_s, thr_s = _thresholds(src_c, n_src, cu_src)
+    cloud_t, thr_t = _thresholds(tgt_c, n_tgt, cu_tgt)
+    out = dict(rot_src=None, rot_tgt=None, tgt_normals=None, cov_src6=None,
+               cov_tgt6=None)
+    k = cfg.number_of_nn_for_lrf
+    rz = k // 3
+    nrm_t = None
+    if is_se3:
+        out["rot_src"] = lrf.rot_t9_to_rot(lrf.toldi_frames_thr_t(
+            src_c, thr_s[rz], thr_s[rz + 1], thr_s[k], k, n_src,
+            cloud=cloud_s))
+        fuse = need_tgt_nrm and cfg.normals_knn == rz
+        fr = lrf.toldi_frames_thr_t(
+            tgt_c, thr_t[rz], thr_t[rz + 1], thr_t[k], k, n_tgt,
+            cloud=cloud_t, normals_k=cfg.normals_knn if fuse else None)
+        out["rot_tgt"] = lrf.rot_t9_to_rot(fr[:, :9])
+        if fuse:
+            nrm_t = fr[:, 9:12]
+    if need_tgt_nrm:
+        if nrm_t is None:
+            nrm_t = lrf.normals_thr_t(tgt_c, thr_t[cfg.normals_knn],
+                                      cfg.normals_knn, n_tgt, cloud=cloud_t)
+        out["tgt_normals"] = nrm_t.mT
+    elif need_cov:
+        kg = cfg.gicp_normals_knn
+        out["cov_src6"] = lrf.gicp_covariances_thr_t(
+            src_c, thr_s[kg], kg, cfg.gicp_epsilon, n_src, cloud=cloud_s)
+        out["cov_tgt6"] = lrf.gicp_covariances_thr_t(
+            tgt_c, thr_t[kg], kg, cfg.gicp_epsilon, n_tgt, cloud=cloud_t)
+    return out
+
+
+def _setup_exact(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
+                 need_cov):
+    """The exact sorted-kNN setup: ONE sorted kNN per cloud,
+    prefix-sliced by every consumer (TOLDI k, normals, GICP)."""
+    k_lrf = cfg.number_of_nn_for_lrf if is_se3 else 0
+    k_src = max(k_lrf, cfg.gicp_normals_knn if need_cov else 0)
+    k_tgt = max(k_lrf, cfg.normals_knn if need_tgt_nrm else 0,
+                cfg.gicp_normals_knn if need_cov else 0)
+    # +1 column: rank sets are recovered from midpoint thresholds, which
+    # needs the first EXCLUDED order statistic too
+    d2_src = d2_tgt = None
+    if k_src:
+        _, d2_src = knn.knn_self(src_c, k_src + 1, n_src)
+    if k_tgt:
+        _, d2_tgt = knn.knn_self(tgt_c, k_tgt + 1, n_tgt)
+    out = dict(rot_src=None, rot_tgt=None, tgt_normals=None, cov_src6=None,
+               cov_tgt6=None)
+    if is_se3:
+        out["rot_src"] = lrf.toldi_frames_dense(src_c, d2_src[..., :k_lrf],
+                                                n_src)
+        out["rot_tgt"] = lrf.toldi_frames_dense(tgt_c, d2_tgt[..., :k_lrf],
+                                                n_tgt)
+    if need_tgt_nrm:
+        out["tgt_normals"] = lrf.normals_dense(tgt_c, d2_tgt,
+                                               cfg.normals_knn, n_tgt)
+    elif need_cov:
+        out["cov_src6"] = lrf._sym_to_6(lrf.gicp_covariances_dense(
+            src_c, d2_src, cfg.gicp_normals_knn, cfg.gicp_epsilon, n_src))
+        out["cov_tgt6"] = lrf._sym_to_6(lrf.gicp_covariances_dense(
+            tgt_c, d2_tgt, cfg.gicp_normals_knn, cfg.gicp_epsilon, n_tgt))
+    return out
+
+
 def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
-          variant: str):
+          variant: str, exact_knn: bool = False):
     """Everything before the loop: confidences, preprocessing, the
-    sorted-kNN setup (frames, normals, covariances) and the packing.
-    Returns (MatchState, Preprocess)."""
+    neighbourhood setup (frames, normals, covariances) and the packing.
+
+    The neighbourhoods come from the sort-free threshold setup (K1-K3,
+    the route the JAX package takes on its accelerator) unless
+    ``exact_knn``, which takes the exact sorted kNN instead (the JAX
+    package's ``SE3_ICP_TPU_EXACT_KNN=1``).  Returns (MatchState,
+    Preprocess)."""
     is_se3 = mode != "icp"
     use_cf = mode == "se3_cf"
     eff_variant = "gicp" if use_cf else variant
@@ -240,37 +350,12 @@ def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
         conf_src = lounge_point_confidence(src)
         conf_tgt = lounge_point_confidence(tgt)
     src_c, tgt_c, pre = preprocess(src, n_src, tgt, n_tgt, cfg, is_se3)
-
-    need_tgt_nrm = eff_variant == "pt2pl"
-    need_cov = eff_variant == "gicp"
-    k_lrf = cfg.number_of_nn_for_lrf if is_se3 else 0
-    k_src = max(k_lrf, cfg.gicp_normals_knn if need_cov else 0)
-    k_tgt = max(k_lrf, cfg.normals_knn if need_tgt_nrm else 0,
-                cfg.gicp_normals_knn if need_cov else 0)
-    # +1 column: rank sets are recovered from midpoint thresholds, which
-    # needs the first EXCLUDED order statistic too
-    d2_src = d2_tgt = None
-    if k_src:
-        _, d2_src = knn.knn_self(src_c, k_src + 1, n_src)
-    if k_tgt:
-        _, d2_tgt = knn.knn_self(tgt_c, k_tgt + 1, n_tgt)
-
-    rot_src = rot_tgt = tgt_normals = cov_src6 = cov_tgt6 = None
-    if is_se3:
-        rot_src = lrf.toldi_frames_dense(src_c, d2_src[..., :k_lrf], n_src)
-        rot_tgt = lrf.toldi_frames_dense(tgt_c, d2_tgt[..., :k_lrf], n_tgt)
-    if need_tgt_nrm:
-        tgt_normals = lrf.normals_dense(tgt_c, d2_tgt, cfg.normals_knn,
-                                        n_tgt)
-    elif need_cov:
-        cov_src6 = lrf._sym_to_6(lrf.gicp_covariances_dense(
-            src_c, d2_src, cfg.gicp_normals_knn, cfg.gicp_epsilon, n_src))
-        cov_tgt6 = lrf._sym_to_6(lrf.gicp_covariances_dense(
-            tgt_c, d2_tgt, cfg.gicp_normals_knn, cfg.gicp_epsilon, n_tgt))
+    route = _setup_exact if exact_knn else _setup_thr
+    prod = route(src_c, n_src, tgt_c, n_tgt, cfg, is_se3,
+                 eff_variant == "pt2pl", eff_variant == "gicp")
     state = pack_match_state(
-        src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, rot_src=rot_src,
-        rot_tgt=rot_tgt, tgt_normals=tgt_normals, cov_src6=cov_src6,
-        cov_tgt6=cov_tgt6, conf_src=conf_src, conf_tgt=conf_tgt)
+        src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, conf_src=conf_src,
+        conf_tgt=conf_tgt, **prod)
     return state, pre
 
 
@@ -454,13 +539,15 @@ def check_supported(cfg: RegistrationConfig) -> None:
 
 def register_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
                     mode: str, variant: str, record_history: bool = False,
-                    initial_T=None, stats: dict | None = None):
+                    initial_T=None, stats: dict | None = None,
+                    exact_knn: bool = False):
     """Register a batch of padded pairs on the tensors' device.
 
     src [B,Ns,3] / tgt [B,Nt,3] padded clouds, n_src / n_tgt [B] integer
     valid counts.  ``initial_T`` [B,4,4]: optional warm start in
     ORIGINAL coordinates (the reference always starts at identity).
-    Returns (T [B,4,4] in original coordinates, num_iterations [B],
+    ``exact_knn``: the exact sorted-kNN setup instead of the threshold
+    route (see ``setup``).  Returns (T [B,4,4] in original coordinates, num_iterations [B],
     num_pure_se3_iterations [B]), plus the per-iteration history
     [B,H,4,4] when ``record_history`` (entries at index >=
     num_iterations are undefined).
@@ -469,7 +556,8 @@ def register_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
     knn.require_full_precision()
     is_se3 = mode != "icp"
     with torch.no_grad():
-        ms, pre = setup(src, n_src, tgt, n_tgt, cfg, mode, variant)
+        ms, pre = setup(src, n_src, tgt, n_tgt, cfg, mode, variant,
+                        exact_knn)
         T_init = None
         if initial_T is not None:
             # the loop runs in the preprocessed frame: map T0 through
@@ -509,12 +597,14 @@ def register_pair(source_points, target_points,
                   algorithm: str = "se3_pt2pl",
                   cfg: RegistrationConfig | None = None,
                   dtype=torch.float32, record_history: bool = False,
-                  initial_T=None, device="cuda") -> RegistrationResult:
+                  initial_T=None, device="cuda",
+                  exact_knn: bool = False) -> RegistrationResult:
     """Host-facing entry point over the reference's algorithm-name
     surface (pt2pt/pt2pl/gicp, se3_*, se3_gicp_with_cf, se3_pure_*).
 
     Runs on the card unless ``device='cpu'``.  ``initial_T``: optional
-    [4,4] warm start in original coordinates."""
+    [4,4] warm start in original coordinates.  ``exact_knn``: the exact
+    sorted-kNN setup instead of the threshold route."""
     dev = resolve_device(device)
     mode, variant = parse_algorithm(algorithm)
     cfg = cfg or RegistrationConfig()
@@ -534,7 +624,8 @@ def register_pair(source_points, target_points,
         torch.tensor([ns], dtype=torch.int32, device=dev),
         torch.as_tensor(tgt_p, dtype=dtype, device=dev),
         torch.tensor([nt], dtype=torch.int32, device=dev),
-        cfg, mode, variant, record_history=record_history, initial_T=T0)
+        cfg, mode, variant, record_history=record_history, initial_T=T0,
+        exact_knn=exact_knn)
     n_it = int(out[1][0])
     history = None
     if record_history:

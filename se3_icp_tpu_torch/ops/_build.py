@@ -1,11 +1,12 @@
 """Builds and loads the hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``
-into ONE shared library with a plain C interface, loaded with
-``ctypes``; no PyTorch header is involved, so the build takes seconds.
-It happens at first use, from the sources in the package and nothing
-else, into ``<package>/build/`` (git-ignored).  The library's name
-carries a hash of sources and flags, so an edited source rebuilds and an
+The sources under ``csrc/`` (``*.cu``, and the ``*.cuh`` headers they
+include) are compiled with ``nvcc`` for ``sm_90a`` into ONE shared
+library with a plain C interface, loaded with ``ctypes``; no PyTorch
+header is involved, so the build takes seconds.  It happens at first
+use, from the sources in the package and nothing else, into
+``<package>/build/`` (git-ignored).  The library's name carries a hash
+of sources, headers and flags, so an edited file rebuilds and an
 unchanged one is reused, also by a second process.
 
 A missing ``nvcc`` or a failing build raises: nothing here gives way to
@@ -44,6 +45,12 @@ SIGNATURES = {
     # B, N, P, variant, is_se3, use_cf, do_trim,
     # off_tr, off_nrm, off_cov, off_conf, isteps, stream
     "se3icp_loop_epilogue": [_P] * 8 + [_I] * 12 + [_P],
+    # pts_t, tn, n_valid, counts, hib, out, B, N, T, stream
+    "se3icp_thresholds": [_P] * 6 + [_I] * 3 + [_P],
+    # pts_t, tn, n_valid, thr_s, out, B, N, stream
+    "se3icp_moments": [_P] * 5 + [_I] * 2 + [_P],
+    # pts_t, tn, n_valid, normal_t, aux, out, B, N, stream
+    "se3icp_axis": [_P] * 6 + [_I] * 2 + [_P],
 }
 
 
@@ -68,9 +75,15 @@ def sources() -> list[Path]:
     return srcs
 
 
-def _digest(srcs) -> str:
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def _digest(files) -> str:
+    """Hash of the flags and of every file a build reads: the sources
+    AND the headers they include, so an edited header rebuilds too."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in files:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -81,7 +94,7 @@ def build(force: bool = False, verbose: bool = False) -> Path:
     together), link, and return the library's path.  Reuses a library
     already built from the same sources and flags unless ``force``."""
     srcs = sources()
-    tag = _digest(srcs)
+    tag = _digest(srcs + headers())
     lib = BUILD_DIR / f"libse3icp_{tag}.so"
     if lib.exists() and not force:
         return lib

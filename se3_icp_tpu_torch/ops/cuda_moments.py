@@ -1,0 +1,421 @@
+"""Sort-free neighbourhood setup, natively batched: distance thresholds
+(K1), ball moments (K2) and TOLDI x-axis sums (K3).
+
+Counterpart of the JAX package's ``ops/pallas_moments.py``
+(``_kernel_thresholds`` / ``neighborhood_thresholds_batched``,
+``_kernel_moments`` / ``moments_batched``, ``_kernel_axis`` /
+``axis_sums_batched``), with the JAX package's names and public layouts.
+Every setup consumer (TOLDI frames, PCA normals, GICP covariances) needs
+only the squared-distance threshold of its ball, never a sorted index
+list: K1 finds, per query and per self-inclusive count c, a threshold
+whose ball holds about c points (a 512-lane candidate fold and a seeded
+rank search -- see ``csrc/thresholds.cu``); K2 sums [p, p p^T, 1] over
+three balls per query; K3 sums the TOLDI x-axis weights.  The glue that
+turns these sums into frames, normals and covariances is in
+``ops/lrf.py``.
+
+``SetupCloud`` is what survives on Hopper of the TPU's shared packed
+operands (``pack_cloud_batched``): component-major float32 positions,
+|p|^2 and the valid count, built once per cloud and handed to all three
+kernels.  The limb packs and the poisoned padding do not survive:
+kernels and plain versions skip rows >= n_valid.
+
+Distances are r = |t|^2 - 2 q.t with q.t = (qx tx + qy ty) + qz tz and
+|t|^2 = (x x + y y) + z z, every step rounded on its own, in the kernels
+(``csrc/dist.cuh``) and in the plain versions alike; so are K1's probe
+values and K3's weights (square roots correctly rounded on both sides).  K1's thresholds and the balls' member counts are therefore the
+same bits on the card and in the plain versions; the float sums of
+K2/K3 differ only in their order.  The kernels work in float32 whatever
+the caller's dtype, as the JAX package's do.
+
+Each wrapper launches its CUDA kernel for tensors on the card and
+raises if it cannot; it takes the plain version only for CPU tensors.
+Each ``*_plain`` twin has the wrapper's arguments and results.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from se3_icp_tpu_torch.ops import _build
+from se3_icp_tpu_torch.ops.cuda_knn import _check
+
+CAND = 512               # K1 candidate lanes (lane = target index mod 512)
+THR_PLAN = (16, 9, 6)    # K1 probes per descending-sorted count, then 8
+MAX_COUNTS = 8           # counts per K1 call
+_INIT = 3.0e38           # K1 candidate initial value
+_SUMS = 10               # K2 sums per ball: x y z | xx xy xz yy yz zz | 1
+# K2's six distinct products -> the nine of p p^T (row 3 i + j = p_j p_i)
+_P9 = (3, 4, 5, 4, 6, 7, 5, 7, 8)
+_CHUNK_BYTES = 400_000_000   # one [B, chunk, N] block of the plain versions
+
+
+@dataclass
+class SetupCloud:
+    """The per-cloud operands every setup kernel reads."""
+    pts_t: torch.Tensor     # [B,3,N] float32 positions, component-major
+    tn: torch.Tensor        # [B,N]   float32 |p|^2
+    n: torch.Tensor         # [B]     int32 valid rows
+
+
+def setup_cloud(points: torch.Tensor, n_valid: torch.Tensor) -> SetupCloud:
+    """points [B,N,3] (any float dtype; padded rows arbitrary), n_valid
+    [B] -> the shared operands, built once per cloud."""
+    pts_t = points.to(torch.float32).mT.contiguous()
+    x, y, z = pts_t.unbind(1)
+    tn = (x * x + y * y) + z * z
+    return SetupCloud(pts_t=pts_t, tn=tn.contiguous(),
+                      n=n_valid.to(device=pts_t.device,
+                                   dtype=torch.int32).contiguous())
+
+
+def _cloud(points, n_valid, cloud):
+    return cloud if cloud is not None else setup_cloud(points, n_valid)
+
+
+def _valid_cols(cloud: SetupCloud) -> torch.Tensor:
+    n = cloud.pts_t.shape[2]
+    col = torch.arange(n, device=cloud.pts_t.device)
+    return col[None, :] < cloud.n[:, None]                    # [B,N]
+
+
+def _chunk(cloud: SetupCloud) -> int:
+    bsz, _, n = cloud.pts_t.shape
+    return max(32, _CHUNK_BYTES // max(bsz * n * 4, 1))
+
+
+def _shifted_d2(cloud: SetupCloud, s: int, e: int) -> torch.Tensor:
+    """r = |t|^2 - 2 q.t [B,C,N] for the query rows s:e, in the kernels'
+    rounding steps (``csrc/dist.cuh``)."""
+    p = cloud.pts_t
+    q = p[:, :, s:e, None]                                    # [B,3,C,1]
+    t = p[:, :, None, :]                                      # [B,3,1,N]
+    dot = q[:, 0] * t[:, 0] + q[:, 1] * t[:, 1]
+    dot = dot + q[:, 2] * t[:, 2]
+    return cloud.tn[:, None, :] - 2.0 * dot
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as ``__fsqrt_rn``: torch's
+    CPU float32 ``sqrt`` is off by one ulp for ~0.6% of inputs, and the
+    square root of a float32 taken in float64 and rounded once is
+    exact-rounded on every device."""
+    return torch.sqrt(x.double()).to(torch.float32)
+
+
+def _check_cloud(cloud: SetupCloud):
+    bsz, _, n = cloud.pts_t.shape
+    dev, f32 = cloud.pts_t.device, torch.float32
+    _check(cloud.pts_t, "cloud.pts_t", (bsz, 3, n), f32, dev)
+    _check(cloud.tn, "cloud.tn", (bsz, n), f32, dev)
+    _check(cloud.n, "cloud.n", (bsz,), torch.int32, dev)
+    return bsz, n, dev
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------- K1
+
+def plan(t_n: int) -> tuple:
+    """Probes per descending-sorted count."""
+    return tuple(THR_PLAN[t] if t < len(THR_PLAN) else 8 for t in range(t_n))
+
+
+def _threshold_inputs(points, n_valid, counts, cloud):
+    """The wrapper's host-side parts: counts clamped to n_valid and
+    sorted descending (stable; ``order`` un-permutes the rows after),
+    and the bracket top hib = 4 max|p|^2 + 1 over the valid rows."""
+    cloud = _cloud(points, n_valid, cloud)
+    t_n = counts.shape[1]
+    if not 1 <= t_n <= MAX_COUNTS:
+        raise ValueError(f"{t_n} counts per call; 1..{MAX_COUNTS} supported")
+    nv = cloud.n.to(torch.int64)
+    cc = torch.minimum(counts.to(device=nv.device, dtype=torch.int64),
+                       nv[:, None])
+    order = torch.argsort(-cc, dim=1, stable=True)
+    cc = torch.take_along_dim(cc, order, 1).to(torch.float32).contiguous()
+    p2 = torch.where(_valid_cols(cloud), cloud.tn, 0.0)
+    hib = (4.0 * p2.amax(1) + 1.0).contiguous()
+    return cloud, cc, hib, order
+
+
+def _unpermute(out, order):
+    inv = torch.argsort(order, dim=1, stable=True)
+    return torch.take_along_dim(out, inv[:, :, None], 1)
+
+
+def _rank_search(cand, cc):
+    """Bracket seeds + the probe plan on candidates [B,C,512] for the
+    descending counts cc [B,T]; returns the thresholds [B,T,C]."""
+    dev, f32 = cand.device, torch.float32
+    t_n = cc.shape[1]
+    c1e9 = torch.tensor(1e-9, dtype=f32, device=dev)
+    lo0, hi0 = cand.amin(-1), cand.amax(-1)
+    seeds = []
+    m = torch.minimum(cand[..., :256], cand[..., 256:])
+    for g in (256, 128, 64, 32):
+        seeds.append((m.amax(-1), float(g)))
+        if g > 32:
+            m = torch.minimum(m[..., :g // 2], m[..., g // 2:])
+    tg = [cc[:, t, None] for t in range(t_n)]                 # [B,1]
+    los = [lo0] * t_n
+    cls = [torch.ones_like(lo0)] * t_n
+    his = [hi0] * t_n
+    chs = [torch.full_like(lo0, float(CAND))] * t_n
+    for sv, g in seeds:
+        for t in range(t_n):
+            ok = (tg[t] <= g) & (sv < his[t])
+            his[t] = torch.where(ok, sv, his[t])
+            chs[t] = torch.where(ok, g, chs[t])
+    chs = [torch.maximum(chs[t], tg[t] + 1.0) for t in range(t_n)]
+    for t, steps in enumerate(plan(t_n)):
+        for s in range(steps):
+            lo, cl, hi, ch = los[t], cls[t], his[t], chs[t]
+            dlt = hi - lo
+            if s % 4 == 0:        # linear rank-secant
+                fr = torch.clamp((tg[t] - cl) / torch.clamp_min(ch - cl, 1.0),
+                                 0.02, 0.98)
+                probe = lo + fr * dlt
+            elif s % 4 == 2:      # geometric bisection
+                probe = _sqrt_rn(torch.maximum(lo, hi * c1e9) * hi)
+            else:                 # arithmetic bisection
+                probe = lo + 0.5 * dlt
+            cnt = (cand <= probe[..., None]).sum(-1).to(f32)
+            for u in range(t_n):
+                pred = cnt >= tg[u]
+                take_hi = pred & (probe < his[u])
+                take_lo = ~pred & (probe > los[u])
+                los[u] = torch.where(take_lo, probe, los[u])
+                cls[u] = torch.where(take_lo, cnt, cls[u])
+                his[u] = torch.where(take_hi, probe, his[u])
+                chs[u] = torch.where(take_hi, cnt, chs[u])
+    return torch.stack(his, 1)
+
+
+def _thresholds_core_plain(cloud, cc, hib):
+    bsz, _, n = cloud.pts_t.shape
+    dev = cloud.pts_t.device
+    init = torch.tensor(_INIT, dtype=torch.float32, device=dev)
+    width = -(-n // CAND) * CAND
+    valid = _valid_cols(cloud)
+    out = torch.empty((bsz, cc.shape[1], n), dtype=torch.float32,
+                      device=dev)
+    chunk = _chunk(cloud)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        r = torch.where(valid[:, None, :], _shifted_d2(cloud, s, e), init)
+        r = F.pad(r, (0, width - n), value=_INIT)
+        cand = torch.minimum(
+            r.view(bsz, e - s, width // CAND, CAND).amin(2), init)
+        cand = cand + cloud.tn[:, s:e, None]                  # un-shift
+        cand = torch.minimum(cand, hib[:, None, None]).clamp_min(0.0)
+        out[:, :, s:e] = _rank_search(cand, cc)
+    return out
+
+
+def neighborhood_thresholds_plain(points, n_valid, counts, cloud=None):
+    """Plain PyTorch version of ``neighborhood_thresholds_batched``."""
+    cloud, cc, hib, order = _threshold_inputs(points, n_valid, counts,
+                                              cloud)
+    return _unpermute(_thresholds_core_plain(cloud, cc, hib), order)
+
+
+def neighborhood_thresholds_batched(points, n_valid, counts, cloud=None):
+    """Batched neighbourhood-size -> distance-threshold conversion.
+
+    points [B,N,3] (padded rows arbitrary), n_valid [B], counts [B,T]
+    integer SELF-INCLUSIVE neighbourhood sizes (T <= 8), ``cloud`` the
+    optional shared operands of ``setup_cloud``.  Returns thr [B,T,N]
+    float32 squared-distance thresholds, one [N]-wide row per count in
+    the caller's order, with |{j valid : d2_ij <= thr[b,t,i]}| ~=
+    min(counts[b,t], n_valid[b]) (within [c-2, c+4] plus lane-collision
+    slack); thr of count k converges to the k-th nearest candidate
+    distance from above, so it doubles as the TOLDI radius^2.
+    """
+    cloud, cc, hib, order = _threshold_inputs(points, n_valid, counts,
+                                              cloud)
+    if not cloud.pts_t.is_cuda:
+        return _unpermute(_thresholds_core_plain(cloud, cc, hib), order)
+    bsz, n, dev = _check_cloud(cloud)
+    t_n = cc.shape[1]
+    lib = _build.load()
+    out = torch.empty((bsz, t_n, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.se3icp_thresholds(
+            cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+            cc.data_ptr(), hib.data_ptr(), out.data_ptr(), bsz, n, t_n,
+            _stream(dev))
+    _build.check(code, "neighborhood_thresholds_batched")
+    neighborhood_thresholds_batched.launches += 1
+    return _unpermute(out, order)
+
+
+neighborhood_thresholds_batched.launches = 0
+
+
+# ---------------------------------------------------------------- K2
+
+def _moments_raw_plain(cloud, thr_s):
+    """[B,30,N]: per ball m, rows 10 m .. 10 m + 9 = sums of x y z, xx
+    xy xz yy yz zz, 1 over the valid targets with r <= thr_s[:, m]
+    (self included)."""
+    bsz, _, n = cloud.pts_t.shape
+    valid = _valid_cols(cloud)
+    x, y, z = cloud.pts_t.unbind(1)
+    feat = torch.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z,
+                        torch.ones_like(x)], -1)              # [B,N,10]
+    out = torch.empty((bsz, 3, _SUMS, n), dtype=torch.float32,
+                      device=cloud.pts_t.device)
+    chunk = _chunk(cloud)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        r = _shifted_d2(cloud, s, e)
+        for m in range(3):
+            mask = (r <= thr_s[:, m, s:e, None]) & valid[:, None, :]
+            out[:, m, :, s:e] = (mask.to(torch.float32) @ feat).mT
+    return out.view(bsz, 3 * _SUMS, n)
+
+
+def _moments_inputs(points, n_valid, thr_cen, thr_cov, thr_all, cloud):
+    cloud = _cloud(points, n_valid, cloud)
+    thr = torch.stack([thr_cen, thr_cov, thr_all], 1).to(torch.float32)
+    return cloud, (thr - cloud.tn[:, None, :]).contiguous()
+
+
+def _moments_dict(raw, points):
+    """Component-major sums with the self term removed, the keys of the
+    JAX package's ``moments_batched``, in the caller's dtype."""
+    bsz, _, n = raw.shape
+    raw = raw.to(points.dtype).view(bsz, 3, _SUMS, n)
+    q_t = points.mT                                           # [B,3,N]
+    p9self = torch.cat([q_t * q_t[:, i:i + 1] for i in range(3)], 1)
+
+    def block(m):
+        s = raw[:, m]
+        return s[:, :3], s[:, list(_P9)], s[:, 9]
+    cen_p, cen_p9, cen_c = block(0)
+    cov_p, cov_p9, cov_c = block(1)
+    all_p, _, all_c = block(2)
+    return dict(
+        cen_sum=cen_p - q_t, cen_cnt=cen_c - 1.0, cen_p9=cen_p9 - p9self,
+        cov_sum=cov_p - q_t, cov_p9=cov_p9 - p9self, cov_cnt=cov_c - 1.0,
+        all_sum=all_p - q_t, all_cnt=all_c - 1.0, q_t=q_t)
+
+
+def moments_plain(points, n_valid, thr_cen, thr_cov, thr_all, cloud=None):
+    """Plain PyTorch version of ``moments_batched``."""
+    cloud, thr_s = _moments_inputs(points, n_valid, thr_cen, thr_cov,
+                                   thr_all, cloud)
+    return _moments_dict(_moments_raw_plain(cloud, thr_s), points)
+
+
+def moments_batched(points, n_valid, thr_cen, thr_cov, thr_all,
+                    cloud=None):
+    """Batched neighbourhood moments for three distance thresholds.
+
+    points [B,N,3] (padded rows arbitrary), n_valid [B], thr_* [B,N]
+    absolute squared-distance thresholds per query (the query itself is
+    inside every ball), ``cloud`` the optional shared operands.  Returns
+    a dict of COMPONENT-MAJOR per-query sums in the caller's dtype with
+    the SELF term removed: cen_sum/cov_sum/all_sum [B,3,N], cen_p9 /
+    cov_p9 [B,9,N], cen_cnt/cov_cnt/all_cnt [B,N], and q_t [B,3,N] (the
+    query positions transposed).
+    """
+    cloud, thr_s = _moments_inputs(points, n_valid, thr_cen, thr_cov,
+                                   thr_all, cloud)
+    if not cloud.pts_t.is_cuda:
+        return _moments_dict(_moments_raw_plain(cloud, thr_s), points)
+    bsz, n, dev = _check_cloud(cloud)
+    _check(thr_s, "thresholds", (bsz, 3, n), torch.float32, dev)
+    lib = _build.load()
+    raw = torch.empty((bsz, 3 * _SUMS, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.se3icp_moments(
+            cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+            thr_s.data_ptr(), raw.data_ptr(), bsz, n, _stream(dev))
+    _build.check(code, "moments_batched")
+    moments_batched.launches += 1
+    return _moments_dict(raw, points)
+
+
+moments_batched.launches = 0
+
+
+# ---------------------------------------------------------------- K3
+
+def _axis_inputs(points, n_valid, normal_t, ndotq, radius, thr_all, cloud):
+    cloud = _cloud(points, n_valid, cloud)
+    f32 = torch.float32
+    aux = torch.stack([thr_all.to(f32) - cloud.tn, radius.to(f32),
+                       ndotq.to(f32)], 1).contiguous()        # [B,3,N]
+    return cloud, normal_t.to(f32).contiguous(), aux
+
+
+def _axis_raw_plain(cloud, nrm, aux):
+    """[B,4,N]: sum_j W p_j (3 rows) and sum_j W over the valid targets."""
+    bsz, _, n = cloud.pts_t.shape
+    valid = _valid_cols(cloud)
+    pts = cloud.pts_t.mT                                      # [B,N,3]
+    t = cloud.pts_t[:, :, None, :]                            # [B,3,1,N]
+    out = torch.empty((bsz, 4, n), dtype=torch.float32, device=cloud.pts_t.device)
+    chunk = _chunk(cloud)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        r = _shifted_d2(cloud, s, e)
+        member = (r <= aux[:, 0, s:e, None]) & valid[:, None, :]
+        d = _sqrt_rn(torch.clamp_min(r + cloud.tn[:, s:e, None], 0.0))
+        w1 = aux[:, 1, s:e, None] - d
+        nq = nrm[:, :, s:e, None]                             # [B,3,C,1]
+        ndp = nq[:, 0] * t[:, 0] + nq[:, 1] * t[:, 1]
+        ndp = ndp + nq[:, 2] * t[:, 2]
+        zd = ndp - aux[:, 2, s:e, None]
+        w = torch.where(member, (w1 * w1) * (zd * zd), 0.0)   # [B,C,N]
+        out[:, :3, s:e] = (w @ pts).mT
+        out[:, 3, s:e] = w.sum(-1)
+    return out
+
+
+def axis_sums_plain(points, n_valid, normal_t, ndotq, radius, thr_all,
+                    cloud=None):
+    """Plain PyTorch version of ``axis_sums_batched``."""
+    cloud, nrm, aux = _axis_inputs(points, n_valid, normal_t, ndotq,
+                                   radius, thr_all, cloud)
+    out = _axis_raw_plain(cloud, nrm, aux)
+    return out[:, :3], out[:, 3]
+
+
+def axis_sums_batched(points, n_valid, normal_t, ndotq, radius, thr_all,
+                      cloud=None):
+    """Batched TOLDI x-axis weighted sums (component-major).
+
+    W_ij = [d2_ij <= thr_all_i] (radius_i - d_ij)^2 (n_i . (p_j - q_i))^2
+    (the self term vanishes).  ``normal_t`` [B,3,N] unit normals;
+    ``ndotq`` (n_i . q_i), ``radius``, ``thr_all`` [B,N] per query.
+    Returns (sum_j W p_j [B,3,N], sum_j W [B,N]) in float32.
+    """
+    cloud, nrm, aux = _axis_inputs(points, n_valid, normal_t, ndotq,
+                                   radius, thr_all, cloud)
+    if not cloud.pts_t.is_cuda:
+        out = _axis_raw_plain(cloud, nrm, aux)
+        return out[:, :3], out[:, 3]
+    bsz, n, dev = _check_cloud(cloud)
+    _check(nrm, "normal_t", (bsz, 3, n), torch.float32, dev)
+    _check(aux, "thr_all/radius/ndotq", (bsz, 3, n), torch.float32, dev)
+    lib = _build.load()
+    out = torch.empty((bsz, 4, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.se3icp_axis(
+            cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+            nrm.data_ptr(), aux.data_ptr(), out.data_ptr(), bsz, n,
+            _stream(dev))
+    _build.check(code, "axis_sums_batched")
+    axis_sums_batched.launches += 1
+    return out[:, :3], out[:, 3]
+
+
+axis_sums_batched.launches = 0

@@ -23,15 +23,16 @@ from se3_icp_tpu_torch.utils.config import (RegistrationConfig,
 
 def register_batch(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
                    algorithm: str, initial_T=None, device="cuda",
-                   stats: dict | None = None):
+                   stats: dict | None = None, exact_knn: bool = False):
     """Register a batch of padded pairs held in tensors.
 
     src [P,Ns,3], n_src [P], tgt [P,Nt,3], n_tgt [P], all on ``device``:
     the card unless the caller passes ``device='cpu'``.  Tensors that lie
     elsewhere raise (nothing is moved, and nothing runs on the CPU unasked).
     ``initial_T`` [P,4,4] optionally warm-starts each pair (original
-    coordinates).  Returns (T [P,4,4], iters [P], pure_iters [P]) as
-    tensors on that device.
+    coordinates).  ``exact_knn``: the exact sorted-kNN setup instead of
+    the sort-free threshold route.  Returns (T [P,4,4], iters [P],
+    pure_iters [P]) as tensors on that device.
     """
     dev = reg.resolve_device(device)
     for name, x in (("src", src), ("n_src", n_src), ("tgt", tgt),
@@ -44,7 +45,8 @@ def register_batch(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
                 "device='cpu' to run the plain versions on the CPU")
     mode, variant = parse_algorithm(algorithm)
     return reg.register_arrays(src, n_src, tgt, n_tgt, cfg, mode, variant,
-                               initial_T=initial_T, stats=stats)
+                               initial_T=initial_T, stats=stats,
+                               exact_knn=exact_knn)
 
 
 def pack_clouds(clouds, dtype=np.float32, bucket: int = 512):
@@ -71,13 +73,14 @@ def pack_pairs(pairs, dtype=np.float32, bucket: int = 512):
 
 def register_pairs(pairs, algorithm: str, cfg: RegistrationConfig,
                    dtype=np.float32, initial_Ts=None, device="cuda",
-                   stats: dict | None = None):
+                   stats: dict | None = None, exact_knn: bool = False):
     """High-level: list of (src, tgt) numpy clouds -> list of
     ``RegistrationResult``.  Runs on the card unless ``device='cpu'``.
 
     ``initial_Ts``: optional [P,4,4] (or list of [4,4]) warm starts.
     ``stats``: optional dict that receives ``loop_steps`` and
-    ``host_syncs`` of the call."""
+    ``host_syncs`` of the call.  ``exact_knn``: the exact sorted-kNN
+    setup instead of the threshold route."""
     dev = reg.resolve_device(device)
     src, n_src, tgt, n_tgt = pack_pairs(pairs, dtype)
     t0 = (None if initial_Ts is None
@@ -85,7 +88,8 @@ def register_pairs(pairs, algorithm: str, cfg: RegistrationConfig,
     T, it, pure = register_batch(
         torch.as_tensor(src, device=dev), torch.as_tensor(n_src, device=dev),
         torch.as_tensor(tgt, device=dev), torch.as_tensor(n_tgt, device=dev),
-        cfg, algorithm, initial_T=t0, device=dev, stats=stats)
+        cfg, algorithm, initial_T=t0, device=dev, stats=stats,
+        exact_knn=exact_knn)
     # one device->host transfer for the whole batch
     flat = torch.cat([T.flatten(1).double(), it[:, None].double(),
                       pure[:, None].double()], dim=1).cpu().numpy()

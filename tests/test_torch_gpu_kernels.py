@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels against their plain PyTorch versions, on
+"""The port's CUDA kernels against their plain PyTorch versions, on
 the card.  These tests need a CUDA device and ``nvcc``; elsewhere they
 skip (a CUDA kernel has no interpret mode).  Run them on a GPU machine
 with ``python -m pytest tests/test_torch_gpu_kernels.py -q --noconftest``
@@ -8,7 +8,9 @@ on-card check at the main path's shapes is ``python3 chip_smoke.py``.
 Tolerances as in ``chip_smoke.py``: the match's shifted d2 to 1e-4
 absolute with at most 1% of rows matched to another (near-tied) target;
 the epilogue's kept count exact, sums to 1e-5 (gicp 1e-4) of the
-largest entry.
+largest entry; the setup kernels' thresholds bit-equal, their ball
+counts equal, K2's sums to 1e-5 and K3's to 1e-4 of each row's largest
+entry (float32 sums in another order).
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ import torch
 
 from se3_icp_tpu_torch.datasets import fixtures
 from se3_icp_tpu_torch.models import registration as reg
-from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop
+from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, cuda_moments
 from se3_icp_tpu_torch.parallel import pairs
 from se3_icp_tpu_torch.utils import metrics_host
 from se3_icp_tpu_torch.utils.config import GOLDEN, parse_algorithm
@@ -173,3 +175,74 @@ def test_kernels_at_the_kitti_bucket(card):
     d2p, mp = cuda_knn.nn_match_affine_plain(t(feat), t(W), targets, phase)
     assert float((d2 - d2p).abs().max()) <= 1e-4
     assert float((m != mp).any(1).float().mean()) <= 0.01
+
+
+def _row_rel(got, ref):
+    """max over (pair, component row) of max |got - ref| / max |ref|."""
+    g = got.reshape(got.shape[0], -1, got.shape[-1])
+    r = ref.reshape(ref.shape[0], -1, ref.shape[-1])
+    scale = r.abs().amax(-1).clamp_min(1e-30)
+    return float(((g - r).abs().amax(-1) / scale).max())
+
+
+@pytest.mark.parametrize("n,n_valid,counts", [
+    (1024, (1024, 777), (90, 31, 30)),
+    (1024, (900, 1024), (90, 31, 30, 20)),
+    (15360, (15360, 14001), (90, 31, 30)),
+])
+def test_setup_kernels_match_their_plain_versions(card, n, n_valid, counts):
+    """K1 bit-equal to its plain version (same rounding steps); K2's ball
+    counts equal and its sums, K3's sums within tolerance.  N = 15360 is
+    the KITTI bucket: K1 streams 30 target tiles, and K3's balls are
+    larger in absolute terms."""
+    probs = [fixtures.golden_shape_problem(seed=s + 1, n=v)
+             for s, v in enumerate(n_valid)]
+    pts = np.zeros((len(probs), n, 3), np.float32)
+    for b, p in enumerate(probs):
+        pts[b, :len(p.source)] = p.source - p.source.mean(0)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=card)
+    pts_d, nv = t(pts), t(np.asarray(n_valid, np.int32))
+    cc = t(np.asarray([counts] * len(probs), np.int32))
+    cloud = cuda_moments.setup_cloud(pts_d, nv)
+    n0 = cuda_moments.neighborhood_thresholds_batched.launches
+    thr = cuda_moments.neighborhood_thresholds_batched(pts_d, nv, cc,
+                                                       cloud=cloud)
+    assert cuda_moments.neighborhood_thresholds_batched.launches == n0 + 1
+    thr_p = cuda_moments.neighborhood_thresholds_plain(pts_d, nv, cc,
+                                                       cloud=cloud)
+    assert bool((thr == thr_p).all())
+
+    args = (pts_d, nv, thr[:, 2], thr[:, 1], thr[:, 0])
+    mom = cuda_moments.moments_batched(*args, cloud=cloud)
+    mom_p = cuda_moments.moments_plain(*args, cloud=cloud)
+    for key in ("cen_cnt", "cov_cnt", "all_cnt"):
+        assert bool((mom[key] == mom_p[key]).all()), key
+    for key in ("cen_sum", "cen_p9", "cov_sum", "cov_p9", "all_sum"):
+        assert _row_rel(mom[key], mom_p[key]) <= 1e-5, key
+
+    nrm = torch.nn.functional.normalize(mom["cov_sum"], dim=1)
+    ndotq = (nrm * mom["q_t"]).sum(1)
+    radius = thr[:, 0].clamp_min(0.0).sqrt()
+    ax = cuda_moments.axis_sums_batched(pts_d, nv, nrm, ndotq, radius,
+                                        thr[:, 0], cloud=cloud)
+    ax_p = cuda_moments.axis_sums_plain(pts_d, nv, nrm, ndotq, radius,
+                                        thr[:, 0], cloud=cloud)
+    assert _row_rel(ax[0], ax_p[0]) <= 1e-4
+    assert _row_rel(ax[1][:, None], ax_p[1][:, None]) <= 1e-4
+
+
+def test_setup_kernels_refuse_what_they_do_not_take(card):
+    pts = torch.zeros((2, 512, 3), device=card)
+    nv = torch.tensor([512, 500], dtype=torch.int32, device=card)
+    cloud = cuda_moments.setup_cloud(pts, nv)
+    thr = torch.ones((2, 512), device=card)
+    with pytest.raises(ValueError):        # nine counts: more than K1 takes
+        cuda_moments.neighborhood_thresholds_batched(
+            pts, nv, torch.ones((2, 9), dtype=torch.int32, device=card))
+    bad = cuda_moments.SetupCloud(cloud.pts_t.double(), cloud.tn, cloud.n)
+    with pytest.raises(TypeError):
+        cuda_moments.moments_batched(pts, nv, thr, thr, thr, cloud=bad)
+    with pytest.raises(ValueError):
+        cuda_moments.axis_sums_batched(pts, nv, torch.zeros((2, 3, 256),
+                                                            device=card),
+                                       thr, thr, thr, cloud=cloud)

@@ -1,0 +1,149 @@
+"""The setup kernels' CUDA sources -- K1 (``csrc/thresholds.cu``), K2
+and K3 (``csrc/moments.cu``) -- compiled for the CPU against an
+emulation of the CUDA built-ins (``tests/cuda_emulation.h``: one OS
+thread per CUDA thread, barriers for ``__syncthreads`` and the warp
+shuffles) and called through the wrappers' own C signatures, on the
+wrappers' own prepared inputs, against the plain PyTorch versions.
+
+This checks the kernels' indexing, tiling, bounds, warp reductions and
+arithmetic order where no card is available; what only the card can
+show (that nvcc accepts the source for sm_90a, registers, launch limits,
+time) is ``chip_smoke.py``'s and ``test_torch_gpu_kernels.py``'s.  The
+tolerances are the card's: K1 bit-equal, K2 ball counts equal and sums
+within 1e-5 of each row's largest entry, K3 within 1e-4.  Needs a host
+C++20 compiler (``g++``).
+"""
+
+import ctypes
+import pathlib
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import torch_port_cases as cases
+from se3_icp_tpu_torch.datasets import fixtures
+from se3_icp_tpu_torch.ops import _build, lrf
+from se3_icp_tpu_torch.ops import cuda_moments as cm
+
+# the suite runs several worker processes side by side: keep each
+# one's torch thread pool small
+torch.set_num_threads(1)
+
+HERE = pathlib.Path(__file__).resolve().parent
+# kernel<<<grid, threads, smem, stream>>>(args);
+_LAUNCH = re.compile(r"(\w+(?:<T>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);",
+                     re.S)
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the "
+                    "kernels")
+    out = tmp_path_factory.mktemp("emulated_kernels")
+    shutil.copy(HERE / "cuda_emulation.h", out / "cuda_runtime.h")
+    for h in _build.headers():
+        shutil.copy(h, out / h.name)
+    srcs = []
+    for name in ("thresholds.cu", "moments.cu"):
+        text, n = _LAUNCH.subn(
+            lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, "
+                       f"[&] {{ {m.group(1)}({m.group(4)}); }});"),
+            (_build.CSRC / name).read_text())
+        assert n > 0 and "<<<" not in text, name
+        srcs.append(out / f"{name}.cpp")
+        srcs[-1].write_text(text)
+    so = out / "libemulated.so"
+    subprocess.run([cxx, "-std=c++20", "-O2", "-ffp-contract=off",
+                    "-pthread", "-shared", "-fPIC", "-I", str(out),
+                    *map(str, srcs), "-o", str(so)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    for name in ("se3icp_thresholds", "se3icp_moments", "se3icp_axis"):
+        getattr(lib, name).argtypes = _build.SIGNATURES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _surface_clouds():
+    """Two centred "bumpy" clouds padded to 1024 (two K1 target tiles),
+    700 and 555 valid rows."""
+    pts = np.zeros((2, 1024, 3), np.float32)
+    for b, (seed, n) in enumerate(((1, 700), (2, 555))):
+        src = fixtures.golden_shape_problem(seed=seed, n=n).source
+        pts[b, :n] = (src - src.mean(0)) / np.abs(src).max()
+    return torch.as_tensor(pts), torch.tensor([700, 555], dtype=torch.int32)
+
+
+def _gaussian_clouds():
+    """Width 600 (no multiple of 512), the first cloud fully valid."""
+    pts, nv = cases.normal_clouds(4, 600, (600, 333))
+    return torch.as_tensor(pts), torch.as_tensor(nv)
+
+
+def _k1(lib, points, nv, counts):
+    cloud, cc, hib, order = cm._threshold_inputs(points, nv, counts, None)
+    bsz, _, n = cloud.pts_t.shape
+    out = torch.full((bsz, cc.shape[1], n), float("nan"))
+    assert lib.se3icp_thresholds(
+        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+        cc.data_ptr(), hib.data_ptr(), out.data_ptr(), bsz, n, cc.shape[1],
+        None) == 0
+    return cm._unpermute(out, order)
+
+
+def _row_rel_err(got, ref, nv):
+    col = torch.arange(got.shape[-1])
+    valid = (col[None, :] < nv[:, None])[:, None, :]
+    diff = torch.where(valid, (got - ref).abs(), 0.0).amax(-1)
+    scale = torch.where(valid, ref.abs(), 0.0).amax(-1).clamp_min(1e-30)
+    return float((diff / scale).max())
+
+
+@pytest.mark.parametrize("clouds,counts", [
+    (_surface_clouds, (90, 31, 30)),
+    (_surface_clouds, (30, 90, 20, 31)),
+    (_gaussian_clouds, (20,)),
+], ids=["surface-T3", "surface-T4-unsorted", "gaussian-T1"])
+def test_emulated_thresholds_kernel_is_bit_equal_to_plain(emulated, clouds,
+                                                          counts):
+    points, nv = clouds()
+    cc = torch.tensor([counts] * points.shape[0])
+    got = _k1(emulated, points, nv, cc)
+    assert not got.isnan().any()           # every row written
+    want = cm.neighborhood_thresholds_plain(points, nv, cc)
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("clouds", [_surface_clouds, _gaussian_clouds],
+                         ids=["surface", "gaussian"])
+def test_emulated_moments_and_axis_kernels_match_plain(emulated, clouds):
+    points, nv = clouds()
+    thr = cm.neighborhood_thresholds_plain(
+        points, nv, torch.tensor([[90, 31, 30]] * points.shape[0]))
+    cloud, thr_s = cm._moments_inputs(points, nv, thr[:, 2], thr[:, 1],
+                                      thr[:, 0], None)
+    bsz, _, n = cloud.pts_t.shape
+    raw = torch.full((bsz, 30, n), float("nan"))
+    assert emulated.se3icp_moments(
+        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+        thr_s.data_ptr(), raw.data_ptr(), bsz, n, None) == 0
+    raw_p = cm._moments_raw_plain(cloud, thr_s)
+    counts = [9, 19, 29]                   # the three balls' member counts
+    assert torch.equal(raw[:, counts], raw_p[:, counts])
+    assert _row_rel_err(raw, raw_p, nv) <= 1e-5
+
+    mom = cm._moments_dict(raw_p, points)
+    normal_t, ndotq, radius = lrf.toldi_axis_inputs(mom, thr[:, 0], 30)
+    cloud, nrm, aux = cm._axis_inputs(points, nv, normal_t, ndotq, radius,
+                                      thr[:, 0], None)
+    out = torch.full((bsz, 4, n), float("nan"))
+    assert emulated.se3icp_axis(
+        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+        nrm.data_ptr(), aux.data_ptr(), out.data_ptr(), bsz, n, None) == 0
+    assert _row_rel_err(out, cm._axis_raw_plain(cloud, nrm, aux), nv) <= 1e-4

@@ -1,6 +1,7 @@
-"""The first slice of the PyTorch port as a whole, on the CPU, in
-float32 against the JAX package on its interpret route, at the full
-golden shape, through the CLI, and the package's import hygiene.
+"""The port's exact route (``exact_knn=True``: sorted-kNN setup, fused
+loop) as a whole, on the CPU, in float32 against the JAX package on its
+interpret route, at the full golden shape; the CLI, the entry points'
+device rule and the package's import hygiene.
 
 The interpret route runs with the sort-free setup off
 (``SE3_ICP_TPU_NO_THR_KNN=1``): the Pallas match and epilogue kernels
@@ -8,7 +9,8 @@ against this port's plain versions inside the full loop, on seed-made
 inputs (``datasets/fixtures.py``, 420-480 points padded to 512).
 float32 sums in different orders: equal iteration counts, 1e-3 deg,
 1e-4 in translation.  The float64 hold against the JAX plain route
-(equal counts, 1e-9 deg) is in ``test_torch_registration_f64.py``.
+(equal counts, 1e-9 deg) is in ``test_torch_registration_f64.py``; the
+default threshold route's holds are in ``test_torch_registration_thr*.py``.
 """
 
 import ast
@@ -52,12 +54,13 @@ def test_register_pairs_float32_matches_jax_interpret_route(case,
     monkeypatch.setenv("SE3_ICP_TPU_NO_THR_KNN", "1")
     assert j_knn.use_fused_match() and not j_knn.use_thr_knn()
     j_res = j_pairs.register_pairs(pair_list, alg, jcfg, mesh=None)
-    t_res = pairs.register_pairs(pair_list, alg, cfg, device="cpu")
+    t_res = pairs.register_pairs(pair_list, alg, cfg, device="cpu",
+                                 exact_knn=True)
     cases.hold(probs, j_res, t_res, 1e-3, 1e-4)
 
 def test_jax_package_and_port_pass_the_gate_at_the_golden_shape():
     """Full size, float32, one seed: the JAX package (plain CPU route)
-    and the port (CPU plain versions) both pass the gate, in the same
+    and the port (exact route, CPU plain versions) both pass the gate, in the same
     number of iterations, 1e-3 deg / 1e-4 apart at most (float32 sums in
     different orders)."""
     probs = [fixtures.golden_shape_problem(seed=1)]
@@ -66,7 +69,7 @@ def test_jax_package_and_port_pass_the_gate_at_the_golden_shape():
     j_res = j_pairs.register_pairs(pair_list, "se3_pt2pl", JaxConfig(**dataclasses.asdict(GOLDEN)),
                                    mesh=None)
     t_res = pairs.register_pairs(pair_list, "se3_pt2pl", GOLDEN,
-                                 device="cpu")
+                                 device="cpu", exact_knn=True)
     for p, j, t in zip(probs, j_res, t_res):
         assert metrics_host.success(p.T_gt, j.transformation)
         assert metrics_host.success(p.T_gt, t.transformation)
@@ -183,18 +186,25 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_kernel_wrappers_count_launches_only_on_the_card():
     """On CPU tensors the wrappers take the plain versions and launch
     nothing; the CUDA sources they would build are in the package."""
-    from se3_icp_tpu_torch.ops import _build, cuda_knn, cuda_loop
-    before = (cuda_knn.nn_match_affine.launches,
-              cuda_loop.loop_epilogue_batched.launches)
+    from se3_icp_tpu_torch.ops import _build, cuda_knn, cuda_loop, cuda_moments
+    wrappers = (cuda_knn.nn_match_affine, cuda_loop.loop_epilogue_batched,
+                cuda_moments.neighborhood_thresholds_batched,
+                cuda_moments.moments_batched, cuda_moments.axis_sums_batched)
+    before = [w.launches for w in wrappers]
+    # icp pt2pl reaches K1, K2, K4, K5; se3_pt2pl all five
     p = fixtures.golden_shape_problem(seed=1, n=200, **cases.SMALL_POSE)
     reg.register_pair(p.source, p.target, "pt2pl", GOLDEN, device="cpu")
-    assert (cuda_knn.nn_match_affine.launches,
-            cuda_loop.loop_epilogue_batched.launches) == before
+    p = fixtures.golden_shape_problem(seed=1, n=200)
+    reg.register_pair(p.source, p.target, "se3_pt2pl", GOLDEN, device="cpu")
+    assert [w.launches for w in wrappers] == before
     names = [s.name for s in _build.sources()]
-    assert names == ["loop_epilogue.cu", "match_affine.cu"]
+    assert names == ["loop_epilogue.cu", "match_affine.cu", "moments.cu",
+                     "thresholds.cu"]
     for s in _build.sources():
         text = s.read_text()
         assert "torch/extension.h" not in text
         assert 'extern "C" int se3icp_' in text
-    assert set(_build.SIGNATURES) == {"se3icp_match_affine",
-                                      "se3icp_loop_epilogue"}
+    assert set(_build.SIGNATURES) == {
+        "se3icp_match_affine", "se3icp_loop_epilogue", "se3icp_thresholds",
+        "se3icp_moments", "se3icp_axis"}
+    assert [h.name for h in _build.headers()] == ["dist.cuh"]

@@ -1,5 +1,5 @@
-"""The first slice of the PyTorch port as a whole, on the CPU, in
-float64 against the JAX package on its plain CPU route (exact sorted
+"""The port's exact route (``exact_knn=True``) as a whole, on the CPU,
+in float64 against the JAX package on its plain CPU route (exact sorted
 kNN, unfused loop): ``register_pair`` / ``register_pairs`` /
 ``register_batch`` with ``device="cpu"``, where each kernel's plain
 version runs.
@@ -47,7 +47,7 @@ def test_register_pairs_float64_matches_jax_plain_route(case):
                                    dtype=np.float64)
     stats = {}
     t_res = pairs.register_pairs(pair_list, alg, cfg, dtype=np.float64,
-                                 device="cpu", stats=stats)
+                                 device="cpu", stats=stats, exact_knn=True)
     cases.hold(probs, j_res, t_res, 1e-9, 1e-10)
     # done is polled every few steps, never every step
     steps = stats["loop_steps"]
@@ -65,7 +65,7 @@ def test_register_pair_warm_start_and_history_match_jax():
                             initial_T=T0)
     t = reg.register_pair(p.source, p.target, "se3_pt2pl", cfg,
                           dtype=torch.float64, record_history=True,
-                          initial_T=T0, device="cpu")
+                          initial_T=T0, device="cpu", exact_knn=True)
     assert t.num_iterations == j.num_iterations
     assert t.num_pure_se3_iterations == j.num_pure_se3_iterations
     assert t.history.shape == j.history.shape == (t.num_iterations, 4, 4)
@@ -77,7 +77,7 @@ def test_register_pair_warm_start_and_history_match_jax():
     # a start at the ground truth converges at once
     t_gt = reg.register_pair(p.source, p.target, "se3_pt2pl", cfg,
                              dtype=torch.float64, initial_T=p.T_gt,
-                             device="cpu")
+                             device="cpu", exact_knn=True)
     assert t_gt.num_iterations < t.num_iterations
     assert metrics_host.success(p.T_gt, t_gt.transformation)
 

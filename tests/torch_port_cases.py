@@ -1,11 +1,15 @@
-"""Shared cases and helpers of the port's engine tests
-(``test_torch_registration*.py``): the algorithm/config cases, the
-seed-made problems, the JAX config with its counterpart carried across,
-and the hold of one result list against the other."""
+"""Shared cases and helpers of the port's tests against the JAX
+package: for the engine (``test_torch_registration*.py``) the
+algorithm/config cases, the seed-made problems, the JAX config with its
+counterpart carried across, the JAX threshold route and the hold of one
+result list against the other; for the setup kernels
+(``test_torch_thresholds.py``, ``test_torch_moments.py``) seed-made
+clouds and exact distances."""
 
 import dataclasses
 
 import numpy as np
+import pytest
 
 from se3_icp_tpu.utils.config import RegistrationConfig as JaxConfig
 
@@ -59,3 +63,48 @@ def hold(probs, j_res, t_res, ang_tol, tra_tol):
             a.transformation[:3, :3], b.transformation[:3, :3]) < ang_tol
         assert np.linalg.norm(a.transformation[:3, 3]
                               - b.transformation[:3, 3]) < tra_tol
+
+
+# --- the setup kernels' tests (test_torch_thresholds.py,
+#     test_torch_moments.py): seed-made clouds, exact distances
+
+def normal_clouds(seed, n, n_valid):
+    """[B,n,3] float32 gaussian clouds, rows >= n_valid[b] zero (as the
+    engine pads), and their valid counts."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(len(n_valid), n, 3)).astype(np.float32)
+    for b, nv in enumerate(n_valid):
+        pts[b, nv:] = 0.0
+    return pts, np.asarray(n_valid, np.int32)
+
+
+def exact_d2(pts, n_valid):
+    """Float64 squared distances among one cloud's valid rows."""
+    p = pts[:n_valid].astype(np.float64)
+    return ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
+
+
+def midpoint_thresholds(pts, n_valid, counts):
+    """[B,T,N] float32 thresholds halfway between the c-th and (c+1)-th
+    smallest float64 squared distance (self included): no member lies
+    within rounding of a boundary.  Padded rows get 0."""
+    out = np.zeros((len(n_valid), len(counts), pts.shape[1]), np.float32)
+    for b, nv in enumerate(n_valid):
+        d2 = np.sort(exact_d2(pts[b], nv), axis=1)
+        for t, c in enumerate(counts):
+            out[b, t, :nv] = 0.5 * (d2[:, c - 1] + d2[:, c])
+    return out
+
+
+def jax_threshold_route(pair_list, alg, jcfg):
+    """The JAX package's threshold route off the TPU: every Pallas
+    kernel (K1-K5) through the callback-free interpret gate."""
+    from se3_icp_tpu.ops import knn as j_knn
+    from se3_icp_tpu.parallel import pairs as j_pairs
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SE3_ICP_TPU_FORCE_PALLAS", "1")
+        mp.setenv("SE3_ICP_TPU_PALLAS_INTERPRET", "1")
+        mp.delenv("SE3_ICP_TPU_NO_THR_KNN", raising=False)
+        mp.delenv("SE3_ICP_TPU_EXACT_KNN", raising=False)
+        assert j_knn.use_fused_match() and j_knn.use_thr_knn()
+        return j_pairs.register_pairs(pair_list, alg, jcfg, mesh=None)
