@@ -13,9 +13,14 @@ sort-free threshold route and the loop kernels K4, K5.  It then drives
 the main path through the public entry points (``register_pairs`` with
 ``se3_pt2pl`` / ``GOLDEN`` on 64 seed-made golden-shape pairs, on the
 default threshold route and again with ``exact_knn=True``), then
-smaller batches of the other algorithms, then the CLI as a subprocess;
-it gates every result at 2 deg / 0.25, and shows from the wrappers'
-launch counts that each path went through its kernels.  Every phase
+smaller batches of the other algorithms, then the CLI as a subprocess.
+Then the paths of the 1-NN kernels K6-K9: the multistart restart fleet
+(8 pairs x 8 starts), FGR + FPFH through ``register_pairs(..., "fgr")``
+(64 pairs), the metrics on the main path's results, the public 1-NN
+ops, ``run fgr`` and ``run --multi-start`` of the CLI, and K6-K9 against
+their plain versions.  It gates every result at 2 deg / 0.25, and shows
+from the wrappers' launch counts that each path went through its
+kernels.  Every phase
 prints one JSON line; any failed phase raises, so the exit code is
 non-zero and the final ``{"ok": true, ...}`` line is not printed.
 Without a CUDA device it exits with code 2 and prints no result.
@@ -51,6 +56,13 @@ K4_FLIP_SHARE = 0.01         # rows whose two nearest targets tie in rounding
 K5_REL_TOL = {"pt2pt": 1e-5, "pt2pl": 1e-5, "gicp": 1e-4}
 K2_REL_TOL = 1e-5            # of each row's largest entry: f32 sums, other order
 K3_REL_TOL = 1e-4            # weights are products of four rounded factors
+# K6-K9: |d2 - d2_plain| over |q|^2 + max |t|^2 of the pair, the terms the
+# shifted form |t|^2 - 2 q.t + |q|^2 cancels (a few float32 ulps of them);
+# at most 1% of rows may pick another target, each within that of the
+# plain version's in float64
+NN_D2_REL = 1e-5
+NN_FLIP_SHARE = 0.01
+MS_PAIRS, MS_STARTS = 8, 8   # the multistart fleet: 64 flat registrations
 
 
 def emit(phase: str, **kw) -> None:
@@ -605,14 +617,18 @@ def profile_line(pair_list):
 
 def wrappers():
     """name -> the launch-counting wrapper of every ported kernel."""
-    from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, cuda_moments
+    from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, cuda_moments, cuda_nn
     return dict(
         neighborhood_thresholds_batched=(
             cuda_moments.neighborhood_thresholds_batched),
         moments_batched=cuda_moments.moments_batched,
         axis_sums_batched=cuda_moments.axis_sums_batched,
         nn_match_affine=cuda_knn.nn_match_affine,
-        loop_epilogue_batched=cuda_loop.loop_epilogue_batched)
+        loop_epilogue_batched=cuda_loop.loop_epilogue_batched,
+        nn_argmin_batched=cuda_nn.nn_argmin_batched,
+        nn_argmin_unbatched=cuda_nn.nn_argmin_unbatched,
+        nn_match_batched=cuda_nn.nn_match_batched,
+        nn_match_packed=cuda_nn.nn_match_packed)
 
 
 def zero_launches() -> None:
@@ -667,7 +683,8 @@ def main_path_run(pair_list, problems, exact_knn):
                 max_iterations=max(iters), loop_steps=stats["loop_steps"],
                 host_syncs=stats["host_syncs"], launches=launches,
                 worst_rot_deg=rot, worst_trans=tra,
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), launches
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9), \
+        launches, results
 
 
 # K1/K2/K3 launches of one call per algorithm, from its count sets
@@ -697,9 +714,10 @@ def main_path_phase(with_profile: bool = False):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
-    line, launches = main_path_run(pair_list, problems, exact_knn=False)
+    line, launches, results = main_path_run(pair_list, problems,
+                                            exact_knn=False)
     emit("main_path", warmup_seconds=warm_s, **line)
-    line, _ = main_path_run(pair_list, problems, exact_knn=True)
+    line, _, _ = main_path_run(pair_list, problems, exact_knn=True)
     emit("main_path_exact", **line)
 
     phases_line(problems)
@@ -751,7 +769,7 @@ def main_path_phase(with_profile: bool = False):
              mean_iterations=float(np.mean(iters)), max_iterations=max(iters),
              loop_steps=st["loop_steps"], host_syncs=st["host_syncs"],
              launches=alg_launches, worst_rot_deg=rot, worst_trans=tra)
-    return launches
+    return launches, results
 
 
 def cli_phase():
@@ -778,6 +796,491 @@ def cli_phase():
     emit("cli", seconds=wall, worst_rot_deg=rot, worst_trans=tra)
 
 
+# --------------------------------------------------------------------
+# The paths of the 1-NN kernels K6-K9 (multistart, FGR, metrics, the
+# public ops) and the kernels against their plain versions.
+
+def nn_check(name, q, t, n, idx_k, d2_k, idx_p, d2_p, n_q=None):
+    """A 1-NN result of the kernel against the plain version's on the
+    same inputs: q [B,Nq,D], t [B,Nt,D] the searched targets, n [B];
+    ``n_q`` [B]: compare only the first n_q queries (FGR's padded query
+    rows sit at 1e6, equally far from every target)."""
+    check(bool(torch.isfinite(d2_k).all()), f"{name}: d2 not finite")
+    check(bool((idx_k >= 0).all() and (idx_k < n[:, None]).all()),
+          f"{name}: an index outside the valid targets")
+    bsz, nt = t.shape[0], t.shape[1]
+    col = torch.arange(nt, device=t.device)
+    tn = torch.where(col[None] < n[:, None], (t * t).sum(-1), 0.0)
+    scale = (q * q).sum(-1) + tn.amax(-1, keepdim=True) + 1.0   # [B,Nq]
+    rows = torch.ones_like(idx_k, dtype=torch.bool)
+    if n_q is not None:
+        rows = torch.arange(q.shape[1], device=q.device)[None] < n_q[:, None]
+    rel = float(torch.where(rows, (d2_k - d2_p).abs() / scale, 0.0).max())
+    check(rel <= NN_D2_REL,
+          f"{name}: d2 differs by {rel:.2e} of |q|^2+|t|^2 > {NN_D2_REL}")
+    differ = (idx_k != idx_p) & rows
+    share = float(differ.sum()) / float(rows.sum())
+    check(share <= NN_FLIP_SHARE,
+          f"{name}: {share:.4%} of rows pick another target than the plain "
+          f"version (limit {NN_FLIP_SHARE:.0%})")
+    gap = 0.0
+    if bool(differ.any()):
+        b, i = differ.nonzero(as_tuple=True)
+        qd = q[b, i].double()
+        dk = ((qd - t[b, idx_k[b, i].long()].double()) ** 2).sum(-1)
+        dp = ((qd - t[b, idx_p[b, i].long()].double()) ** 2).sum(-1)
+        gap = float(((dk - dp).abs() / scale[b, i].double()).max())
+        check(gap <= 2 * NN_D2_REL,
+              f"{name}: a differing index is no near-tie ({gap:.2e})")
+    return dict(max_abs_err=float((d2_k - d2_p).abs().max()),
+                max_rel_err=rel, index_flips=int(differ.sum()),
+                flip_share=share, flip_gap_rel=gap,
+                tolerance=dict(d2_rel=NN_D2_REL, flip_share=NN_FLIP_SHARE))
+
+
+def nn_bound(q, t, n, payload_width=0, tn_read=False):
+    """(2D+2) operations per (query, valid target); each input read once,
+    each output written once."""
+    bsz, nq, d = q.shape
+    nt = t.shape[1]
+    ops = (2 * d + 2) * nq * float(n.double().sum())
+    nbytes = 4 * (bsz * nq * d + bsz * nt * d + bsz + 2 * bsz * nq
+                  + payload_width * bsz * (nt + nq)
+                  + (bsz * nt if tn_read else 0))
+    return bound(ops, nbytes)
+
+
+def nn_argmin_case(name, q, t, n, unbatched=False, with_cdist=False,
+                   n_q=None):
+    """K6 (or K9 on one cloud) against its plain version."""
+    from se3_icp_tpu_torch.ops import cuda_nn
+    if unbatched:
+        fn = lambda: cuda_nn.nn_argmin_unbatched(q[0], t[0], n[0])
+        plain = lambda: cuda_nn.nn_argmin_unbatched_plain(q[0], t[0], n[0])
+        out_k, out_p = fn(), plain()
+        out_k = [x[None] for x in out_k]
+        out_p = [x[None] for x in out_p]
+    else:
+        fn = lambda: cuda_nn.nn_argmin_batched(q, t, n)
+        plain = lambda: cuda_nn.nn_argmin_batched_plain(q, t, n)
+        out_k, out_p = fn(), plain()
+    torch.cuda.synchronize()
+    case = dict(name=name, **nn_check(name, q, t, n, *out_k, *out_p, n_q),
+                ms=time_ms(fn), plain_ms=time_ms(plain, reps=3),
+                **nn_bound(q, t, n), library_ms=None,
+                shape=dict(B=q.shape[0], Nq=q.shape[1], Nt=t.shape[1],
+                           D=q.shape[2]),
+                n_targets=[int(n.min()), int(n.max())])
+    if with_cdist:
+        # context, not a yardstick: torch.cdist + min over all targets
+        # (no valid-count mask), the nearest library call
+        case["cdist_min_ms"] = time_ms(
+            lambda: torch.cdist(q, t).amin(-1), reps=3)
+    return case
+
+
+def nn_match_case(name, q, t, payload, n):
+    """K7 against its plain version: the matched rows are copies."""
+    from se3_icp_tpu_torch.ops import cuda_nn
+    args = (q, t, payload, n)
+    idx, d2, m = cuda_nn.nn_match_batched(*args)
+    torch.cuda.synchronize()
+    idx_p, d2_p, _ = cuda_nn.nn_match_batched_plain(*args)
+    case = nn_check(name, q, t, n, idx, d2, idx_p, d2_p)
+    want = torch.gather(payload, 1, idx.long()[..., None].expand(
+        -1, -1, payload.shape[2]))
+    check(bool((m == want).all()), f"{name}: matched rows are not the "
+          "payload rows of the returned indices")
+    return dict(name=name, **case, payload_bit_equal=True,
+                ms=time_ms(lambda: cuda_nn.nn_match_batched(*args)),
+                plain_ms=time_ms(lambda: cuda_nn.nn_match_batched_plain(
+                    *args), reps=3),
+                **nn_bound(q, t, n, payload.shape[2]), library_ms=None,
+                shape=dict(B=q.shape[0], Nq=q.shape[1], Nt=t.shape[1],
+                           D=q.shape[2], P=payload.shape[2]),
+                n_targets=[int(n.min()), int(n.max())])
+
+
+def nn_packed_case(name, q, targets, phase):
+    """K8 against its plain version on the main path's own packed
+    targets."""
+    from se3_icp_tpu_torch.ops import cuda_nn
+    idx, d2, m = cuda_nn.nn_match_packed(q, targets, phase)
+    torch.cuda.synchronize()
+    idx_p, d2_p, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
+    ar = torch.arange(q.shape[0], device=q.device)
+    t_sel = targets.emb[ar, phase.long()]
+    case = nn_check(name, q, t_sel, targets.n, idx, d2, idx_p, d2_p)
+    want = torch.gather(targets.payload, 1, idx.long()[..., None].expand(
+        -1, -1, targets.payload.shape[2]))
+    check(bool((m == want).all()), f"{name}: matched rows are not the "
+          "payload rows of the returned indices")
+    return dict(name=name, **case, payload_bit_equal=True,
+                ms=time_ms(lambda: cuda_nn.nn_match_packed(q, targets,
+                                                           phase)),
+                plain_ms=time_ms(lambda: cuda_nn.nn_match_packed_plain(
+                    q, targets, phase), reps=3),
+                **nn_bound(q, t_sel, targets.n, targets.payload.shape[2],
+                           tn_read=True), library_ms=None,
+                shape=dict(B=q.shape[0], Nq=q.shape[1], Nt=t_sel.shape[1],
+                           D=q.shape[2], P=targets.payload.shape[2]),
+                phases=phase.tolist())
+
+
+def moved_sources(problems, dev, tilt=(0.02, -0.015, 0.01)):
+    """The packed sources under a pose a little off the ground truth (as
+    multistart scores its candidates), and the packed targets."""
+    from se3_icp_tpu_torch.datasets import fixtures
+    from se3_icp_tpu_torch.parallel import pairs
+    src, n_src, tgt, n_tgt = pairs.pack_pairs(
+        [(p.source, p.target) for p in problems])
+    q = np.zeros_like(src)
+    for b, p in enumerate(problems):
+        R = p.T_gt[:3, :3] @ fixtures.rot_3d(*tilt)
+        q[b, :n_src[b]] = src[b, :n_src[b]] @ R.T + p.T_gt[:3, 3]
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return t(q), t(tgt), t(n_tgt)
+
+
+def embedding12(points, seed):
+    """An engine-like 12-D embedding [B,N,12] = [3 R (column-major) |
+    p] with a random frame R a point."""
+    rng = np.random.default_rng(seed)
+    bsz, n, _ = points.shape
+    r, _ = np.linalg.qr(rng.normal(size=(bsz * n, 3, 3)))
+    r = np.swapaxes(r, -1, -2).reshape(bsz, n, 9) * 3.0
+    return torch.as_tensor(np.concatenate([r, points.cpu().numpy()], -1),
+                           dtype=torch.float32, device=points.device)
+
+
+def nn_kernels_phase(feats):
+    """K6-K9 against their plain versions at the shapes of their paths:
+    K6 at 64 x 4608 (D = 3: multistart scoring; D = 33: FGR's features
+    ``feats``) and 8 x 15360; K9 at 4608 (D = 3) and 15360 (D = 12); K7
+    at 64 x 4608, D = 12, P = 9 on padded targets; K8 on the main path's
+    own packed targets with mixed phases."""
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    dev = torch.device("cuda")
+    problems = golden_pairs(N_PAIRS)
+    q3, t3, n3 = moved_sources(problems, dev)
+    k6 = [nn_argmin_case("nn_argmin_batched", q3, t3, n3, with_cdist=True)]
+    fs, ft, n_t, n_s = feats
+    k6.append(nn_argmin_case("nn_argmin_batched[D=33, FGR features]",
+                             fs, ft, n_t, with_cdist=True, n_q=n_s))
+    big = golden_pairs(SMALL_BATCH, n=15000)
+    qb, tb, nb = moved_sources(big, dev)
+    k6.append(nn_argmin_case("nn_argmin_batched[8 x 15360]", qb, tb, nb,
+                             with_cdist=True))
+    k9 = [nn_argmin_case("nn_argmin_unbatched", q3[:1], t3[:1], n3[:1],
+                         unbatched=True)]
+    k9.append(nn_argmin_case(
+        "nn_argmin_unbatched[15360, D=12]", embedding12(qb[:1], 1),
+        embedding12(tb[:1], 2), nb[:1], unbatched=True))
+    del feats, fs, ft, qb, tb
+
+    ms, pre = match_state(problems, GOLDEN, "se3_pt2pl")
+    bsz = N_PAIRS
+    false_b = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    near = near_gt_pose(problems, pre, dev)
+    W, _, _ = loop_inputs(ms, GOLDEN, false_b, false_b, near)
+    q12 = (ms.feat16 @ W)[..., :12].contiguous()
+    k7 = [nn_match_case("nn_match_batched", q12,
+                        ms.targets.emb[:, 0].contiguous(),
+                        ms.targets.payload, ms.targets.n)]
+    switched = torch.arange(bsz, device=dev) % 2 == 1
+    W, phase, _ = loop_inputs(ms, GOLDEN, switched, false_b, near)
+    q12 = (ms.feat16 @ W)[..., :12].contiguous()
+    k8 = [nn_packed_case("nn_match_packed", q12, ms.targets,
+                         phase[:, 0].contiguous())]
+    return k6, k7, k8, k9
+
+
+def only_launched(what, launches, want):
+    """The path launched exactly ``want`` = {wrapper: count} of the 1-NN
+    kernels (the others: none)."""
+    for name in ("nn_argmin_batched", "nn_argmin_unbatched",
+                 "nn_match_batched", "nn_match_packed"):
+        n = want.get(name, 0)
+        check(launches[name] == n,
+              f"{what} launched {name} {launches[name]} times, not {n}")
+
+
+def multistart_phase():
+    """The restart fleet through ``register_pairs_multistart``: 8 pairs
+    of the golden shape under FLIPPED_POSE (out of a single start's
+    reach), 8 starts each, one chunk of 64 flat registrations on the
+    threshold route; every pair's kept start gated.  Then one pair on
+    the card and on the CPU plain route at 600 points."""
+    from se3_icp_tpu_torch.datasets.fixtures import FLIPPED_POSE
+    from se3_icp_tpu_torch.models import multistart
+    from se3_icp_tpu_torch.utils import metrics_host as mh
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    problems = golden_pairs(MS_PAIRS, **FLIPPED_POSE)
+    pair_list = [(p.source, p.target) for p in problems]
+    zero_launches()
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = multistart.register_pairs_multistart(
+        pair_list, "se3_pt2pl", GOLDEN, n_starts=MS_STARTS,
+        pair_chunk=MS_PAIRS, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    rot, tra = gate(problems, [r.best for r in res], "multistart kept start")
+    # setup K1-K3 once per cloud of the one engine call; K4, K5 per step;
+    # one K6 launch scores the chunk's 64 candidates
+    check_launches("multistart", launches, stats["loop_steps"], (2, 2, 2))
+    only_launched("multistart", launches, {"nn_argmin_batched": 1})
+    gaps = [float(np.sort(r.scores)[1] - np.sort(r.scores)[0]) for r in res]
+    # the card and the CPU plain route keep the same start
+    small = golden_pairs(1, n=600, **FLIPPED_POSE)
+    sl = [(p.source, p.target) for p in small]
+    on_card = multistart.register_pairs_multistart(sl, "se3_pt2pl", GOLDEN,
+                                                   n_starts=MS_STARTS)[0]
+    on_cpu = multistart.register_pairs_multistart(sl, "se3_pt2pl", GOLDEN,
+                                                  n_starts=MS_STARTS,
+                                                  device="cpu")[0]
+    # several starts may share the right basin: compare the kept
+    # transforms and scores, not the index
+    check(mh.success(small[0].T_gt, on_card.best.transformation)
+          and mh.angular_error_so3(on_card.best.transformation[:3, :3],
+                                   on_cpu.best.transformation[:3, :3]) < 1e-3
+          # a score at the right pose is float32 noise of the shifted
+          # distances (~1e-3, tests/test_torch_multistart.py)
+          and abs(on_card.scores[on_card.start_index]
+                  - on_cpu.scores[on_cpu.start_index]) < 1e-3,
+          "multistart: card and CPU plain route disagree")
+    emit("multistart", algorithm="se3_pt2pl", config="GOLDEN",
+         pose="FLIPPED_POSE", pairs=MS_PAIRS, starts=MS_STARTS,
+         flat_registrations=MS_PAIRS * MS_STARTS, points=4167, bucket=4608,
+         seconds=wall, pairs_per_s=MS_PAIRS / wall,
+         registrations_per_s=MS_PAIRS * MS_STARTS / wall,
+         kept_starts=[r.start_index for r in res],
+         kept_scores=[float(r.scores[r.start_index]) for r in res],
+         scores=[np.round(r.scores, 6).tolist() for r in res],
+         score_gap_to_second=gaps,
+         kept_iterations=[r.best.num_iterations for r in res],
+         loop_steps=stats["loop_steps"], host_syncs=stats["host_syncs"],
+         launches=launches, worst_rot_deg=rot, worst_trans=tra,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card_vs_cpu=dict(points=600, start=on_card.start_index,
+                          start_cpu=on_cpu.start_index, agree=True))
+    return launches
+
+
+def fgr_phase():
+    """FGR + FPFH through ``register_pairs(pairs, "fgr", FGRConfig())``
+    on the main path's 64 golden-shape pairs, every pair gated.  Returns
+    (launches, the features of the first call's clouds for the kernel
+    case)."""
+    from se3_icp_tpu_torch.models import fgr
+    from se3_icp_tpu_torch.parallel import pairs
+    cfg = fgr.FGRConfig()
+    problems = golden_pairs(N_PAIRS)
+    pair_list = [(p.source, p.target) for p in problems]
+    pairs.register_pairs(pair_list[:2], "fgr", cfg)      # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = pairs.register_pairs(pair_list, "fgr", cfg, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rot, tra = gate(problems, res, "fgr")
+    # the reciprocal match: K6 forward and backward, at D = 33
+    only_launched("fgr", launches, {"nn_argmin_batched": 2})
+    for name in ("neighborhood_thresholds_batched", "moments_batched",
+                 "axis_sums_batched", "nn_match_affine",
+                 "loop_epilogue_batched"):
+        check(launches[name] == 0, f"fgr launched {name}")
+    from se3_icp_tpu_torch.utils import metrics_host as mh
+    errs = [mh.angular_error_so3(p.T_gt[:3, :3], r.transformation[:3, :3])
+            for p, r in zip(problems, res)]
+    emit("fgr", config="FGRConfig()", pairs=N_PAIRS, points=4167,
+         bucket=4608, seconds=wall, pairs_per_s=N_PAIRS / wall,
+         worst_rot_deg=rot, median_rot_deg=float(np.median(errs)),
+         worst_trans=tra, reciprocal=stats["reciprocal"],
+         kept_correspondences=stats["kept_correspondences"],
+         launches=launches, peak_mem_gb=peak)
+    # where the call's time goes: its stages on the same packed clouds,
+    # each ended by a synchronize; their features are the D = 33 kernel
+    # case's inputs
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    packed, pack_s = timed(lambda: [torch.as_tensor(a, device="cuda")
+                                    for a in pairs.pack_pairs(pair_list)])
+    src, n_src, tgt, n_tgt = packed
+    with torch.no_grad():
+        (fs, ft), feat_s = timed(lambda: (fgr.features(src, n_src, cfg),
+                                          fgr.features(tgt, n_tgt, cfg)))
+        (fwd, bwd), match_s = timed(lambda: fgr.reciprocal_matches(
+            fs, n_src, ft, n_tgt))
+        _, rest_s = timed(lambda: fgr.register_from_matches(
+            src, n_src, tgt, n_tgt, fwd, bwd, cfg))
+    emit("fgr_split", pack_upload_seconds=pack_s, features_seconds=feat_s,
+         match_seconds=match_s, tuples_gnc_seconds=rest_s)
+    return launches, (fs, ft, n_tgt, n_src)
+
+
+def metrics_phase(results):
+    """The metrics on the main path's registered pairs: the squared
+    chamfer distance of each registered source to its target and the GT
+    correspondences of each pair (K9), the rotation errors against the
+    host's float64 ones, and the LRF errors of both setup routes on one
+    noisy pair."""
+    from se3_icp_tpu_torch.datasets.fixtures import NOISY
+    from se3_icp_tpu_torch.utils import lrf_eval, metrics
+    from se3_icp_tpu_torch.utils import metrics_host as mh
+    problems = golden_pairs(N_PAIRS)
+    zero_launches()
+    t0 = time.perf_counter()
+    chamfer, corr_ok, near_ties = [], 0, 0
+    for p, r in zip(problems, results):
+        moved = p.source @ r.transformation[:3, :3].T + r.transformation[:3, 3]
+        chamfer.append(float(metrics.chamfer_distance_sq(moved, p.target)))
+        corr = metrics.compute_corrs_with_gt(p.source, p.target,
+                                             p.T_gt).cpu().numpy()
+        # the target is the source under T_gt, point for point, except
+        # where another target lies within float32 rounding of the
+        # shifted distances (points a few 1e-3 apart): checked in float64
+        wrong = np.nonzero(corr[:, 1] != corr[:, 0])[0]
+        corr_ok += len(corr) - len(wrong)
+        if len(wrong):
+            m64 = p.source[wrong] @ p.T_gt[:3, :3].T + p.T_gt[:3, 3]
+            d_got = ((m64 - p.target[corr[wrong, 1]]) ** 2).sum(-1)
+            d_gt = ((m64 - p.target[wrong]) ** 2).sum(-1)
+            scale = (m64 ** 2).sum(-1) + (p.target ** 2).sum(-1).max() + 1.0
+            check(bool((d_got - d_gt <= 2 * NN_D2_REL * scale).all()),
+                  "a GT correspondence is no near-tie")
+            near_ties += len(wrong)
+    rot = metrics.angular_error_so3(
+        np.stack([r.transformation[:3, :3] for r in results]),
+        np.stack([p.T_gt[:3, :3] for p in problems]))
+    host = np.asarray([mh.angular_error_so3(r.transformation[:3, :3],
+                                            p.T_gt[:3, :3])
+                       for p, r in zip(problems, results)])
+    noisy = golden_pairs(1, **NOISY)[0]
+    lrf_err = lrf_eval.cross_cloud_lrf_errors(noisy.source, noisy.target,
+                                              noisy.T_gt, inlier=0.05)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_all = N_PAIRS * 4167
+    # K9: two per chamfer, one per GT correspondence set (the LRF
+    # evaluation's included)
+    only_launched("metrics", launches,
+                  {"nn_argmin_unbatched": 3 * N_PAIRS + 1})
+    # the registered source lies on its target: what is left is float32
+    # rounding of the shifted distances (|p|^2 ~ 50 here); a 2-degree
+    # miss gives ~1e-2
+    check(max(abs(c) for c in chamfer) < 1e-4,
+          f"chamfer of a registered pair {max(chamfer)}")
+    from scipy.spatial import cKDTree
+    p0, r0 = problems[0], results[0]
+    moved0 = p0.source @ r0.transformation[:3, :3].T + r0.transformation[:3, 3]
+    host_chamfer = float(np.mean(cKDTree(p0.target).query(moved0)[0] ** 2)
+                         + np.mean(cKDTree(moved0).query(p0.target)[0] ** 2))
+    check(abs(chamfer[0] - host_chamfer) < 1e-4,
+          "chamfer disagrees with the host's float64 one")
+    check(near_ties <= 1e-3 * n_all,
+          f"GT correspondences: {near_ties} near-ties of {n_all}")
+    check(bool(np.abs(rot.cpu().numpy() - host).max() < 1e-3),
+          "angular_error_so3 disagrees with the host's")
+    for name, e in lrf_err.items():
+        check(np.isfinite(e).all() and len(e) > 500,
+              f"LRF errors of the {name} route")
+    emit("metrics", pairs=N_PAIRS, seconds=wall,
+         chamfer_sq_max=max(chamfer), chamfer_sq_pair0=chamfer[0],
+         chamfer_sq_pair0_host=host_chamfer, corrs_with_gt_exact=corr_ok,
+         corrs_with_gt_near_ties=near_ties,
+         corrs_total=n_all,
+         rot_err_vs_host_max_deg=float(np.abs(rot.cpu().numpy() - host).max()),
+         lrf_err_median_deg={k: float(np.median(v))
+                             for k, v in lrf_err.items()},
+         lrf_err_kept={k: len(v) for k, v in lrf_err.items()},
+         launches=launches)
+    return launches
+
+
+def ops_phase():
+    """The public 1-NN ops as a user calls them (``knn.nn_match`` and
+    ``knn.nn_match_packed`` have no caller in the engine, as in the JAX
+    package): one call each on the main path's packed targets."""
+    from se3_icp_tpu_torch.ops import knn
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    problems = golden_pairs(N_PAIRS)
+    ms, _ = match_state(problems, GOLDEN, "se3_pt2pl")
+    dev = torch.device("cuda")
+    false_b = torch.zeros(N_PAIRS, dtype=torch.bool, device=dev)
+    W, _, _ = loop_inputs(ms, GOLDEN, false_b, false_b,
+                          torch.eye(4, device=dev).repeat(N_PAIRS, 1, 1))
+    q12 = (ms.feat16 @ W)[..., :12]
+    phase = (torch.arange(N_PAIRS, device=dev) % 2).to(torch.int32)
+    zero_launches()
+    idx, _, m = knn.nn_match(q12, ms.targets.emb[:, 0], ms.targets.payload,
+                             ms.targets.n)
+    idx2, _, m2 = knn.nn_match_packed(q12, ms.targets, phase)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    only_launched("public ops", launches, {"nn_match_batched": 1,
+                                           "nn_match_packed": 1})
+    # phase-0 pairs searched the same block through both ops (|t|^2
+    # rounded in the kernel there, in torch here: near-ties may part)
+    even = phase == 0
+    same = idx[even] == idx2[even]
+    check(float(same.float().mean()) >= 1 - NN_FLIP_SHARE
+          and bool((m[even][same] == m2[even][same]).all()),
+          "nn_match and nn_match_packed disagree on the same block")
+    emit("ops", nn_match=dict(shape=list(q12.shape)),
+         nn_match_packed=dict(phases=[0, 1]),
+         same_block_rows_differing=int((~same).sum()), launches=launches)
+    return launches
+
+
+def cli_slice3_phase():
+    """``run fgr`` and ``run se3_pt2pl --multi-start 8`` of the CLI, in
+    this process, each gated."""
+    import contextlib
+    import io
+    from se3_icp_tpu_torch import cli
+    from se3_icp_tpu_torch.datasets.fixtures import FLIPPED_POSE
+    from se3_icp_tpu_torch.utils import ply
+    out = {}
+    for tag, args, kw in (("fgr", ["fgr"], {}),
+                          ("multi_start", ["se3_pt2pl", "--multi-start",
+                                           str(MS_STARTS)], FLIPPED_POSE)):
+        prob = golden_pairs(1, **kw)[0]
+        with tempfile.TemporaryDirectory() as tmp:
+            src, tgt = (os.path.join(tmp, f) for f in ("s.ply", "t.ply"))
+            ply.write_ply(src, prob.source)
+            ply.write_ply(tgt, prob.target)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["run", args[0], src, tgt, *args[1:]])
+            wall = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        at = lines.index("Estimated transformation = ")
+        T = np.asarray([[float(v) for v in ln.split()]
+                        for ln in lines[at + 1:at + 5]])
+        rot, tra = gate([prob], [types.SimpleNamespace(transformation=T)],
+                        f"CLI run {' '.join(args)}")
+        if tag == "multi_start":
+            check(any(ln.startswith("multi-start: kept start")
+                      for ln in lines), "no kept-start line")
+        out[tag] = dict(seconds=wall, worst_rot_deg=rot, worst_trans=tra)
+    emit("cli_slice3", **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -791,13 +1294,27 @@ def main() -> int:
     build_phase()
     k1_cases, k2_cases, k3_cases = setup_kernels_phase()
     k4_cases, k5_cases = kernels_phase()
-    launches = main_path_phase(with_profile="--profile" in sys.argv[1:])
+    launches, results = main_path_phase(
+        with_profile="--profile" in sys.argv[1:])
     cli_phase()
+    # the paths of the 1-NN kernels, each with its own launch counts
+    ms_launches = multistart_phase()
+    fgr_launches, feats = fgr_phase()
+    metrics_launches = metrics_phase(results)
+    ops_launches = ops_phase()
+    cli_slice3_phase()
+    k6_cases, k7_cases, k8_cases, k9_cases = nn_kernels_phase(feats)
+    del feats
 
-    def entry(cases, key, source, replaces):
+    def entry(cases, key, source, replaces, counts=None):
+        """``counts``: {path: launch counts} of the paths that run this
+        kernel (default: the main path)."""
+        counts = counts or {"main_path": launches}
         head = dict(cases[0])
         head.update(route="cuda", source=source, replaces=replaces,
-                    launches=launches[key], cases=cases[1:])
+                    launches=sum(c[key] for c in counts.values()),
+                    launches_by_path={k: c[key] for k, c in counts.items()},
+                    cases=cases[1:])
         return head
 
     kernels = [
@@ -816,6 +1333,20 @@ def main() -> int:
         entry(k5_cases, "loop_epilogue_batched",
               "se3_icp_tpu_torch/csrc/loop_epilogue.cu",
               "se3_icp_tpu/ops/pallas_loop.py:72"),
+        entry(k6_cases, "nn_argmin_batched",
+              "se3_icp_tpu_torch/csrc/nn_argmin.cu",
+              "se3_icp_tpu/ops/pallas_knn.py:152",
+              {"multistart": ms_launches, "fgr": fgr_launches}),
+        entry(k7_cases, "nn_match_batched",
+              "se3_icp_tpu_torch/csrc/nn_argmin.cu",
+              "se3_icp_tpu/ops/pallas_knn.py:349", {"ops": ops_launches}),
+        entry(k8_cases, "nn_match_packed",
+              "se3_icp_tpu_torch/csrc/nn_argmin.cu",
+              "se3_icp_tpu/ops/pallas_knn.py:489", {"ops": ops_launches}),
+        entry(k9_cases, "nn_argmin_unbatched",
+              "se3_icp_tpu_torch/csrc/nn_argmin.cu",
+              "se3_icp_tpu/ops/pallas_knn.py:49",
+              {"metrics": metrics_launches}),
     ]
     emit("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,9 +3,11 @@ point-cloud registration engine ("A Generalization of Iterative Closest
 Point Registration Algorithms using a Local Reference Frame based SE(3)
 Augmentation", kenahm/se3-icp).
 
-Plain tensor code is PyTorch, natively batched over pairs; the two
-kernels of the iteration loop -- the fused correspondence match
-(``ops/cuda_knn.py``) and the fused loop epilogue (``ops/cuda_loop.py``)
+Plain tensor code is PyTorch, natively batched over pairs; the kernels
+-- the threshold setup (``ops/cuda_moments.py``), the fused
+correspondence match and loop epilogue of the iteration loop
+(``ops/cuda_knn.py``, ``ops/cuda_loop.py``) and the exact 1-NN searches
+of multistart scoring, FGR matching and the metrics (``ops/cuda_nn.py``)
 -- are hand-written CUDA C++ for sm_90a (``csrc/``), built at first use
 (``ops/_build.py``).  Entry points run on the CUDA device unless the
 caller passes ``device="cpu"``, where each kernel's plain PyTorch
@@ -30,6 +32,12 @@ def __getattr__(name):
                 "pack_clouds"):
         from se3_icp_tpu_torch.parallel import pairs
         return getattr(pairs, name)
+    if name in ("register_pair_multistart", "register_pairs_multistart"):
+        from se3_icp_tpu_torch.models import multistart
+        return getattr(multistart, name)
+    if name == "fgr_register":
+        from se3_icp_tpu_torch.models import fgr
+        return fgr.fgr_register
     if name in ("read_ply", "write_ply"):
         from se3_icp_tpu_torch.utils import ply
         return getattr(ply, name)
@@ -41,6 +49,8 @@ __all__ = [
     "RegistrationResult", "register_pair", "register_arrays",
     "sanitize_cloud",
     "register_pairs", "register_batch", "pack_pairs", "pack_clouds",
+    "register_pair_multistart", "register_pairs_multistart",
+    "fgr_register",
     "read_ply", "write_ply",
     "__version__",
 ]

@@ -3,9 +3,12 @@
   run    <- run_registration_method: register two PLY files
 
 Usage: ``python -m se3_icp_tpu_torch run <algorithm> source.ply
-target.ply [--device cpu]``.  The run is on the CUDA device unless
-``--device cpu`` is given.  The other sub-commands of the JAX package's
-CLI (examples, benchmark protocols) are later slices of the port.
+target.ply [--multi-start N] [--device cpu]``, ``<algorithm>`` one of
+the ICP names or ``fgr``; ``--multi-start N`` registers from N rotation
+starts in one batch and keeps the best.  The run is on the CUDA device
+unless ``--device cpu`` is given.  The other sub-commands of the JAX
+package's CLI (examples, benchmark protocols) are later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -31,11 +34,33 @@ def cmd_run(args):
     print(f"source point cloud size = {len(src)}")
     print(f"target point cloud size = {len(tgt)}")
     dtype = torch.float64 if args.dtype == "float64" else torch.float32
-    T0 = None
-    if args.initial_transform:
-        T0 = np.loadtxt(args.initial_transform).reshape(4, 4)
-    res = reg.register_pair(src.points, tgt.points, args.algorithm, GOLDEN,
-                            dtype=dtype, initial_T=T0, device=args.device)
+    multi = args.multi_start or 0
+    if multi > 1 and args.algorithm == "fgr":
+        sys.exit("error: --multi-start is not supported with fgr (a "
+                 "global method; it does not use an initialization)")
+    if multi > 1 and args.initial_transform:
+        sys.exit("error: --multi-start and --initial-transform are "
+                 "mutually exclusive (the restart fleet defines its own "
+                 "starts)")
+    if args.algorithm == "fgr":
+        from se3_icp_tpu_torch.models import fgr
+        res = fgr.fgr_register(src.points, tgt.points, dtype=dtype,
+                               device=args.device)
+    elif multi > 1:
+        from se3_icp_tpu_torch.models import multistart
+        ms = multistart.register_pair_multistart(
+            src.points, tgt.points, args.algorithm, GOLDEN, n_starts=multi,
+            dtype=dtype, device=args.device)
+        res = ms.best
+        print(f"multi-start: kept start {ms.start_index} of {multi} "
+              f"(trimmed NN score {ms.scores[ms.start_index]:.6g})")
+    else:
+        T0 = None
+        if args.initial_transform:
+            T0 = np.loadtxt(args.initial_transform).reshape(4, 4)
+        res = reg.register_pair(src.points, tgt.points, args.algorithm,
+                                GOLDEN, dtype=dtype, initial_T=T0,
+                                device=args.device)
     print("Estimated transformation = ")
     np.savetxt(sys.stdout, res.transformation, fmt="%10.6f")
     if args.json:
@@ -49,12 +74,14 @@ def build_parser():
         description="SE(3)-ICP point-cloud registration (PyTorch/CUDA)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="register two PLY files")
-    p.add_argument("algorithm", choices=ALGORITHMS)
+    p.add_argument("algorithm", choices=ALGORITHMS + ("fgr",))
     p.add_argument("source")
     p.add_argument("target")
     p.add_argument("--initial-transform", default=None,
                    help="text file with a 4x4 warm start (original "
                         "coordinates)")
+    p.add_argument("--multi-start", type=int, default=0,
+                   help="N rotation starts in one batch, keep the best")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain versions "
                         "(float64 allowed there)")

@@ -1,0 +1,209 @@
+// Exact 1-NN of float32 points: for every query, the index of the
+// nearest valid target (lowest index on ties) and its squared distance,
+// and for the match variants the nearest target's payload row.
+//
+// Replaces four TPU kernels of se3_icp_tpu/ops/pallas_knn.py, which all
+// compute this one function:
+//   K6 `_kernel_batched`      (wrapper `nn_argmin_pallas_batched`)
+//   K9 `_kernel`              (wrapper `nn_argmin_pallas`, unbatched;
+//                              here the same kernel launched at B = 1)
+//   K7 `_kernel_match`        (wrapper `nn_match_pallas_batched`)
+//   K8 `_kernel_match_packed` (wrapper `nn_match_packed`: targets packed
+//                              once in both phases, one chosen per pair)
+// Those kernels split every float32 operand into three bf16 limbs so the
+// matrix unit yields float32-exact products, poison invalid targets with
+// huge coordinates instead of a bound check, add |q|^2 back after the
+// reduction and pick the winning payload row with a one-hot matmul.  None
+// of that is needed here: float32 FMAs on the CUDA cores are exact-class,
+// the target loop simply stops at n_targets[b], and a thread gathers its
+// winning row once, at the end.  K8 takes no tie-average (that is K4's
+// contract, csrc/match_affine.cu): every variant keeps the lowest index.
+//
+// What bounds it on an H100: operations.  A call is B*Nq*Nt pairs, each
+// D FMAs on the shifted distance |t|^2 - 2 q.t plus a compare:
+// B*Nq*Nt*(2D+2) float32 operations against 67 TFLOP/s, while the inputs
+// (a few MB) are read once.  At 64 x 4608 x 4608 that is 0.16 ms for
+// D = 3 (multistart scoring) and 1.4 ms for D = 33 (FGR's FPFH features).
+// Design: grid (query tiles, B); one query per thread, -2q held in
+// registers (D a template argument, so the loops unroll and nothing
+// spills); target tiles staged through shared memory as rows of D
+// coordinates plus |t|^2 padded to whole float4s, read by every thread of
+// the block at the same address (broadcasts, no bank conflicts); a
+// running (min, first index) in registers.  |t|^2 is computed once per
+// tile by one thread per target, or read from the packed targets (K8).
+// Register tiling over several queries a thread and tensor cores (a
+// 3xTF32 or bf16-limb split through wgmma, which would matter most at
+// D = 33) are left for a later change.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;   // queries per block, one per thread
+constexpr int kTile = 128;      // targets per shared-memory tile
+constexpr float kBig = 3.4e38f; // distance of "no valid target"
+
+template <int D, bool kPay, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+nn_kernel(const float* __restrict__ q,        // [B,Nq,D]
+          const float* __restrict__ t,        // [B,Nt,D]; packed [B,2,Nt,D]
+          const float* __restrict__ tn,       // packed only: [B,2,Nt] |t|^2
+          const float* __restrict__ payload,  // kPay: [B,Nt,P]
+          const int* __restrict__ n_tgt,      // [B]
+          const int* __restrict__ phase,      // packed only: [B]
+          int* __restrict__ idx_out,          // [B,Nq]
+          float* __restrict__ d2_out,         // [B,Nq]
+          float* __restrict__ matched,        // kPay: [B,Nq,P]
+          int nq, int nt, int p) {
+  constexpr int V = (D + 4) / 4;   // float4s a target row: D coords, |t|^2
+  constexpr int S = 4 * V;
+  __shared__ float4 t_s4[kTile * V];
+  float* t_s = reinterpret_cast<float*>(t_s4);
+
+  const int b = blockIdx.y;
+  const int qi = blockIdx.x * kThreads + threadIdx.x;
+  const bool active = qi < nq;
+  const int n = min(max(n_tgt[b], 0), nt);
+  const int sel = kPacked ? (phase[b] != 0 ? 1 : 0) : 0;
+  const size_t t_row0 = ((size_t)b * (kPacked ? 2 : 1) + sel) * nt;
+  const float* t_b = t + t_row0 * D;
+
+  float q2[D];
+  float qn = 0.f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) q2[k] = 0.f;
+  if (active) {
+    const float* qr = q + ((size_t)b * nq + qi) * D;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const float v = qr[k];
+      qn = fmaf(v, v, qn);
+      q2[k] = -2.f * v;            // exact: a power-of-two scaling
+    }
+  }
+
+  float best = kBig;
+  int bi = 0;
+  for (int t0 = 0; t0 < n; t0 += kTile) {
+    const int m = min(kTile, n - t0);
+    __syncthreads();               // the previous tile is fully consumed
+    for (int i = threadIdx.x; i < m * D; i += kThreads) {
+      const int r = i / D;
+      t_s[r * S + (i - r * D)] = t_b[(size_t)t0 * D + i];
+    }
+    if (kPacked) {
+      for (int r = threadIdx.x; r < m; r += kThreads) {
+        t_s[r * S + D] = tn[t_row0 + t0 + r];
+      }
+    } else {
+      __syncthreads();             // the coordinates are in place
+      for (int r = threadIdx.x; r < m; r += kThreads) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < D; ++k) s = fmaf(t_s[r * S + k], t_s[r * S + k], s);
+        t_s[r * S + D] = s;
+      }
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll 2
+      for (int j = 0; j < m; ++j) {
+        float tv[S];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float4 w = t_s4[j * V + v];
+          tv[4 * v] = w.x; tv[4 * v + 1] = w.y;
+          tv[4 * v + 2] = w.z; tv[4 * v + 3] = w.w;
+        }
+        float d = tv[D];
+#pragma unroll
+        for (int k = 0; k < D; ++k) d = fmaf(q2[k], tv[k], d);
+        if (d < best) {            // strict: the first index keeps a tie
+          best = d;
+          bi = t0 + j;
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  const size_t o = (size_t)b * nq + qi;
+  idx_out[o] = bi;
+  d2_out[o] = best + qn;
+  if (kPay) {
+    const float* src = payload + ((size_t)b * nt + bi) * p;
+    float* dst = matched + o * p;
+    for (int c = 0; c < p; ++c) dst[c] = src[c];
+  }
+}
+
+template <int D, bool kPay, bool kPacked>
+int launch(const void* q, const void* t, const void* tn, const void* payload,
+           const void* n_tgt, const void* phase, void* idx, void* d2,
+           void* matched, int bsz, int nq, int nt, int p, void* stream) {
+  const dim3 grid((nq + kThreads - 1) / kThreads, bsz);
+  nn_kernel<D, kPay, kPacked><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)t, (const float*)tn,
+      (const float*)payload, (const int*)n_tgt, (const int*)phase,
+      (int*)idx, (float*)d2, (float*)matched, nq, nt, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool kPay>
+int launch_width(const void* q, const void* t, const void* payload,
+                 const void* n_tgt, void* idx, void* d2, void* matched,
+                 int bsz, int nq, int nt, int d, int p, void* stream) {
+  if (bsz <= 0 || nq <= 0) return (int)cudaGetLastError();
+  if (bsz > 65535 || nt <= 0 || (kPay && p <= 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (d) {   // the widths of ops/cuda_nn.py WIDTHS
+    case 3:
+      return launch<3, kPay, false>(q, t, nullptr, payload, n_tgt, nullptr,
+                                    idx, d2, matched, bsz, nq, nt, p, stream);
+    case 12:
+      return launch<12, kPay, false>(q, t, nullptr, payload, n_tgt, nullptr,
+                                     idx, d2, matched, bsz, nq, nt, p, stream);
+    case 33:
+      return launch<33, kPay, false>(q, t, nullptr, payload, n_tgt, nullptr,
+                                     idx, d2, matched, bsz, nq, nt, p, stream);
+    case 64:
+      return launch<64, kPay, false>(q, t, nullptr, payload, n_tgt, nullptr,
+                                     idx, d2, matched, bsz, nq, nt, p, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// K6 (and K9 at B = 1): idx [B,Nq] int32, d2 [B,Nq]
+extern "C" int se3icp_nn_argmin(const void* q, const void* t,
+                                const void* n_tgt, void* idx, void* d2,
+                                int bsz, int nq, int nt, int d, void* stream) {
+  return launch_width<false>(q, t, nullptr, n_tgt, idx, d2, nullptr, bsz, nq,
+                             nt, d, 0, stream);
+}
+
+// K7: K6 plus matched [B,Nq,P] = payload[b, idx]
+extern "C" int se3icp_nn_match(const void* q, const void* t,
+                               const void* payload, const void* n_tgt,
+                               void* idx, void* d2, void* matched, int bsz,
+                               int nq, int nt, int d, int p, void* stream) {
+  return launch_width<true>(q, t, payload, n_tgt, idx, d2, matched, bsz, nq,
+                            nt, d, p, stream);
+}
+
+// K8: K7 against dual-phase 12-D targets emb [B,2,Nt,12] with their
+// |t|^2 tn [B,2,Nt], phase [B] choosing the block per pair
+extern "C" int se3icp_nn_match_packed(const void* q, const void* emb,
+                                      const void* tn, const void* payload,
+                                      const void* n_tgt, const void* phase,
+                                      void* idx, void* d2, void* matched,
+                                      int bsz, int nq, int nt, int p,
+                                      void* stream) {
+  if (bsz <= 0 || nq <= 0) return (int)cudaGetLastError();
+  if (bsz > 65535 || nt <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
+  return launch<12, true, true>(q, emb, tn, payload, n_tgt, phase, idx, d2,
+                                matched, bsz, nq, nt, p, stream);
+}

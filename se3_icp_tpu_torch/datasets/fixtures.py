@@ -34,6 +34,11 @@ GOLDEN_T = (1.0, 2.0, 3.0)
 # within plain ICP's basin, and noisy independently resampled clouds
 SMALL_POSE = dict(rpy=(0.03, 0.05, -0.04), t=(0.05, 0.02, 0.03))
 NOISY = dict(noise_std=0.01, resample=True)
+# the golden pose turned a half-turn further about z: out of reach of a
+# single start, within reach of the 8-start fleet (multistart's fixture;
+# the survey is ``tests/test_torch_multistart.py`` run as a script)
+FLIPPED_POSE = dict(rpy=(GOLDEN_RPY[0], GOLDEN_RPY[1],
+                         GOLDEN_RPY[2] + np.pi))
 
 
 @dataclass

@@ -1,0 +1,294 @@
+"""Fast Global Registration (FGR) -- the reference's comparison baseline,
+natively batched over pairs.
+
+Port of the JAX package's ``models/fgr.py``.  The reference delegates to
+Open3D's ``FastGlobalRegistrationBasedOnFeatureMatching`` with default
+options on FPFH(knn=100) features over normals(knn=30).  Algorithm:
+Zhou, Park, Koltun, "Fast Global Registration", ECCV 2016.
+
+Static shapes throughout, no KD-trees, no dynamic correspondence lists:
+
+  * features: one exact sorted kNN (k = max(fpfh_knn, normals_knn) + 1)
+    per cloud, PCA normals and FPFH (``ops/fpfh.py``);
+  * feature matching: exact 33-D nearest neighbours in both directions,
+    two launches of K6 (``ops/cuda_nn.py``); the reciprocity test is a
+    mask over the fixed-length forward match array;
+  * tuple test: instead of rejection-sampling until 1000 accepted tuples,
+    a static batch of random triples is tested at once and the first
+    ``maximum_tuple_count`` accepted ones kept by cumulative rank;
+    surviving correspondences get multiplicity weights by a scatter-add;
+  * graduated non-convexity: 64 Gauss-Newton steps with Geman-McClure
+    line-process weights l = (mu / (mu + r^2))^2, mu divided by 1.4
+    every 4 steps from the normalised global scale down to
+    ``maximum_correspondence_distance``;
+  * the 6x6 normal-equation solve and Euler-ZYX retraction are the ICP
+    engine's (``ops/solve.py``).
+
+The random triples: the JAX package draws ``jax.random.randint(key(
+seed), (tuple_trials, 3), 0, 1 << 30)`` once, shared by every pair of a
+batch.  Here the same shape is drawn from a ``torch.Generator`` seeded
+with ``cfg.seed``, shared by the batch; the two generators give other
+numbers, so ``raw_triples`` lets a caller hand in its own.
+
+The JAX package's TPU route takes the feature kNN's top-k through the
+TPU's approximate PartialReduce; off the TPU it is exact, as here.
+
+Default options mirror ``FastGlobalRegistrationOption``: division_factor
+1.4, use_absolute_scale False, decrease_mu True,
+maximum_correspondence_distance 0.025, iteration_number 64, tuple_scale
+0.95, maximum_tuple_count 1000.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from se3_icp_tpu_torch.ops import fpfh as fpfh_ops
+from se3_icp_tpu_torch.ops import knn, lrf, solve
+from se3_icp_tpu_torch.utils import se3
+
+
+@dataclass(frozen=True)
+class FGRConfig:
+    """Open3D ``FastGlobalRegistrationOption`` defaults + the fixed
+    feature hyperparameters every reference call site uses."""
+
+    division_factor: float = 1.4
+    use_absolute_scale: bool = False
+    decrease_mu: bool = True
+    maximum_correspondence_distance: float = 0.025
+    iteration_number: int = 64
+    tuple_scale: float = 0.95
+    maximum_tuple_count: int = 1000
+    tuple_test: bool = True
+    # feature pipeline (reference call sites)
+    normals_knn: int = 30       # EstimateNormals KNN(30)
+    fpfh_knn: int = 100         # ComputeFPFHFeature KNN(100)
+    # static sampling budget replacing rejection sampling
+    tuple_trials: int = 16384
+    seed: int = 0
+
+    def replace(self, **kw) -> "FGRConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _valid(n_valid: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.arange(n, device=n_valid.device)[None, :] < n_valid[:, None]
+
+
+def _masked_centroid(pts, valid, n):
+    w = valid.to(pts.dtype)[..., None]
+    return torch.sum(pts * w, dim=1) / torch.clamp_min(n.to(pts.dtype),
+                                                       1.0)[:, None]
+
+
+def features(points: torch.Tensor, n_valid: torch.Tensor,
+             cfg: FGRConfig) -> torch.Tensor:
+    """FPFH [B,N,33] of padded clouds (padded rows zeroed first) on the
+    ORIGINAL coordinates, as the reference computes them before any
+    normalisation; padded rows set to 1e6 so they never match."""
+    valid = _valid(n_valid, points.shape[1])
+    pts = torch.where(valid[..., None], points, torch.zeros_like(points))
+    kw = max(cfg.fpfh_knn, cfg.normals_knn) + 1
+    idx, d2 = knn.knn_self(pts, kw, n_valid)
+    nrm = lrf.normals_dense(pts, d2, cfg.normals_knn, n_valid)
+    kf = cfg.fpfh_knn
+    feat = fpfh_ops.fpfh_from_neighbors(
+        pts, nrm, idx[..., :kf], d2[..., :kf],
+        fpfh_ops.neighbor_mask(pts.shape[1], kf, n_valid), n_valid=n_valid)
+    return torch.where(valid[..., None], feat,
+                       torch.full((), 1e6, dtype=feat.dtype,
+                                  device=feat.device))
+
+
+def reciprocal_matches(feat_s, n_src, feat_t, n_tgt):
+    """Feature matching with AdvancedMatching's cross check: (fwd [B,Ns]
+    source i -> target, bwd [B,Nt] target j -> source), two K6
+    launches."""
+    fwd, _ = knn.nn_argmin(feat_s, feat_t, n_tgt)
+    bwd, _ = knn.nn_argmin(feat_t, feat_s, n_src)
+    return fwd.to(torch.int64), bwd.to(torch.int64)
+
+
+def raw_triples(cfg: FGRConfig, device) -> torch.Tensor:
+    """[tuple_trials, 3] random integers in [0, 2^30), from a generator
+    seeded with ``cfg.seed``; one draw for the whole batch."""
+    gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
+    return torch.randint(0, 1 << 30, (cfg.tuple_trials, 3), generator=gen,
+                         dtype=torch.int64).to(device)
+
+
+def _tuple_test(src, tgt, fwd, recip, cfg: FGRConfig, raw):
+    """Static-batch tuple test: random correspondence triples must have
+    consistent edge-length ratios in both clouds
+    (tau < |e_src|/|e_tgt| < 1/tau, tau = tuple_scale).  Returns [B,Ns]
+    multiplicity weights over the first ``maximum_tuple_count`` accepted
+    triples of each pair."""
+    dtype = src.dtype
+    bsz, ns, _ = src.shape
+    ncorr = torch.clamp_min(recip.sum(-1), 1)                  # [B]
+    # valid correspondence indices compacted to a prefix, valid first
+    order = torch.argsort((~recip).to(torch.uint8), dim=-1, stable=True)
+    pick = (raw[None] % ncorr[:, None, None]).reshape(bsz, -1)
+    tri = torch.gather(order, 1, pick)                          # [B,3T]
+    pi = torch.gather(src, 1, tri[..., None].expand(-1, -1, 3))
+    qi = torch.gather(tgt, 1, torch.gather(fwd, 1, tri)[..., None].expand(
+        -1, -1, 3))
+    pi = pi.reshape(bsz, -1, 3, 3)
+    qi = qi.reshape(bsz, -1, 3, 3)
+    tri = tri.reshape(bsz, -1, 3)
+
+    def edges(x):
+        return torch.stack([
+            torch.linalg.norm(x[:, :, 0] - x[:, :, 1], dim=-1),
+            torch.linalg.norm(x[:, :, 1] - x[:, :, 2], dim=-1),
+            torch.linalg.norm(x[:, :, 2] - x[:, :, 0], dim=-1)], dim=-1)
+
+    li, lj = edges(pi), edges(qi)
+    tau = cfg.tuple_scale
+    okr = (li * tau < lj) & (lj < li / tau)
+    distinct = ((tri[..., 0] != tri[..., 1]) & (tri[..., 1] != tri[..., 2])
+                & (tri[..., 0] != tri[..., 2]))
+    accept = okr.all(-1) & distinct
+    rank = torch.cumsum(accept.to(torch.int32), dim=-1)
+    accept = accept & (rank <= cfg.maximum_tuple_count)
+    # multiplicity weights: a scatter-add over the 3 member indices (sums
+    # of whole numbers, the same in any order)
+    contrib = accept.to(dtype)[..., None].expand(-1, -1, 3).reshape(bsz, -1)
+    w = torch.zeros((bsz, ns), dtype=dtype, device=src.device)
+    return w.scatter_add_(1, tri.reshape(bsz, -1), contrib)
+
+
+def register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
+                          cfg: FGRConfig, raw=None, stats=None):
+    """FGR after the feature matching: the reciprocal set from ``fwd`` /
+    ``bwd`` (int [B,Ns] / [B,Nt]), the tuple test on ``raw`` random
+    integers [tuple_trials, 3] (default ``raw_triples(cfg)``), scale
+    normalisation, the GNC loop and the denormalisation.  Returns T
+    [B,4,4] (identity for pairs with fewer than 3 correspondences)."""
+    dtype = src.dtype
+    bsz, ns, _ = src.shape
+    src_valid = _valid(n_src, ns)
+    tgt_valid = _valid(n_tgt, tgt.shape[1])
+    src = torch.where(src_valid[..., None], src, torch.zeros_like(src))
+    tgt = torch.where(tgt_valid[..., None], tgt, torch.zeros_like(tgt))
+    fwd = fwd.to(torch.int64)
+    recip = (torch.gather(bwd.to(torch.int64), 1, fwd)
+             == torch.arange(ns, device=src.device)[None, :]) & src_valid
+
+    if cfg.tuple_test:
+        if raw is None:
+            raw = raw_triples(cfg, src.device)
+        corr_w = _tuple_test(src, tgt, fwd, recip, cfg, raw.to(src.device))
+    else:
+        corr_w = recip.to(dtype)
+    if stats is not None:
+        stats["reciprocal"] = recip.sum(-1).tolist()
+        stats["kept_correspondences"] = (corr_w > 0).sum(-1).tolist()
+
+    # scale normalisation (original FGR NormalizePoints)
+    cen_s = _masked_centroid(src, src_valid, n_src)
+    cen_t = _masked_centroid(tgt, tgt_valid, n_tgt)
+    zero = torch.zeros((), dtype=dtype, device=src.device)
+    src_c = torch.where(src_valid[..., None], src - cen_s[:, None], zero)
+    tgt_c = torch.where(tgt_valid[..., None], tgt - cen_t[:, None], zero)
+    radius = torch.maximum(torch.linalg.norm(src_c, dim=-1).amax(-1),
+                           torch.linalg.norm(tgt_c, dim=-1).amax(-1))
+    if cfg.use_absolute_scale:
+        # points stay in metric units, mu starts at the global max radius
+        scale = torch.ones_like(radius)
+        mu = radius
+    else:
+        scale = torch.clamp_min(radius, 1e-30)
+        src_c = src_c / scale[:, None, None]
+        tgt_c = tgt_c / scale[:, None, None]
+        mu = torch.ones_like(radius)                # normalised StartScale
+
+    p = src_c                                                   # [B,Ns,3]
+    q = torch.gather(tgt_c, 1, fwd[..., None].expand(-1, -1, 3))
+    eye3 = torch.eye(3, dtype=dtype, device=src.device)
+    T = torch.eye(4, dtype=dtype, device=src.device).repeat(bsz, 1, 1)
+    for itr in range(cfg.iteration_number):
+        if cfg.decrease_mu and itr % 4 == 0:
+            mu = torch.where(mu > cfg.maximum_correspondence_distance,
+                             mu / cfg.division_factor, mu)
+        pm = p @ T[:, :3, :3].mT + T[:, None, :3, 3]
+        r3 = pm - q
+        r2 = torch.sum(r3 * r3, dim=-1)
+        w = corr_w * (mu[:, None] / (mu[:, None] + r2)) ** 2
+        # pt2pt GN rows: J_i = [-skew(pm_i) | I], r_i = pm_i - q_i
+        J3 = torch.cat([-se3.skew(pm), eye3.expand(bsz, ns, 3, 3)], dim=-1)
+        J = J3.reshape(bsz, 3 * ns, 6)
+        Jw = (J3 * w[..., None, None]).reshape(bsz, 3 * ns, 6)
+        JTJ = Jw.mT @ J
+        JTr = (Jw.mT @ r3.reshape(bsz, 3 * ns, 1))[..., 0]
+        T = solve.solve_normal_equations(JTJ, JTr) @ T
+
+    # denormalise: x' = R(x - cen_s)/scale + t
+    #   => original: R x + (scale t - R cen_s + cen_t)
+    R = T[:, :3, :3]
+    t_orig = (scale[:, None] * T[:, :3, 3] - (R @ cen_s[..., None])[..., 0]
+              + cen_t)
+    T_out = se3.rt_to_T(R, t_orig)
+    # degenerate correspondence sets fall back to the identity
+    ok = (corr_w > 0).sum(-1) >= 3
+    return torch.where(ok[:, None, None], T_out,
+                       torch.eye(4, dtype=dtype, device=src.device))
+
+
+def fgr_register_arrays(src, n_src, tgt, n_tgt, cfg: FGRConfig,
+                        raw=None, stats: dict | None = None):
+    """FGR of a batch of padded pairs on the tensors' device.
+
+    src [B,Ns,3], n_src [B], tgt [B,Nt,3], n_tgt [B].  Returns (T
+    [B,4,4], iters [B], pure_iters [B]) with the contract of
+    ``registration.register_arrays`` (iters = ``iteration_number``,
+    pure_iters 0).  ``raw``: the tuple test's random integers (see
+    ``raw_triples``).  ``stats`` (optional dict) receives the per-pair
+    reciprocal-set sizes (``reciprocal``) and correspondences kept by the
+    tuple test (``kept_correspondences``)."""
+    knn.require_full_precision()
+    with torch.no_grad():
+        feat_s = features(src, n_src, cfg)
+        feat_t = features(tgt, n_tgt, cfg)
+        fwd, bwd = reciprocal_matches(feat_s, n_src, feat_t, n_tgt)
+        del feat_s, feat_t
+        T = register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd, cfg,
+                                  raw, stats)
+    bsz = src.shape[0]
+    iters = torch.full((bsz,), cfg.iteration_number, dtype=torch.int32,
+                       device=src.device)
+    return T, iters, torch.zeros_like(iters)
+
+
+def fgr_register(source_points, target_points,
+                 cfg: FGRConfig | None = None, dtype=torch.float32,
+                 device="cuda"):
+    """Host-facing FGR of one pair (``RegistrationResult`` contract).
+    Runs on the card unless ``device='cpu'``."""
+    from se3_icp_tpu_torch.models.registration import (RegistrationResult,
+                                                       _bucket,
+                                                       resolve_device,
+                                                       sanitize_cloud)
+    dev = resolve_device(device)
+    cfg = cfg or FGRConfig()
+    # drop non-finite rows: one NaN point would poison the kNN distances,
+    # normals and FPFH features
+    src = sanitize_cloud(source_points)
+    tgt = sanitize_cloud(target_points)
+    ns, nt = len(src), len(tgt)
+    src_p = np.zeros((1, _bucket(ns), 3))
+    src_p[0, :ns] = src
+    tgt_p = np.zeros((1, _bucket(nt), 3))
+    tgt_p[0, :nt] = tgt
+    T, it, pure = fgr_register_arrays(
+        torch.as_tensor(src_p, dtype=dtype, device=dev),
+        torch.tensor([ns], dtype=torch.int32, device=dev),
+        torch.as_tensor(tgt_p, dtype=dtype, device=dev),
+        torch.tensor([nt], dtype=torch.int32, device=dev), cfg)
+    return RegistrationResult(T[0].double().cpu().numpy(), int(it[0]),
+                              int(pure[0]))

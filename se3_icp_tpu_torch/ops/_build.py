@@ -51,6 +51,13 @@ SIGNATURES = {
     "se3icp_moments": [_P] * 5 + [_I] * 2 + [_P],
     # pts_t, tn, n_valid, normal_t, aux, out, B, N, stream
     "se3icp_axis": [_P] * 6 + [_I] * 2 + [_P],
+    # q, t, n_tgt, idx, d2, B, Nq, Nt, D, stream
+    "se3icp_nn_argmin": [_P] * 5 + [_I] * 4 + [_P],
+    # q, t, payload, n_tgt, idx, d2, matched, B, Nq, Nt, D, P, stream
+    "se3icp_nn_match": [_P] * 7 + [_I] * 5 + [_P],
+    # q, emb, tn, payload, n_tgt, phase, idx, d2, matched,
+    # B, Nq, Nt, P, stream
+    "se3icp_nn_match_packed": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 

@@ -1,0 +1,230 @@
+"""Exact 1-NN search with the lowest index on ties: the kernels K6-K9.
+
+Counterpart of four kernels of the JAX package's ``ops/pallas_knn.py``
+that compute one function:
+
+  * K6 ``nn_argmin_batched``  <- ``_kernel_batched`` /
+    ``nn_argmin_pallas_batched``: q [B,Nq,D], t [B,Nt,D], n_targets [B]
+    -> (idx [B,Nq] int32, d2 [B,Nq]);
+  * K9 ``nn_argmin_unbatched`` <- ``_kernel`` / ``nn_argmin_pallas``: the
+    same for one cloud, q [Nq,D], t [Nt,D] (the same CUDA kernel at
+    B = 1, counted on its own);
+  * K7 ``nn_match_batched``   <- ``_kernel_match`` /
+    ``nn_match_pallas_batched``: K6 plus matched [B,Nq,P] =
+    payload[b, idx[b, i]], bit for bit;
+  * K8 ``nn_match_packed``    <- ``_kernel_match_packed`` /
+    ``nn_match_packed``: K7 against the dual-phase 12-D targets that
+    ``cuda_knn.pack_match_targets`` packs once, with a per-pair phase
+    [B] choosing the block.  No tie averaging (that is K4's contract).
+
+Targets at or past ``n_targets[b]`` never match; with none valid the
+index is 0 and d2 is ~3.4e38.  d2 is |q|^2 + (|t|^2 - 2 q.t), the
+shifted form every JAX kernel uses, in float32 FMAs (``csrc/
+nn_argmin.cu``); the plain versions compute ``|q|^2 - 2 q.t + |t|^2``
+with a full-float32 matrix product, so the two agree to a few ulps of
+|q|^2 + |t|^2, and the index may differ where two targets are closer
+than that.  The kernel takes the widths ``WIDTHS``; ``knn.nn_argmin``
+pads other widths (zero columns change no distance).
+
+Each wrapper launches its CUDA kernel for tensors on the card and raises
+if it cannot; it takes the plain version only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from se3_icp_tpu_torch.ops import _build, cuda_knn, knn
+
+WIDTHS = (3, 12, 33, 64)    # query widths the kernel is instantiated for
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+# ---------------------------------------------------------------- plain
+
+def _first_min(d2: torch.Tensor):
+    """[B,C,Nt] -> (idx [B,C] int32 of the FIRST minimum, min [B,C])
+    (argmin's tie order is not part of torch's contract on every
+    backend)."""
+    nt = d2.shape[-1]
+    val = d2.amin(-1)
+    col = torch.arange(nt, device=d2.device)
+    idx = torch.where(d2 == val[..., None], col,
+                      torch.full((), nt, device=d2.device)).amin(-1)
+    return idx.to(torch.int32), val
+
+
+def _search_plain(queries, targets, n_targets, tn=None):
+    """Shared body of the plain versions: chunked over queries so the
+    [B, chunk, Nt] distance block stays bounded.  ``tn`` (|t|^2 [B,Nt])
+    is the packed targets' own when given."""
+    bsz, nq, _ = queries.shape
+    nt = targets.shape[1]
+    n64 = n_targets.to(device=queries.device, dtype=torch.int64)
+    if tn is None:
+        tn = torch.sum(targets * targets, dim=-1)
+    chunk = knn._query_chunk(bsz, nq, nt, queries.element_size())
+    idx_out, d2_out = [], []
+    for s in range(0, nq, chunk):
+        q = queries[:, s:s + chunk]
+        qn = torch.sum(q * q, dim=-1, keepdim=True)
+        d2 = knn._mask_cols(qn - 2.0 * (q @ targets.mT) + tn[:, None, :],
+                            n64)
+        idx, val = _first_min(d2)
+        idx_out.append(idx)
+        d2_out.append(val)
+    return torch.cat(idx_out, 1), torch.cat(d2_out, 1)
+
+
+def _gather_rows(payload, idx):
+    return torch.gather(payload, 1, idx.to(torch.int64)[..., None].expand(
+        -1, -1, payload.shape[-1]))
+
+
+def nn_argmin_batched_plain(queries, targets, n_targets):
+    """Plain PyTorch version of ``nn_argmin_batched`` (any float dtype,
+    any device)."""
+    return _search_plain(queries, targets, n_targets)
+
+
+def nn_argmin_unbatched_plain(queries, targets, n_targets):
+    """Plain PyTorch version of ``nn_argmin_unbatched``."""
+    n = torch.as_tensor(n_targets, device=queries.device).reshape(1)
+    idx, d2 = _search_plain(queries[None], targets[None], n)
+    return idx[0], d2[0]
+
+
+def nn_match_batched_plain(queries, targets, payload, n_targets):
+    """Plain PyTorch version of ``nn_match_batched``."""
+    idx, d2 = _search_plain(queries, targets, n_targets)
+    return idx, d2, _gather_rows(payload, idx)
+
+
+def nn_match_packed_plain(queries, targets: cuda_knn.MatchTargets, phase):
+    """Plain PyTorch version of ``nn_match_packed``."""
+    ar = torch.arange(queries.shape[0], device=queries.device)
+    sel = (phase != 0).to(torch.int64)                  # as the kernel
+    idx, d2 = _search_plain(queries, targets.emb[ar, sel], targets.n,
+                            tn=targets.tn[ar, sel])
+    return idx, d2, _gather_rows(targets.payload, idx)
+
+
+# ---------------------------------------------------------------- kernels
+
+def _check_search(queries, targets, n_targets):
+    """The shapes every variant shares; returns (B, Nq, Nt, D, device)."""
+    bsz, nq, d = queries.shape
+    nt = targets.shape[-2]
+    dev, f32 = queries.device, torch.float32
+    if d not in WIDTHS:
+        raise ValueError(f"query width {d}: the kernel takes {WIDTHS} "
+                         "(knn.nn_argmin pads other widths)")
+    if nt < 1:
+        raise ValueError("no target rows")
+    cuda_knn._check(queries, "queries", (bsz, nq, d), f32, dev)
+    cuda_knn._check(n_targets, "n_targets", (bsz,), torch.int32, dev)
+    return bsz, nq, nt, d, dev
+
+
+def _outputs(bsz, nq, dev):
+    return (torch.empty((bsz, nq), dtype=torch.int32, device=dev),
+            torch.empty((bsz, nq), dtype=torch.float32, device=dev))
+
+
+def _launch_argmin(queries, targets, n_targets, what):
+    bsz, nq, nt, d, dev = _check_search(queries, targets, n_targets)
+    cuda_knn._check(targets, "targets", (bsz, nt, d), torch.float32, dev)
+    idx, d2 = _outputs(bsz, nq, dev)
+    with torch.cuda.device(dev):
+        code = _build.load().se3icp_nn_argmin(
+            queries.data_ptr(), targets.data_ptr(), n_targets.data_ptr(),
+            idx.data_ptr(), d2.data_ptr(), bsz, nq, nt, d, _stream(dev))
+    _build.check(code, what)
+    return idx, d2
+
+
+def nn_argmin_batched(queries, targets, n_targets):
+    """K6: batched exact 1-NN.  queries [B,Nq,D], targets [B,Nt,D]
+    float32, n_targets [B] int32 -> (idx [B,Nq] int32, d2 [B,Nq])."""
+    if not queries.is_cuda:
+        return nn_argmin_batched_plain(queries, targets, n_targets)
+    out = _launch_argmin(queries, targets, n_targets, "nn_argmin_batched")
+    nn_argmin_batched.launches += 1
+    return out
+
+
+def nn_argmin_unbatched(queries, targets, n_targets):
+    """K9: exact 1-NN of one cloud.  queries [Nq,D], targets [Nt,D]
+    float32, n_targets an int or a 0-d/[1] integer tensor -> (idx [Nq]
+    int32, d2 [Nq])."""
+    if not queries.is_cuda:
+        return nn_argmin_unbatched_plain(queries, targets, n_targets)
+    n = torch.as_tensor(n_targets, device=queries.device).reshape(1).to(
+        torch.int32)
+    idx, d2 = _launch_argmin(queries[None], targets[None], n,
+                             "nn_argmin_unbatched")
+    nn_argmin_unbatched.launches += 1
+    return idx[0], d2[0]
+
+
+def nn_match_batched(queries, targets, payload, n_targets):
+    """K7: K6 plus the matched payload rows.  payload [B,Nt,P] float32
+    -> (idx, d2, matched [B,Nq,P])."""
+    if not queries.is_cuda:
+        return nn_match_batched_plain(queries, targets, payload, n_targets)
+    bsz, nq, nt, d, dev = _check_search(queries, targets, n_targets)
+    cuda_knn._check(targets, "targets", (bsz, nt, d), torch.float32, dev)
+    p = payload.shape[-1]
+    cuda_knn._check(payload, "payload", (bsz, nt, p), torch.float32, dev)
+    if p < 1:
+        raise ValueError("payload has no columns")
+    idx, d2 = _outputs(bsz, nq, dev)
+    matched = torch.empty((bsz, nq, p), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.load().se3icp_nn_match(
+            queries.data_ptr(), targets.data_ptr(), payload.data_ptr(),
+            n_targets.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+            matched.data_ptr(), bsz, nq, nt, d, p, _stream(dev))
+    _build.check(code, "nn_match_batched")
+    nn_match_batched.launches += 1
+    return idx, d2, matched
+
+
+def nn_match_packed(queries, targets: cuda_knn.MatchTargets, phase):
+    """K8: K7 against pre-packed dual-phase targets.  queries [B,Nq,12]
+    float32, ``targets`` from ``cuda_knn.pack_match_targets``, phase [B]
+    int32 (0 = first block, 1 = second) -> (idx, d2, matched
+    [B,Nq,P])."""
+    if not queries.is_cuda:
+        return nn_match_packed_plain(queries, targets, phase)
+    bsz, nq, _ = queries.shape
+    nt, p = targets.payload.shape[1:]
+    dev, f32 = queries.device, torch.float32
+    cuda_knn._check(queries, "queries", (bsz, nq, cuda_knn.EMB_DIM), f32, dev)
+    cuda_knn._check(targets.emb, "targets.emb", (bsz, 2, nt, cuda_knn.EMB_DIM), f32, dev)
+    cuda_knn._check(targets.tn, "targets.tn", (bsz, 2, nt), f32, dev)
+    cuda_knn._check(targets.payload, "targets.payload", (bsz, nt, p), f32, dev)
+    cuda_knn._check(targets.n, "targets.n", (bsz,), torch.int32, dev)
+    cuda_knn._check(phase, "phase", (bsz,), torch.int32, dev)
+    if nt < 1 or p < 1:
+        raise ValueError("no target rows or no payload columns")
+    idx, d2 = _outputs(bsz, nq, dev)
+    matched = torch.empty((bsz, nq, p), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        code = _build.load().se3icp_nn_match_packed(
+            queries.data_ptr(), targets.emb.data_ptr(), targets.tn.data_ptr(),
+            targets.payload.data_ptr(), targets.n.data_ptr(),
+            phase.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+            matched.data_ptr(), bsz, nq, nt, p, _stream(dev))
+    _build.check(code, "nn_match_packed")
+    nn_match_packed.launches += 1
+    return idx, d2, matched
+
+
+nn_argmin_batched.launches = 0
+nn_argmin_unbatched.launches = 0
+nn_match_batched.launches = 0
+nn_match_packed.launches = 0

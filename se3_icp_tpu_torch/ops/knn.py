@@ -12,11 +12,18 @@ toward the lowest target index.  Squared distances are written in the
 explicit ``|q|^2 - 2 q.t^T + |t|^2`` form (not ``torch.cdist``) so they
 round like the JAX package's ``_pairwise_d2``; the product must run in
 full float32 (see ``require_full_precision``).
+
+The k-NN is a masked distance block and ``torch.topk``; the 1-NN
+searches (``nn_argmin``, ``nn_match``, ``nn_match_packed``,
+``nn_distances``) dispatch to the hand-written kernels K6-K9 of
+``ops/cuda_nn.py`` on the card and to their plain versions on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
+
+from se3_icp_tpu_torch.ops import cuda_nn
 
 _BIG = 3.4e38  # ~f32 max; used instead of inf so masked math stays finite
 
@@ -89,33 +96,89 @@ def knn_self(points: torch.Tensor, k: int, n_valid: torch.Tensor):
     return knn_topk(points, points, k, n_valid)
 
 
+def _pad_width(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the last axis up to the next kernel width (zero columns
+    change no distance)."""
+    d = x.shape[-1]
+    if d in cuda_nn.WIDTHS:
+        return x
+    wide = next((w for w in cuda_nn.WIDTHS if w > d), None)
+    if wide is None:
+        raise ValueError(f"point width {d} exceeds the kernel's largest "
+                         f"width {cuda_nn.WIDTHS[-1]}")
+    return torch.nn.functional.pad(x, (0, wide - d))
+
+
+def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous operand of the width the kernel takes; CPU tensors
+    (the plain versions) pass as they are."""
+    return _pad_width(x).contiguous() if x.is_cuda else x
+
+
+def _n_targets(targets: torch.Tensor, n_targets, bsz: int | None):
+    """Valid-target counts as the wrappers take them: [B] int32 for a
+    batch, a 0-d int32 tensor for one cloud."""
+    nt = targets.shape[-2]
+    if n_targets is None:
+        n_targets = nt
+    n = torch.as_tensor(n_targets, device=targets.device).to(torch.int32)
+    if bsz is None:
+        return n.reshape(())
+    return n.expand(bsz).contiguous() if n.dim() == 0 else n.contiguous()
+
+
 def nn_argmin(queries: torch.Tensor, targets: torch.Tensor,
-              n_targets: torch.Tensor):
-    """Exact 1-NN: (idx [B,Nq] int64, d2 [B,Nq]); ties go to the lowest
-    target index."""
-    bsz, nq, _ = queries.shape
-    nt = targets.shape[1]
-    chunk = _query_chunk(bsz, nq, nt, queries.element_size())
-    idx_out, d2_out = [], []
-    for s in range(0, nq, chunk):
-        d2 = _mask_cols(_pairwise_d2(queries[:, s:s + chunk], targets),
-                        n_targets)
-        val = d2.amin(-1)
-        # first index attaining the minimum (argmin's tie order is not
-        # part of torch's contract on every backend)
-        col = torch.arange(nt, device=d2.device)
-        idx = torch.where(d2 == val[..., None], col,
-                          torch.full((), nt, device=d2.device)).amin(-1)
-        idx_out.append(idx)
-        d2_out.append(val)
-    return torch.cat(idx_out, 1), torch.cat(d2_out, 1)
+              n_targets=None):
+    """Exact 1-NN, ties to the lowest target index; targets at or past
+    ``n_targets`` never match.
+
+    Batched: queries [B,Nq,D], targets [B,Nt,D], n_targets [B] (or one
+    count, or None for all) -> (idx [B,Nq] int32, d2 [B,Nq]) through K6.
+    One cloud: queries [Nq,D], targets [Nt,D] -> (idx [Nq] int32,
+    d2 [Nq]) through K9.  On CPU tensors the plain versions run."""
+    if queries.dim() == 2:
+        return cuda_nn.nn_argmin_unbatched(
+            _kernel_operand(queries), _kernel_operand(targets),
+            _n_targets(targets, n_targets, None))
+    return cuda_nn.nn_argmin_batched(
+        _kernel_operand(queries), _kernel_operand(targets),
+        _n_targets(targets, n_targets, queries.shape[0]))
 
 
 def nn_match(queries: torch.Tensor, targets: torch.Tensor,
-             payload: torch.Tensor, n_targets: torch.Tensor):
-    """1-NN + matched payload row: (idx [B,Nq], d2 [B,Nq], matched
-    [B,Nq,P]) with matched[b,i] == payload[b, idx[b,i]]."""
-    idx, d2 = nn_argmin(queries, targets, n_targets)
-    matched = torch.gather(
-        payload, 1, idx[..., None].expand(-1, -1, payload.shape[-1]))
-    return idx, d2, matched
+             payload: torch.Tensor, n_targets=None):
+    """1-NN + matched payload row through K7: (idx [B,Nq] int32,
+    d2 [B,Nq], matched [B,Nq,P]) with matched[b,i] == payload[b, idx[b,i]]
+    bit for bit.  Unbatched inputs ([Nq,D], [Nt,D], [Nt,P]) run as a
+    batch of one and return unbatched results."""
+    if queries.dim() == 2:
+        idx, d2, matched = nn_match(queries[None], targets[None],
+                                    payload[None], n_targets)
+        return idx[0], d2[0], matched[0]
+    pay = payload.contiguous() if payload.is_cuda else payload
+    return cuda_nn.nn_match_batched(
+        _kernel_operand(queries), _kernel_operand(targets), pay,
+        _n_targets(targets, n_targets, queries.shape[0]))
+
+
+def nn_match_packed(queries: torch.Tensor, targets, phase: torch.Tensor):
+    """1-NN + matched payload row against the dual-phase targets of
+    ``cuda_knn.pack_match_targets`` through K8; ``phase`` [B] picks each
+    pair's block (0 or 1).  Returns (idx, d2, matched [B,Nq,P])."""
+    if queries.is_cuda:
+        queries = queries.contiguous()
+        phase = phase.to(torch.int32).contiguous()
+    return cuda_nn.nn_match_packed(queries, targets, phase)
+
+
+def nn_distances(queries: torch.Tensor, targets: torch.Tensor,
+                 tgt_valid=None) -> torch.Tensor:
+    """min_j |q_i - t_j|^2 per query (Open3D's ComputePointCloudDistance
+    returns the square root of this); ``tgt_valid``: the targets' valid
+    mask, whose count is the valid prefix."""
+    n_targets = None
+    if tgt_valid is not None:
+        n_targets = torch.as_tensor(tgt_valid, device=targets.device).to(
+            torch.int32).sum(-1)
+    _, d2 = nn_argmin(queries, targets, n_targets)
+    return d2

@@ -6,9 +6,10 @@ batched engine (every pair iterates until the whole batch converged;
 per-pair ``done`` masking keeps finished pairs idle and results exact),
 and downloaded with one transfer.
 
-This is the single-GPU subset.  Sharding pairs over several devices,
-asynchronous pipelining of consecutive batches and the FGR dispatch are
-later slices of the port.
+``algorithm="fgr"`` runs Fast Global Registration (``models/fgr.py``)
+on the same batch contract.  This is the single-GPU subset.  Sharding
+pairs over several devices and asynchronous pipelining of consecutive
+batches are later slices of the port.
 """
 
 from __future__ import annotations
@@ -17,23 +18,27 @@ import numpy as np
 import torch
 
 from se3_icp_tpu_torch.models import registration as reg
-from se3_icp_tpu_torch.utils.config import (RegistrationConfig,
-                                            parse_algorithm)
+from se3_icp_tpu_torch.utils.config import parse_algorithm
 
 
-def register_batch(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
-                   algorithm: str, initial_T=None, device="cuda",
+def register_batch(src, n_src, tgt, n_tgt, cfg, algorithm: str,
+                   initial_T=None, device="cuda",
                    stats: dict | None = None, exact_knn: bool = False):
     """Register a batch of padded pairs held in tensors.
 
     src [P,Ns,3], n_src [P], tgt [P,Nt,3], n_tgt [P], all on ``device``:
     the card unless the caller passes ``device='cpu'``.  Tensors that lie
     elsewhere raise (nothing is moved, and nothing runs on the CPU unasked).
+    ``cfg``: a ``RegistrationConfig``; for ``algorithm='fgr'`` an
+    ``FGRConfig``, any other config giving the default ``FGRConfig``.
     ``initial_T`` [P,4,4] optionally warm-starts each pair (original
-    coordinates).  ``exact_knn``: the exact sorted-kNN setup instead of
-    the sort-free threshold route.  Returns (T [P,4,4], iters [P],
-    pure_iters [P]) as tensors on that device.
+    coordinates; not for fgr).  ``exact_knn``: the exact sorted-kNN setup
+    instead of the sort-free threshold route (ICP algorithms).  Returns
+    (T [P,4,4], iters [P], pure_iters [P]) as tensors on that device.
     """
+    if initial_T is not None and algorithm == "fgr":
+        raise ValueError("initial_T is not supported for fgr (a global "
+                         "method: it estimates from scratch by design)")
     dev = reg.resolve_device(device)
     for name, x in (("src", src), ("n_src", n_src), ("tgt", tgt),
                     ("n_tgt", n_tgt), ("initial_T", initial_T)):
@@ -43,6 +48,11 @@ def register_batch(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
                 f"register_batch runs on device '{dev}' but {name} lies on "
                 f"'{x.device}'; move the tensors there, or pass "
                 "device='cpu' to run the plain versions on the CPU")
+    if algorithm == "fgr":
+        from se3_icp_tpu_torch.models import fgr
+        fcfg = cfg if isinstance(cfg, fgr.FGRConfig) else fgr.FGRConfig()
+        return fgr.fgr_register_arrays(src, n_src, tgt, n_tgt, fcfg,
+                                       stats=stats)
     mode, variant = parse_algorithm(algorithm)
     return reg.register_arrays(src, n_src, tgt, n_tgt, cfg, mode, variant,
                                initial_T=initial_T, stats=stats,
@@ -71,16 +81,19 @@ def pack_pairs(pairs, dtype=np.float32, bucket: int = 512):
     return src, n_src, tgt, n_tgt
 
 
-def register_pairs(pairs, algorithm: str, cfg: RegistrationConfig,
-                   dtype=np.float32, initial_Ts=None, device="cuda",
+def register_pairs(pairs, algorithm: str, cfg, dtype=np.float32,
+                   initial_Ts=None, device="cuda",
                    stats: dict | None = None, exact_knn: bool = False):
     """High-level: list of (src, tgt) numpy clouds -> list of
     ``RegistrationResult``.  Runs on the card unless ``device='cpu'``.
+    ``algorithm='fgr'`` takes an ``FGRConfig`` (or any other config for
+    the default one), as ``register_batch``.
 
     ``initial_Ts``: optional [P,4,4] (or list of [4,4]) warm starts.
     ``stats``: optional dict that receives ``loop_steps`` and
-    ``host_syncs`` of the call.  ``exact_knn``: the exact sorted-kNN
-    setup instead of the threshold route."""
+    ``host_syncs`` of the call (for fgr: ``reciprocal`` and
+    ``kept_correspondences`` per pair).  ``exact_knn``: the exact
+    sorted-kNN setup instead of the threshold route."""
     dev = reg.resolve_device(device)
     src, n_src, tgt, n_tgt = pack_pairs(pairs, dtype)
     t0 = (None if initial_Ts is None

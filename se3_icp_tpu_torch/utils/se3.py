@@ -1,9 +1,10 @@
 """SO(3)/SE(3) utilities on torch tensors (batched, dtype-preserving).
 
-The pieces the estimators and the iteration loop use: roll/pitch/yaw
-rotations, skew matrices, Open3D's Euler-ZYX retraction
+The pieces the estimators, the iteration loop and the metrics use:
+roll/pitch/yaw rotations, skew matrices, Open3D's Euler-ZYX retraction
 ``TransformVector6dToMatrix4d`` (used by every Gauss-Newton estimator),
-and homogeneous transform assembly/application/inversion.  The twist
+the rotation vector of a rotation (``so3_log_vee``), and homogeneous
+transform assembly/application/inversion.  The twist
 maps (``se3_exp``/``se3_log``) arrive with Anderson acceleration.
 """
 
@@ -59,6 +60,51 @@ def euler_zyx_retract(xi: torch.Tensor) -> torch.Tensor:
     R = (_axis_rot(xi[..., 2], 2) @ _axis_rot(xi[..., 1], 1)
          @ _axis_rot(xi[..., 0], 0))
     return rt_to_T(R, xi[..., 3:6])
+
+
+def so3_log_vee(R: torch.Tensor) -> torch.Tensor:
+    """[...,3,3] rotation -> [...,3] rotation vector (vee of the matrix
+    log), the JAX package's closed form: theta from the clamped trace,
+    axis from the antisymmetric part, with a symmetric-part fallback
+    near theta = pi.  Matches Eigen's ``.log()`` + the vee convention of
+    ``cc::angularErrorSO3``."""
+    dtype = R.dtype
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    # antisymmetric part -> axis * sin(theta)
+    a = torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                     R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], -1) * 0.5
+    sin_t = torch.sin(theta)
+    eps = 1e-7 if dtype == torch.float32 else 1e-12
+    small = torch.abs(sin_t) < eps
+    one = torch.ones_like(sin_t)
+    factor = torch.where(small, one, theta / torch.where(small, one, sin_t))
+    w_generic = factor[..., None] * a
+    # near pi: axis magnitudes from the diagonal, signs from the
+    # off-diagonal sums, overall sign from the antisymmetric part
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], -1)
+    nn = torch.clamp((diag - cos_t[..., None]) / torch.clamp_min(
+        1.0 - cos_t[..., None], eps), 0.0, 1.0)
+    n = torch.sqrt(nn)
+    s01 = R[..., 0, 1] + R[..., 1, 0]
+    s02 = R[..., 0, 2] + R[..., 2, 0]
+    s12 = R[..., 1, 2] + R[..., 2, 1]
+    i_max = torch.argmax(n, dim=-1)
+    ones = torch.ones_like(s01)
+    off = torch.stack([torch.stack([ones, s01, s02], -1),
+                       torch.stack([s01, ones, s12], -1),
+                       torch.stack([s02, s12, ones], -1)], -2)
+    row = torch.take_along_dim(
+        off, i_max[..., None, None].expand(i_max.shape + (1, 3)),
+        dim=-2)[..., 0, :]
+    axis = n * torch.where(row < 0, -torch.ones_like(n), torch.ones_like(n))
+    s_tot = torch.where(torch.sum(axis * a, -1, keepdim=True) < 0.0,
+                        -1.0, 1.0)
+    w_pi = theta[..., None] * axis * s_tot
+    near_pi = (torch.pi - theta) < 1e-3
+    return torch.where(near_pi[..., None], w_pi, w_generic)
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 // CPU emulation of the CUDA built-ins that the setup kernels
-// (se3_icp_tpu_torch/csrc/thresholds.cu, moments.cu) use, so that their
+// (se3_icp_tpu_torch/csrc/thresholds.cu, moments.cu) and the 1-NN
+// kernels (nn_argmin.cu) use, so that their
 // sources can be compiled with a host C++20 compiler and run against the
 // plain PyTorch versions on a machine without a GPU
 // (tests/test_torch_kernels_emulated.py installs this file as
@@ -38,6 +39,9 @@ struct dim3 {
 };
 struct uint3 {
   unsigned x, y, z;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
 };
 inline thread_local uint3 threadIdx, blockIdx;
 
@@ -84,6 +88,7 @@ inline int __reduce_add_sync(unsigned, int v) {
 using std::fmaf;
 using std::fmaxf;
 using std::fminf;
+using std::max;
 using std::min;
 
 // kernel<<<grid, threads, smem, stream>>>(args) becomes

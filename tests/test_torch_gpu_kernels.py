@@ -10,7 +10,10 @@ absolute with at most 1% of rows matched to another (near-tied) target;
 the epilogue's kept count exact, sums to 1e-5 (gicp 1e-4) of the
 largest entry; the setup kernels' thresholds bit-equal, their ball
 counts equal, K2's sums to 1e-5 and K3's to 1e-4 of each row's largest
-entry (float32 sums in another order).
+entry (float32 sums in another order); the 1-NN kernels K6-K9 their d2
+to 1e-5 of |q|^2 + max |t|^2, indices equal except between targets
+within that of each other (at most 1% of rows), matched rows copies of
+the indexed payload rows.
 """
 
 import numpy as np
@@ -19,7 +22,7 @@ import torch
 
 from se3_icp_tpu_torch.datasets import fixtures
 from se3_icp_tpu_torch.models import registration as reg
-from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, cuda_moments
+from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, cuda_moments, cuda_nn
 from se3_icp_tpu_torch.parallel import pairs
 from se3_icp_tpu_torch.utils import metrics_host
 from se3_icp_tpu_torch.utils.config import GOLDEN, parse_algorithm
@@ -246,3 +249,70 @@ def test_setup_kernels_refuse_what_they_do_not_take(card):
         cuda_moments.axis_sums_batched(pts, nv, torch.zeros((2, 3, 256),
                                                             device=card),
                                        thr, thr, thr, cloud=cloud)
+
+
+def _nn_hold(q, t, n, idx, d2, idx_p, d2_p):
+    col = torch.arange(t.shape[1], device=t.device)
+    tn = torch.where(col[None] < n[:, None], (t * t).sum(-1), 0.0)
+    scale = (q * q).sum(-1) + tn.amax(-1, keepdim=True) + 1.0
+    assert float(((d2 - d2_p).abs() / scale).max()) <= 1e-5
+    assert bool((idx >= 0).all() and (idx < n[:, None]).all())
+    differ = idx != idx_p
+    assert float(differ.float().mean()) <= 0.01
+    b, i = differ.nonzero(as_tuple=True)
+    qd = q[b, i].double()
+    dk = ((qd - t[b, idx[b, i].long()].double()) ** 2).sum(-1)
+    dp = ((qd - t[b, idx_p[b, i].long()].double()) ** 2).sum(-1)
+    assert bool(((dk - dp).abs() <= 2e-5 * scale[b, i].double()).all())
+
+
+@pytest.mark.parametrize("n,d", [(1024, 3), (1024, 12), (1024, 33),
+                                 (15360, 3), (15360, 12)])
+def test_nn_kernels_match_their_plain_versions(card, n, d):
+    """K6, K9, K7 (and K8 at D = 12) at N = 1024 and at the KITTI bucket
+    N = 15360 (120 target tiles), targets padded in the second pair."""
+    g = torch.Generator().manual_seed(n + d)
+    q = torch.randn(2, n, d, generator=g).to(card)
+    t = torch.randn(2, n, d, generator=g).to(card)
+    nv = torch.tensor([n, n - 77], dtype=torch.int32, device=card)
+    n0 = cuda_nn.nn_argmin_batched.launches
+    out = cuda_nn.nn_argmin_batched(q, t, nv)
+    assert cuda_nn.nn_argmin_batched.launches == n0 + 1
+    _nn_hold(q, t, nv, *out, *cuda_nn.nn_argmin_batched_plain(q, t, nv))
+    n0 = cuda_nn.nn_argmin_unbatched.launches
+    i1, d1 = cuda_nn.nn_argmin_unbatched(q[1], t[1], nv[1])
+    assert cuda_nn.nn_argmin_unbatched.launches == n0 + 1
+    _nn_hold(q[1:], t[1:], nv[1:], i1[None], d1[None],
+             *(x[None] for x in cuda_nn.nn_argmin_unbatched_plain(
+                 q[1], t[1], nv[1])))
+    pay = torch.randn(2, n, 9, generator=g).to(card)
+    idx, d2, m = cuda_nn.nn_match_batched(q, t, pay, nv)
+    ip, dp, _ = cuda_nn.nn_match_batched_plain(q, t, pay, nv)
+    _nn_hold(q, t, nv, idx, d2, ip, dp)
+    assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+    if d == 12:
+        t_b = t.clone()
+        t_b[..., :9] = 0.0
+        targets = cuda_knn.pack_match_targets(t, t_b, pay, nv)
+        phase = torch.tensor([0, 1], dtype=torch.int32, device=card)
+        idx, d2, m = cuda_nn.nn_match_packed(q, targets, phase)
+        ip, dp, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
+        _nn_hold(q, torch.stack([t[0], t_b[1]]), nv, idx, d2, ip, dp)
+        assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+
+
+def test_nn_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros((2, 64, 3), device=card)
+    nv = torch.tensor([64, 60], dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        cuda_nn.nn_argmin_batched(q.double(), q.double(), nv)
+    with pytest.raises(ValueError):              # no kernel of width 5
+        cuda_nn.nn_argmin_batched(torch.zeros((2, 64, 5), device=card),
+                                  torch.zeros((2, 64, 5), device=card), nv)
+    with pytest.raises(ValueError):
+        cuda_nn.nn_argmin_batched(q, q.cpu(), nv)
+    with pytest.raises(TypeError):
+        cuda_nn.nn_argmin_batched(q, q, nv.long())
+    with pytest.raises(ValueError):
+        cuda_nn.nn_match_batched(q, q, torch.zeros((2, 63, 4), device=card),
+                                 nv)

@@ -1,17 +1,21 @@
 """The setup kernels' CUDA sources -- K1 (``csrc/thresholds.cu``), K2
-and K3 (``csrc/moments.cu``) -- compiled for the CPU against an
-emulation of the CUDA built-ins (``tests/cuda_emulation.h``: one OS
-thread per CUDA thread, barriers for ``__syncthreads`` and the warp
-shuffles) and called through the wrappers' own C signatures, on the
-wrappers' own prepared inputs, against the plain PyTorch versions.
+and K3 (``csrc/moments.cu``) -- and the 1-NN kernels K6-K9
+(``csrc/nn_argmin.cu``) compiled for the CPU against an emulation of the
+CUDA built-ins (``tests/cuda_emulation.h``: one OS thread per CUDA
+thread, barriers for ``__syncthreads`` and the warp shuffles) and called
+through the wrappers' own C signatures, on the wrappers' own prepared
+inputs, against the plain PyTorch versions.
 
 This checks the kernels' indexing, tiling, bounds, warp reductions and
 arithmetic order where no card is available; what only the card can
 show (that nvcc accepts the source for sm_90a, registers, launch limits,
 time) is ``chip_smoke.py``'s and ``test_torch_gpu_kernels.py``'s.  The
 tolerances are the card's: K1 bit-equal, K2 ball counts equal and sums
-within 1e-5 of each row's largest entry, K3 within 1e-4.  Needs a host
-C++20 compiler (``g++``).
+within 1e-5 of each row's largest entry, K3 within 1e-4; K6-K9 d2
+within 1e-5 of |q|^2 + max |t|^2 (an FMA chain here, a matrix product in
+the plain version), indices equal except between targets within that of
+each other (at most 1% of rows), matched rows copies of the indexed
+payload rows.  Needs a host C++20 compiler (``g++``).
 """
 
 import ctypes
@@ -26,7 +30,7 @@ import torch
 
 import torch_port_cases as cases
 from se3_icp_tpu_torch.datasets import fixtures
-from se3_icp_tpu_torch.ops import _build, lrf
+from se3_icp_tpu_torch.ops import _build, cuda_knn, cuda_nn, lrf
 from se3_icp_tpu_torch.ops import cuda_moments as cm
 
 # the suite runs several worker processes side by side: keep each
@@ -35,8 +39,8 @@ torch.set_num_threads(1)
 
 HERE = pathlib.Path(__file__).resolve().parent
 # kernel<<<grid, threads, smem, stream>>>(args);
-_LAUNCH = re.compile(r"(\w+(?:<T>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);",
-                     re.S)
+_LAUNCH = re.compile(
+    r"(\w+(?:<[^<>;]*>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);", re.S)
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +54,7 @@ def emulated(tmp_path_factory):
     for h in _build.headers():
         shutil.copy(h, out / h.name)
     srcs = []
-    for name in ("thresholds.cu", "moments.cu"):
+    for name in ("thresholds.cu", "moments.cu", "nn_argmin.cu"):
         text, n = _LAUNCH.subn(
             lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, "
                        f"[&] {{ {m.group(1)}({m.group(4)}); }});"),
@@ -64,7 +68,9 @@ def emulated(tmp_path_factory):
                     *map(str, srcs), "-o", str(so)],
                    check=True, capture_output=True, text=True, timeout=300)
     lib = ctypes.CDLL(str(so))
-    for name in ("se3icp_thresholds", "se3icp_moments", "se3icp_axis"):
+    for name in ("se3icp_thresholds", "se3icp_moments", "se3icp_axis",
+                 "se3icp_nn_argmin", "se3icp_nn_match",
+                 "se3icp_nn_match_packed"):
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -147,3 +153,77 @@ def test_emulated_moments_and_axis_kernels_match_plain(emulated, clouds):
         cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
         nrm.data_ptr(), aux.data_ptr(), out.data_ptr(), bsz, n, None) == 0
     assert _row_rel_err(out, cm._axis_raw_plain(cloud, nrm, aux), nv) <= 1e-4
+
+
+# ------------------------------------------------------------ K6-K9
+
+def _nn_hold(q, t, n, idx, d2, idx_p, d2_p):
+    assert not d2.isnan().any()                # every row written
+    col = torch.arange(t.shape[1])
+    tn = torch.where(col[None] < n[:, None], (t * t).sum(-1), 0.0)
+    scale = (q * q).sum(-1) + tn.amax(-1, keepdim=True) + 1.0
+    assert float(((d2 - d2_p).abs() / scale).max()) <= 1e-5
+    assert bool((idx < n[:, None]).all())
+    differ = idx != idx_p
+    assert float(differ.float().mean()) <= 0.01
+    b, i = differ.nonzero(as_tuple=True)
+    qd = q[b, i].double()
+    dk = ((qd - t[b, idx[b, i].long()].double()) ** 2).sum(-1)
+    dp = ((qd - t[b, idx_p[b, i].long()].double()) ** 2).sum(-1)
+    assert bool(((dk - dp).abs() <= 2e-5 * scale[b, i].double()).all())
+
+
+def _nn_inputs(d, seed):
+    """Two clouds of 300 queries against 333 targets (three tiles of
+    128, the last ragged), 333 and 200 of them valid."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(2, 300, d, generator=g)
+    t = torch.randn(2, 333, d, generator=g)
+    t[0, 5] = t[0, 4]                          # an exact tie: lowest index
+    return q, t, torch.tensor([333, 200], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("d", cuda_nn.WIDTHS)
+def test_emulated_nn_kernels_match_plain(emulated, d):
+    q, t, n = _nn_inputs(d, d)
+    bsz, nq, nt = 2, 300, 333
+    idx = torch.full((bsz, nq), -1, dtype=torch.int32)
+    d2 = torch.full((bsz, nq), float("nan"))
+    assert emulated.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(),
+                                     n.data_ptr(), idx.data_ptr(),
+                                     d2.data_ptr(), bsz, nq, nt, d,
+                                     None) == 0
+    _nn_hold(q, t, n, idx, d2, *cuda_nn.nn_argmin_batched_plain(q, t, n))
+    pay = torch.randn(bsz, nt, 5)
+    m = torch.full((bsz, nq, 5), float("nan"))
+    assert emulated.se3icp_nn_match(q.data_ptr(), t.data_ptr(),
+                                    pay.data_ptr(), n.data_ptr(),
+                                    idx.data_ptr(), d2.data_ptr(),
+                                    m.data_ptr(), bsz, nq, nt, d, 5,
+                                    None) == 0
+    assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+    # a width the kernel is not built for is refused, not run
+    assert emulated.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(),
+                                     n.data_ptr(), idx.data_ptr(),
+                                     d2.data_ptr(), bsz, nq, nt, 5,
+                                     None) != 0
+
+
+def test_emulated_packed_match_kernel_matches_plain(emulated):
+    q, t_a, n = _nn_inputs(12, 1)
+    t_b = t_a.clone()
+    t_b[..., :9] = 0.0
+    pay = torch.randn(2, 333, 9)
+    targets = cuda_knn.pack_match_targets(t_a, t_b, pay, n)
+    phase = torch.tensor([1, 0], dtype=torch.int32)
+    idx = torch.full((2, 300), -1, dtype=torch.int32)
+    d2 = torch.full((2, 300), float("nan"))
+    m = torch.full((2, 300, 9), float("nan"))
+    assert emulated.se3icp_nn_match_packed(
+        q.data_ptr(), targets.emb.data_ptr(), targets.tn.data_ptr(),
+        targets.payload.data_ptr(), targets.n.data_ptr(), phase.data_ptr(),
+        idx.data_ptr(), d2.data_ptr(), m.data_ptr(), 2, 300, 333, 9,
+        None) == 0
+    idx_p, d2_p, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
+    _nn_hold(q, torch.stack([t_b[0], t_a[1]]), n, idx, d2, idx_p, d2_p)
+    assert torch.equal(m, cuda_nn._gather_rows(pay, idx))

@@ -186,10 +186,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_kernel_wrappers_count_launches_only_on_the_card():
     """On CPU tensors the wrappers take the plain versions and launch
     nothing; the CUDA sources they would build are in the package."""
-    from se3_icp_tpu_torch.ops import _build, cuda_knn, cuda_loop, cuda_moments
+    from se3_icp_tpu_torch.ops import (_build, cuda_knn, cuda_loop,
+                                       cuda_moments, cuda_nn)
     wrappers = (cuda_knn.nn_match_affine, cuda_loop.loop_epilogue_batched,
                 cuda_moments.neighborhood_thresholds_batched,
-                cuda_moments.moments_batched, cuda_moments.axis_sums_batched)
+                cuda_moments.moments_batched, cuda_moments.axis_sums_batched,
+                cuda_nn.nn_argmin_batched, cuda_nn.nn_argmin_unbatched,
+                cuda_nn.nn_match_batched, cuda_nn.nn_match_packed)
     before = [w.launches for w in wrappers]
     # icp pt2pl reaches K1, K2, K4, K5; se3_pt2pl all five
     p = fixtures.golden_shape_problem(seed=1, n=200, **cases.SMALL_POSE)
@@ -199,12 +202,13 @@ def test_kernel_wrappers_count_launches_only_on_the_card():
     assert [w.launches for w in wrappers] == before
     names = [s.name for s in _build.sources()]
     assert names == ["loop_epilogue.cu", "match_affine.cu", "moments.cu",
-                     "thresholds.cu"]
+                     "nn_argmin.cu", "thresholds.cu"]
     for s in _build.sources():
         text = s.read_text()
         assert "torch/extension.h" not in text
         assert 'extern "C" int se3icp_' in text
     assert set(_build.SIGNATURES) == {
         "se3icp_match_affine", "se3icp_loop_epilogue", "se3icp_thresholds",
-        "se3icp_moments", "se3icp_axis"}
+        "se3icp_moments", "se3icp_axis", "se3icp_nn_argmin",
+        "se3icp_nn_match", "se3icp_nn_match_packed"}
     assert [h.name for h in _build.headers()] == ["dist.cuh"]
