@@ -6,10 +6,13 @@ for an H100, sm_90a) and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``se3_icp_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card at the main path's
-shapes (64 pairs, 4608-point bucket): the setup kernels K1-K3 of the
-sort-free threshold route and the loop kernels K4, K5.  It then drives
+It builds the CUDA kernels from ``se3_icp_tpu_torch/csrc`` (printing
+ptxas's registers, spills and shared memory of K4 and K1 on a ``ptxas``
+line), holds each kernel against its plain PyTorch version on the card
+at the main path's shapes (64 pairs, 4608-point bucket): the setup
+kernels K1-K3 of the sort-free threshold route and the loop kernels K4
+(also at the KITTI bucket, 8 x 15360, and with its R3-phase chain held
+bit for bit against its 12-FMA chain), K5.  It then drives
 the main path through the public entry points (``register_pairs`` with
 ``se3_pt2pl`` / ``GOLDEN`` on 64 seed-made golden-shape pairs, on the
 default threshold route and again with ``exact_knn=True``), then
@@ -24,8 +27,8 @@ kernels.  Every phase
 prints one JSON line; any failed phase raises, so the exit code is
 non-zero and the final ``{"ok": true, ...}`` line is not printed.
 Without a CUDA device it exits with code 2 and prints no result.
-``--profile`` adds one line with the main path's device time by kernel
-name.
+``--profile`` adds a line each with the device time by kernel name of
+one main-path call and of one multistart call.
 """
 
 from __future__ import annotations
@@ -45,8 +48,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): float32
-# outside the tensor cores, and HBM3 bandwidth.
+# outside the tensor cores, and HBM3 bandwidth.  The float32 rate counts
+# an FMA as two operations; a plain add, multiply, min or compare issues
+# at the same instruction rate, so such operations run at half of it.
 PEAK_F32_FLOPS = 67e12
+PEAK_F32_OPS_NO_FMA = PEAK_F32_FLOPS / 2
 PEAK_BYTES_PER_S = 3.35e12
 
 N_PAIRS = 64                 # the main path's batch
@@ -119,16 +125,54 @@ def device_phase() -> dict:
             "count": torch.cuda.device_count()}
 
 
+def ptxas_resources(log: str) -> dict:
+    """Registers, spill bytes and static shared memory of every kernel
+    entry in ``nvcc -Xptxas -v`` output, by (mangled) entry name."""
+    import re
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(spill_stores=int(m.group(1)),
+                       spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def build_phase() -> None:
+    import contextlib
+    import io
     from se3_icp_tpu_torch.ops import _build
     t0 = time.perf_counter()
     # forced: a library left by an earlier run must not hide a source
     # that no longer builds
-    lib_path = _build.build(force=True, verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib_path = _build.build(force=True, verbose=True)
+    print(log.getvalue(), flush=True)
     _build.load()
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          sources=[os.path.relpath(s, ROOT) for s in _build.sources()],
          library=os.path.relpath(lib_path, ROOT))
+    # K4, and K1's instances by the number of counts T (template argument)
+    res = ptxas_resources(log.getvalue())
+    emit("ptxas", nn_match_affine={k: v for k, v in res.items()
+                                   if "match_affine_kernel" in k},
+         neighborhood_thresholds_batched={
+             f"T={k.split('thresholds_kernelILi')[1][0]}": v
+             for k, v in res.items() if "thresholds_kernelILi" in k})
 
 
 def golden_pairs(n_pairs, **kw):
@@ -224,6 +268,30 @@ def k4_case(name, ms, W, phase):
                 active_pairs=n_live)
 
 
+def k4_r3_bits(name, ms, W, phase):
+    """The R3 phase's 3-FMA chain against the 12-FMA chain that the SE(3)
+    path runs on the same targets (the phase-B embedding packed as both
+    phases): the same d2 bits and the same matched rows."""
+    from se3_icp_tpu_torch.ops import cuda_knn
+    t = ms.targets
+    same = cuda_knn.MatchTargets(
+        emb=t.emb[:, 1:2].expand(-1, 2, -1, -1).contiguous(),
+        tn=t.tn[:, 1:2].expand(-1, 2, -1).contiguous(),
+        payload=t.payload, n=t.n)
+    r3 = (phase[:, 0] == 1) & (phase[:, 1] == 0)
+    check(bool(r3.any()), f"{name}: no live R3-phase pair")
+    d2, mt = cuda_knn.nn_match_affine(ms.feat16, W, t, phase)
+    as_se3 = phase.clone()
+    as_se3[:, 0] = 0
+    d2_s, mt_s = cuda_knn.nn_match_affine(ms.feat16, W, same, as_se3)
+    torch.cuda.synchronize()
+    differ = int((d2[r3] != d2_s[r3]).sum())
+    check(differ == 0 and bool((mt[r3] == mt_s[r3]).all()),
+          f"{name}: the R3 chain differs from the 12-FMA chain in {differ} "
+          "distances")
+    return dict(r3_pairs=int(r3.sum()), r3_bits_equal_12_fma_chain=True)
+
+
 def k5_case(name, ms, cfg, matched_T, pf):
     from se3_icp_tpu_torch.ops import cuda_loop
     from se3_icp_tpu_torch.models import registration as reg
@@ -279,10 +347,11 @@ def k5_case(name, ms, cfg, matched_T, pf):
                 trim=cfg.estimated_overlap)
 
 
-def bound(ops, nbytes):
-    """The least time for ``ops`` float32 operations and ``nbytes`` moved
-    (each input read once, each output written once), and what sets it."""
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(ops, nbytes, op_rate=PEAK_F32_FLOPS):
+    """The least time for ``ops`` float32 operations at ``op_rate`` and
+    ``nbytes`` moved (each input read once, each output written once),
+    and what sets it."""
+    t_ops, t_bytes = ops / op_rate, nbytes / PEAK_BYTES_PER_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -337,13 +406,16 @@ def k1_case(name, points, nv, counts, with_topk=False):
         points, nv, cc, cloud=cloud), reps=3)
     nvd = nv.double()
     # fold: 8 operations per (valid query, valid target); search: a
-    # compare and an add per candidate lane and probe
+    # compare and an add per candidate lane and probe.  None of them is
+    # an FMA (every step of the distance is explicitly rounded), so they
+    # count at the non-FMA rate, half the float32 FLOP rate
     ops = (8 * float((nvd * nvd).sum())
            + 2 * cm.CAND * sum(cm.plan(len(counts))) * float(nvd.sum()))
     case = dict(name=name, max_abs_err=float((thr - thr_p).abs().max()),
                 bit_equal=True, thresholds_differing=n_diff,
                 ms=ms_k, plain_ms=ms_p,
-                **bound(ops, 4 * bsz * n * (4 + len(counts))),
+                **bound(ops, 4 * bsz * n * (4 + len(counts)),
+                        op_rate=PEAK_F32_OPS_NO_FMA),
                 library_ms=None,
                 counts=list(counts),
                 ball_size_pair0=dict(
@@ -474,8 +546,9 @@ def kernels_phase():
             W, phase, _ = loop_inputs(ms, GOLDEN, false_b, false_b, eye)
             k4_cases.append(k4_case("nn_match_affine", ms, W, phase))
             W, phase, _ = loop_inputs(ms, GOLDEN, true_b, some_done, near)
-            k4_cases.append(k4_case("nn_match_affine[R3 phase, 1/3 done]",
-                                    ms, W, phase))
+            name = "nn_match_affine[R3 phase, 1/3 done]"
+            k4_cases.append(k4_case(name, ms, W, phase))
+            k4_cases[-1].update(k4_r3_bits(name, ms, W, phase))
         else:
             # the other paths' payload widths, at their own first call
             # (the icp driver starts in the R3 phase)
@@ -499,6 +572,22 @@ def kernels_phase():
             k5_cases.append(k5_case(name, ms, cfg, matched_T, pf))
         del ms
         torch.cuda.empty_cache()
+    # the KITTI bucket: 8 pairs of 15,000 points padded to 15360, both
+    # phases
+    big = golden_pairs(SMALL_BATCH, n=15000)
+    ms, pre = match_state(big, GOLDEN, "se3_pt2pl")
+    false_8 = torch.zeros(SMALL_BATCH, dtype=torch.bool, device=dev)
+    W, phase, _ = loop_inputs(ms, GOLDEN, false_8, false_8,
+                              torch.eye(4, device=dev).repeat(SMALL_BATCH,
+                                                              1, 1))
+    k4_cases.append(k4_case("nn_match_affine[8 x 15360]", ms, W, phase))
+    W, phase, _ = loop_inputs(ms, GOLDEN, ~false_8, false_8,
+                              near_gt_pose(big, pre, dev))
+    name = "nn_match_affine[8 x 15360, R3 phase]"
+    k4_cases.append(k4_case(name, ms, W, phase))
+    k4_cases[-1].update(k4_r3_bits(name, ms, W, phase))
+    del ms
+    torch.cuda.empty_cache()
     return k4_cases, k5_cases
 
 
@@ -588,17 +677,18 @@ def phases_line(problems):
          loop_ms_per_step=1e3 * loop_s / stats["loop_steps"])
 
 
-def profile_line(pair_list):
-    """``--profile``: device time of one main-path call by kernel name
-    (torch.profiler), the ten largest."""
+def profile_line(call, phase="profile"):
+    """``--profile``: device time of one ``call()`` by kernel name
+    (torch.profiler), the ten largest, and the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from se3_icp_tpu_torch.parallel import pairs
-    from se3_icp_tpu_torch.utils.config import GOLDEN
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pairs.register_pairs(pair_list, "se3_pt2pl", GOLDEN)
+        t0 = time.perf_counter()
+        call()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     # device kernels only: an operator's row repeats its kernels' time
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages()
@@ -607,8 +697,8 @@ def profile_line(pair_list):
     own = {tag: dict(ms=sum(r[0] for r in rows if tag in r[2]) / 1e3,
                      calls=sum(r[1] for r in rows if tag in r[2]))
            for tag in ("thresholds_kernel", "moments_kernel", "axis_kernel",
-                       "match_affine_kernel", "epilogue_kernel")}
-    emit("profile", device_ms_total=total / 1e3,
+                       "match_affine_kernel", "epilogue_kernel", "nn_kernel")}
+    emit(phase, device_ms_total=total / 1e3, wall_ms_profiled=1e3 * wall,
          device_kernel_launches=sum(r[1] for r in rows),
          hand_written=own,
          top=[dict(ms=r[0] / 1e3, calls=r[1], name=r[2][:80])
@@ -722,7 +812,8 @@ def main_path_phase(with_profile: bool = False):
 
     phases_line(problems)
     if with_profile:
-        profile_line(pair_list)
+        profile_line(lambda: pairs.register_pairs(pair_list, "se3_pt2pl",
+                                                  GOLDEN))
 
     # the card and the CPU route agree on a small input
     small = golden_pairs(2, n=600)
@@ -1005,7 +1096,7 @@ def only_launched(what, launches, want):
               f"{what} launched {name} {launches[name]} times, not {n}")
 
 
-def multistart_phase():
+def multistart_phase(with_profile: bool = False):
     """The restart fleet through ``register_pairs_multistart``: 8 pairs
     of the golden shape under FLIPPED_POSE (out of a single start's
     reach), 8 starts each, one chunk of 64 flat registrations on the
@@ -1028,6 +1119,10 @@ def multistart_phase():
     wall = time.perf_counter() - t0
     launches = read_launches()
     rot, tra = gate(problems, [r.best for r in res], "multistart kept start")
+    if with_profile:
+        profile_line(lambda: multistart.register_pairs_multistart(
+            pair_list, "se3_pt2pl", GOLDEN, n_starts=MS_STARTS,
+            pair_chunk=MS_PAIRS), phase="profile_multistart")
     # setup K1-K3 once per cloud of the one engine call; K4, K5 per step;
     # one K6 launch scores the chunk's 64 candidates
     check_launches("multistart", launches, stats["loop_steps"], (2, 2, 2))
@@ -1298,7 +1393,7 @@ def main() -> int:
         with_profile="--profile" in sys.argv[1:])
     cli_phase()
     # the paths of the 1-NN kernels, each with its own launch counts
-    ms_launches = multistart_phase()
+    ms_launches = multistart_phase(with_profile="--profile" in sys.argv[1:])
     fgr_launches, feats = fgr_phase()
     metrics_launches = metrics_phase(results)
     ops_launches = ops_phase()

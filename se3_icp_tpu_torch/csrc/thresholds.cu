@@ -22,37 +22,60 @@
 // padded rows.  Here the distance is float32 on the CUDA cores, written
 // with explicitly rounded intrinsics (dist.cuh) in the plain version's
 // order, so this kernel's thresholds equal the plain version's bit for
-// bit; rows >= n_valid are skipped, which leaves an all-padding lane at
-// 3.0e38 and, after the clamp, at hib, as the poisoned lane ends there.
+// bit; rows >= n_valid never lower a candidate, which leaves an
+// all-padding lane at 3.0e38 and, after the clamp, at hib, as the
+// poisoned lane ends there.
 //
-// What bounds it on an H100: operations.  The fold is 8 float32
-// operations per (query, valid target) -- 64 * 4167^2 * 8 = 8.9e9 at the
-// golden batch -- and the search 2 * 512 per probe and query (31 probes
-// for three counts: 8.5e9); the inputs are 16 bytes a point.  Design:
-// one warp per query, 8 queries per block.  Lane l owns the candidates
-// c = l + 32 m (m = 0..15) in registers.  Targets stream through shared
-// memory in tiles of 512 laid out by component, so lane l reads target
-// s*512 + l + 32 m: neighbouring lanes at neighbouring addresses, no
-// bank conflicts.  The group minima fold inside a lane (c + 256 is m + 8,
-// c + 128 is m + 4, c + 64 is m + 2, c + 32 is m + 1); maxima and minima
-// over the warp are shuffles, and a probe is 16 compares per lane and one
-// __reduce_add_sync.  Every bracket value is warp-uniform.  The number
-// of counts T is a template argument (1..8), so the brackets stay in
-// registers: ptxas (CUDA 12.8, sm_90a) gives 64 registers and no spill
-// for T = 2..4, 48 for T = 1, 79 for T = 7; T = 5 spills 4 bytes.
+// What bounds it on an H100: operations, none of them an FMA (every
+// step is explicitly rounded), so they issue at the float32 rate of
+// 33.5 T op/s, half the 67 TFLOP/s that counts an FMA as two.  The fold
+// is 8 operations per (query, valid target) -- 64 * 4167^2 * 8 = 8.9e9 at
+// the golden batch -- and the search 2 * 512 per probe and query (31
+// probes for three counts: 8.5e9), ~0.52 ms; the inputs are 16 bytes a
+// point.  Design: kQ queries per warp, 8 warps a block.  Lane l owns the
+// candidates c = l + 32 m (m = 0..15) of each of its warp's kQ queries
+// in registers.  Targets stream through shared memory in tiles of 512
+// laid out by component, double-buffered with cp.async (the next tile
+// loads while this one is folded); lane l reads target s*512 + l + 32 m
+// once (neighbouring lanes at neighbouring addresses, no bank conflicts)
+// and folds it into the candidates of all kQ queries, so a shared load
+// feeds 8 kQ operations.  Rows past n_valid are staged as the origin
+// with |t|^2 = +inf: their r is +inf and leaves every lane as it was, so
+// the fold has no bound check.  The group minima fold inside a lane
+// (c + 256 is m + 8, c + 128 is m + 4, c + 64 is m + 2, c + 32 is m + 1);
+// maxima and minima over the warp are shuffles.  The search runs the kQ
+// queries' probe chains side by side: lane l keeps the brackets of query
+// l mod kQ (every bracket value is uniform over the lanes of one query),
+// so the scalar probe arithmetic is issued once for all kQ queries; each
+// probe is shuffled to the warp, counted against that query's 16
+// candidates a lane (in float: a compare and an add each) and summed by
+// one __reduce_add_sync a query.  The number of counts T is a template
+// argument (1..8) and the probe plan is unrolled, so the brackets stay in
+// registers and each probe's kind is known at compile time.  What holds
+// it at about twice its bound on an H100 (tools/kernel_tiling_sweep.py
+// measures it): the fold issues ~600 instructions per 512 (query,
+// target) pairs of a warp, about what it must, but the 64 candidates a
+// lane take 128 registers, so 16 warps an SM are all that run, and the
+// probe chain -- probe, shuffle, count, reduce, brackets -- is serial
+// within a warp.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 #include "dist.cuh"
 
 namespace {
 
-constexpr int kCand = 512;           // candidate lanes
-constexpr int kPer = kCand / 32;     // candidates per lane
-constexpr int kWarps = 8;            // queries per block, one per warp
+constexpr int kCand = 512;                  // candidate lanes
+constexpr int kPer = kCand / 32;            // candidates per lane
+constexpr int kQ = 4;                       // queries per warp
+constexpr int kWarps = 8;                   // warps per block
 constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQueries = kWarps * kQ;  // queries per block
 constexpr int kMaxT = 8;
 constexpr float kInit = 3.0e38f;
+static_assert(32 % kQ == 0 && kMaxT * kQ <= 32,
+              "lane l keeps query l mod kQ; lane kQ t + q writes count t");
 
 // probes per DESCENDING-sorted count (pallas_moments._THR_PLAN)
 __host__ __device__ constexpr int plan_steps(int t) {
@@ -71,6 +94,37 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// v[q] of the lane's own query q = my, by selects (a register array
+// indexed by a run-time value would go to local memory)
+__device__ __forceinline__ float pick(const float (&v)[kQ], int my) {
+  float r = v[0];
+#pragma unroll
+  for (int q = 1; q < kQ; ++q) r = my == q ? v[q] : r;
+  return r;
+}
+
+// Stage targets [s0, s0 + kCand) into one buffer; rows at or past nv:
+// the origin with |t|^2 = +inf.
+__device__ __forceinline__ void stage(float* xs, float* ys, float* zs,
+                                      float* ts, const float* px,
+                                      const float* py, const float* pz,
+                                      const float* tnb, int s0, int nv) {
+  for (int i = threadIdx.x; i < kCand; i += kThreads) {
+    if (s0 + i < nv) {
+      __pipeline_memcpy_async(&xs[i], &px[s0 + i], sizeof(float));
+      __pipeline_memcpy_async(&ys[i], &py[s0 + i], sizeof(float));
+      __pipeline_memcpy_async(&zs[i], &pz[s0 + i], sizeof(float));
+      __pipeline_memcpy_async(&ts[i], &tnb[s0 + i], sizeof(float));
+    } else {
+      xs[i] = 0.f;
+      ys[i] = 0.f;
+      zs[i] = 0.f;
+      ts[i] = __int_as_float(0x7f800000);   // +inf
+    }
+  }
+  __pipeline_commit();
+}
+
 template <int T>
 __global__ void __launch_bounds__(kThreads)
 thresholds_kernel(const float* __restrict__ pts_t,    // [B,3,N]
@@ -80,97 +134,112 @@ thresholds_kernel(const float* __restrict__ pts_t,    // [B,3,N]
                   const float* __restrict__ hib,      // [B]
                   float* __restrict__ out,            // [B,T,N]
                   int n) {
-  __shared__ float xs[kCand], ys[kCand], zs[kCand], ts[kCand];
+  __shared__ float xs[2][kCand], ys[2][kCand], zs[2][kCand], ts[2][kCand];
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * kWarps + warp;
-  const bool active = qi < n;                // uniform over the warp
+  const int q0 = (blockIdx.x * kWarps + warp) * kQ;   // the warp's queries
+  const int my = lane & (kQ - 1);                     // the lane's own query
   const float* px = pts_t + (size_t)b * 3 * n;
   const float* py = px + n;
   const float* pz = py + n;
   const float* tnb = tn + (size_t)b * n;
   const int nv = min(n_valid[b], n);
 
-  float qx = 0.f, qy = 0.f, qz = 0.f, qn = 0.f;
-  if (active) {
-    qx = px[qi];
-    qy = py[qi];
-    qz = pz[qi];
-    qn = tnb[qi];
+  float qx[kQ], qy[kQ], qz[kQ], qn[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const bool active = q0 + q < n;    // uniform over the warp
+    qx[q] = active ? px[q0 + q] : 0.f;
+    qy[q] = active ? py[q0 + q] : 0.f;
+    qz[q] = active ? pz[q0 + q] : 0.f;
+    qn[q] = active ? tnb[q0 + q] : 0.f;
   }
 
-  // 1. candidate fold over the valid targets
-  float cand[kPer];
+  // 1. candidate fold over the valid targets, kQ queries at once
+  float cand[kQ][kPer];
 #pragma unroll
-  for (int m = 0; m < kPer; ++m) cand[m] = kInit;
-  for (int s0 = 0; s0 < nv; s0 += kCand) {
-    const int cnt = min(kCand, nv - s0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += kThreads) {
-      xs[i] = px[s0 + i];
-      ys[i] = py[s0 + i];
-      zs[i] = pz[s0 + i];
-      ts[i] = tnb[s0 + i];
+  for (int q = 0; q < kQ; ++q) {
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) cand[q][m] = kInit;
+  }
+  const int n_tiles = nv > 0 ? (nv + kCand - 1) / kCand : 0;
+  if (n_tiles > 0) {
+    stage(xs[0], ys[0], zs[0], ts[0], px, py, pz, tnb, 0, nv);
+  }
+  for (int k = 0; k < n_tiles; ++k) {
+    const int cur = k & 1;
+    if (k + 1 < n_tiles) {
+      stage(xs[cur ^ 1], ys[cur ^ 1], zs[cur ^ 1], ts[cur ^ 1], px, py, pz,
+            tnb, (k + 1) * kCand, nv);
+      __pipeline_wait_prior(1);     // this thread's copies of tile k landed
+    } else {
+      __pipeline_wait_prior(0);
     }
-    __syncthreads();
-    if (active) {
+    __syncthreads();                // ... and every thread's
 #pragma unroll
-      for (int m = 0; m < kPer; ++m) {
-        const int c = lane + 32 * m;
-        if (c < cnt) {
-          cand[m] = fminf(cand[m], se3icp::shifted_d2(qx, qy, qz, xs[c], ys[c],
-                                                      zs[c], ts[c]));
-        }
+    for (int m = 0; m < kPer; ++m) {
+      const int c = lane + 32 * m;
+      const float x = xs[cur][c], y = ys[cur][c], z = zs[cur][c];
+      const float t = ts[cur][c];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        cand[q][m] = fminf(cand[q][m],
+                           se3icp::shifted_d2(qx[q], qy[q], qz[q], x, y, z, t));
       }
     }
+    __syncthreads();                // consumed before it is restaged
   }
-  if (!active) return;    // after the block's last barrier
 
-  // un-shift to absolute squared distances, clamp to [0, hib]
+  // un-shift to absolute squared distances, clamp to [0, hib]; the
+  // bracket bounds and the guaranteed seeds from the group minima
   const float hb = hib[b];
-  float vmin = kInit, vmax = -kInit;
+  float lo0[kQ], hi0[kQ], seed[4][kQ];
 #pragma unroll
-  for (int m = 0; m < kPer; ++m) {
-    const float v = fmaxf(fminf(__fadd_rn(cand[m], qn), hb), 0.f);
-    cand[m] = v;
-    vmin = fminf(vmin, v);
-    vmax = fmaxf(vmax, v);
+  for (int q = 0; q < kQ; ++q) {
+    float vmin = kInit, vmax = -kInit;
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const float v = fmaxf(fminf(__fadd_rn(cand[q][m], qn[q]), hb), 0.f);
+      cand[q][m] = v;
+      vmin = fminf(vmin, v);
+      vmax = fmaxf(vmax, v);
+    }
+    lo0[q] = warp_min(vmin);
+    hi0[q] = warp_max(vmax);
+    float g[kPer / 2];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) g[m] = fminf(cand[q][m], cand[q][m + 8]);  // G=256
+    seed[0][q] = warp_max(fmaxf(fmaxf(fmaxf(g[0], g[1]), fmaxf(g[2], g[3])),
+                                fmaxf(fmaxf(g[4], g[5]), fmaxf(g[6], g[7]))));
+#pragma unroll
+    for (int m = 0; m < 4; ++m) g[m] = fminf(g[m], g[m + 4]);             // G=128
+    seed[1][q] = warp_max(fmaxf(fmaxf(g[0], g[1]), fmaxf(g[2], g[3])));
+#pragma unroll
+    for (int m = 0; m < 2; ++m) g[m] = fminf(g[m], g[m + 2]);             // G=64
+    seed[2][q] = warp_max(fmaxf(g[0], g[1]));
+    seed[3][q] = warp_max(fminf(g[0], g[1]));                             // G=32
   }
-  const float lo0 = warp_min(vmin);
-  const float hi0 = warp_max(vmax);
 
-  // 2. guaranteed bracket seeds from the group minima
-  float g[kPer / 2];
-  float seed[4];
-#pragma unroll
-  for (int m = 0; m < 8; ++m) g[m] = fminf(cand[m], cand[m + 8]);     // G=256
-  seed[0] = warp_max(fmaxf(fmaxf(fmaxf(g[0], g[1]), fmaxf(g[2], g[3])),
-                           fmaxf(fmaxf(g[4], g[5]), fmaxf(g[6], g[7]))));
-#pragma unroll
-  for (int m = 0; m < 4; ++m) g[m] = fminf(g[m], g[m + 4]);           // G=128
-  seed[1] = warp_max(fmaxf(fmaxf(g[0], g[1]), fmaxf(g[2], g[3])));
-#pragma unroll
-  for (int m = 0; m < 2; ++m) g[m] = fminf(g[m], g[m + 2]);           // G=64
-  seed[2] = warp_max(fmaxf(g[0], g[1]));
-  seed[3] = warp_max(fminf(g[0], g[1]));                              // G=32
-
+  // 2. the lane's own query's brackets
   float tg[T], lo[T], cl[T], hi[T], ch[T];
+  const float my_lo0 = pick(lo0, my), my_hi0 = pick(hi0, my);
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     tg[t] = counts[(size_t)b * T + t];
-    lo[t] = lo0;
+    lo[t] = my_lo0;
     cl[t] = 1.f;
-    hi[t] = hi0;
+    hi[t] = my_hi0;
     ch[t] = (float)kCand;
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float gsz = (float)(256 >> i);
+    const float sd = pick(seed[i], my);
 #pragma unroll
     for (int t = 0; t < T; ++t) {
-      if (tg[t] <= gsz && seed[i] < hi[t]) {
-        hi[t] = seed[i];
+      if (tg[t] <= gsz && sd < hi[t]) {
+        hi[t] = sd;
         ch[t] = gsz;
       }
     }
@@ -178,9 +247,10 @@ thresholds_kernel(const float* __restrict__ pts_t,    // [B,3,N]
 #pragma unroll
   for (int t = 0; t < T; ++t) ch[t] = fmaxf(ch[t], __fadd_rn(tg[t], 1.f));
 
-  // 3. the probe plan, largest count first
+  // 3. the probe plan, largest count first, the kQ queries side by side
 #pragma unroll
   for (int t = 0; t < T; ++t) {
+#pragma unroll
     for (int s = 0; s < plan_steps(t); ++s) {
       const int kind = s & 3;
       const float dlt = __fsub_rn(hi[t], lo[t]);
@@ -196,10 +266,17 @@ thresholds_kernel(const float* __restrict__ pts_t,    // [B,3,N]
       } else {                  // arithmetic bisection
         probe = __fadd_rn(lo[t], __fmul_rn(0.5f, dlt));
       }
-      int c = 0;
+      float cnt_q[kQ];
 #pragma unroll
-      for (int m = 0; m < kPer; ++m) c += cand[m] <= probe ? 1 : 0;
-      const float cnt = (float)__reduce_add_sync(0xffffffffu, c);
+      for (int q = 0; q < kQ; ++q) {
+        const float pq = __shfl_sync(0xffffffffu, probe, q);   // lane q: query q
+        // counted in float (exact: at most 16 a lane), one add a compare
+        float c = 0.f;
+#pragma unroll
+        for (int m = 0; m < kPer; ++m) c += cand[q][m] <= pq ? 1.f : 0.f;
+        cnt_q[q] = (float)__reduce_add_sync(0xffffffffu, (int)c);
+      }
+      const float cnt = pick(cnt_q, my);
 #pragma unroll
       for (int u = 0; u < T; ++u) {
         const bool pred = cnt >= tg[u];
@@ -215,9 +292,11 @@ thresholds_kernel(const float* __restrict__ pts_t,    // [B,3,N]
     }
   }
 
+  // lane kQ t + q writes count t of query q
+  const int qi = q0 + my;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
-    if (lane == t) out[((size_t)b * T + t) * n + qi] = hi[t];
+    if (lane / kQ == t && qi < n) out[((size_t)b * T + t) * n + qi] = hi[t];
   }
 }
 
@@ -225,7 +304,7 @@ template <int T>
 cudaError_t launch(const float* pts_t, const float* tn, const int* n_valid,
                    const float* counts, const float* hib, float* out,
                    int bsz, int n, cudaStream_t stream) {
-  const dim3 grid((n + kWarps - 1) / kWarps, bsz);
+  const dim3 grid((n + kBlockQueries - 1) / kBlockQueries, bsz);
   thresholds_kernel<T><<<grid, kThreads, 0, stream>>>(pts_t, tn, n_valid,
                                                       counts, hib, out, n);
   return cudaGetLastError();

@@ -103,9 +103,12 @@ def nn_match_affine(feat, w, targets: MatchTargets, phase):
     affine (q = feat @ w, first 12 columns), ``targets`` from
     ``pack_match_targets``, phase [B,2] int32: column 0 the phase flag
     (0 = SE(3), 1 = R3), column 1 the DONE flag (1 = skip this pair; its
-    outputs are then unspecified).  Returns (d2_shifted [B,Nq],
-    matchedT [B,P,Nq]): the payload rows TRANSPOSED, and d2 without the
-    +|q|^2 shift (argmin-equivalent).
+    outputs are then unspecified).  In the R3 phase the rotation block
+    (columns 0-8) of the phase-B embedding must be zero, as
+    ``models/registration.py`` packs it: the kernel reads only columns
+    9-11 there.  Returns (d2_shifted [B,Nq], matchedT [B,P,Nq]): the
+    payload rows TRANSPOSED, and d2 without the +|q|^2 shift
+    (argmin-equivalent).
     """
     if not feat.is_cuda:
         return nn_match_affine_plain(feat, w, targets, phase)
@@ -119,6 +122,10 @@ def nn_match_affine(feat, w, targets: MatchTargets, phase):
     _check(targets.payload, "targets.payload", (bsz, nt, p), f32, dev)
     _check(targets.n, "targets.n", (bsz,), torch.int32, dev)
     _check(phase, "phase", (bsz, 2), torch.int32, dev)
+    for name, t in (("feat", feat), ("targets.emb", targets.emb)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads it as float4s and "
+                             "needs a 16-byte aligned start")
     lib = _build.load()
     d2 = torch.empty((bsz, nq), dtype=f32, device=dev)
     matched_t = torch.empty((bsz, p, nq), dtype=f32, device=dev)

@@ -1,10 +1,10 @@
 // CPU emulation of the CUDA built-ins that the setup kernels
-// (se3_icp_tpu_torch/csrc/thresholds.cu, moments.cu) and the 1-NN
-// kernels (nn_argmin.cu) use, so that their
-// sources can be compiled with a host C++20 compiler and run against the
-// plain PyTorch versions on a machine without a GPU
+// (se3_icp_tpu_torch/csrc/thresholds.cu, moments.cu), the 1-NN kernels
+// (nn_argmin.cu) and the loop's match kernel (match_affine.cu) use, so
+// that their sources can be compiled with a host C++20 compiler and run
+// against the plain PyTorch versions on a machine without a GPU
 // (tests/test_torch_kernels_emulated.py installs this file as
-// cuda_runtime.h).
+// cuda_runtime.h, and cuda_pipeline_primitives.h includes it).
 //
 // One OS thread per CUDA thread of a block; the blocks of a grid run one
 // after another on the same threads.  __syncthreads is a block-wide
@@ -12,7 +12,10 @@
 // buffer between two warp barriers, __shared__ arrays are function
 // statics (one block at a time uses them).  The explicitly rounded float
 // intrinsics are plain IEEE float operations (compile with
-// -ffp-contract=off); __fsqrt_rn is std::sqrt, correctly rounded.
+// -ffp-contract=off); __fsqrt_rn is std::sqrt, correctly rounded.  The
+// cp.async pipeline calls copy at once: __pipeline_memcpy_async is a
+// memcpy, commit and wait do nothing (the kernels' barriers still order
+// the copies against the reads).
 // Launch geometry, registers and timing are not emulated.
 
 #pragma once
@@ -21,6 +24,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -31,7 +35,7 @@
 #define __shared__ static
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 struct dim3 {
   unsigned x, y, z;
@@ -65,12 +69,43 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
+
+inline void __pipeline_memcpy_async(void* dst, const void* src,
+                                    std::size_t size) {
+  std::memcpy(dst, src, size);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(std::size_t) {}
 
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int lane = threadIdx.x & 31;
   emu_warp.fbuf[lane] = v;
   emu_warp.bar->arrive_and_wait();
   const float r = emu_warp.fbuf[lane ^ o];
+  emu_warp.bar->arrive_and_wait();
+  return r;
+}
+
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int lane = threadIdx.x & 31;
+  emu_warp.fbuf[lane] = v;
+  emu_warp.bar->arrive_and_wait();
+  const float r = emu_warp.fbuf[src & 31];
+  emu_warp.bar->arrive_and_wait();
+  return r;
+}
+
+inline bool __any_sync(unsigned, bool v) {
+  const int lane = threadIdx.x & 31;
+  emu_warp.ibuf[lane] = v ? 1 : 0;
+  emu_warp.bar->arrive_and_wait();
+  bool r = false;
+  for (int i = 0; i < 32; ++i) r = r || emu_warp.ibuf[i] != 0;
   emu_warp.bar->arrive_and_wait();
   return r;
 }

@@ -7,6 +7,8 @@ on-card check at the main path's shapes is ``python3 chip_smoke.py``.
 
 Tolerances as in ``chip_smoke.py``: the match's shifted d2 to 1e-4
 absolute with at most 1% of rows matched to another (near-tied) target;
+at its edges (tiles, phases, done pairs, ties) as in the emulated
+kernel tests, with its R3-phase chain bit-equal to its 12-FMA chain;
 the epilogue's kept count exact, sums to 1e-5 (gicp 1e-4) of the
 largest entry; the setup kernels' thresholds bit-equal, their ball
 counts equal, K2's sums to 1e-5 and K3's to 1e-4 of each row's largest
@@ -19,6 +21,8 @@ the indexed payload rows.
 import numpy as np
 import pytest
 import torch
+
+import torch_kernel_cases as kcases
 
 from se3_icp_tpu_torch.datasets import fixtures
 from se3_icp_tpu_torch.models import registration as reg
@@ -122,6 +126,36 @@ def test_match_kernel_averages_exact_ties(card, n_tied):
     want = np.broadcast_to(pay[0, :n_tied].mean(0), (nq, p))
     np.testing.assert_allclose(m[0].cpu().numpy().T, want, rtol=1e-6)
     np.testing.assert_allclose(m.cpu().numpy(), mp.cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("nq,nt,n_tgt", [
+    (4608, 4608, (4167, 100, 4167)),
+    (4200, 4608, (4167, 77, 4000)),
+], ids=["main-shape", "ragged"])
+def test_match_kernel_at_its_edges(card, nq, nt, n_tgt):
+    """K4 at the main path's width: query counts a whole and not a whole
+    number of blocks, a pair with fewer valid targets than one tile,
+    SE(3)-phase, R3-phase and done pairs in one batch, exact ties of two
+    and three duplicated rows, rows past n_tgt never matched; the R3
+    pair's 3-FMA chain bit-equal to the 12-FMA chain on its targets."""
+    feat, w, targets, phase, same = kcases.match_edge_case(nq, nt, n_tgt,
+                                                          device=card)
+    d2, mt = cuda_knn.nn_match_affine(feat, w, targets, phase)
+    d2_p, mt_p = cuda_knn.nn_match_affine_plain(feat, w, targets, phase)
+    kcases.hold_match(d2, mt, d2_p, mt_p, targets)
+    d2_s, mt_s = cuda_knn.nn_match_affine(feat, w, same,
+                                          torch.zeros_like(phase))
+    assert torch.equal(d2_s[1], d2[1]) and torch.equal(mt_s[1], mt[1])
+
+
+def test_match_kernel_finds_a_tie_across_tiles(card):
+    feat, w, targets, phase = kcases.match_tie_case(device=card)
+    _, mt = cuda_knn.nn_match_affine(feat, w, targets, phase)
+    _, mt_p = cuda_knn.nn_match_affine_plain(feat, w, targets, phase)
+    want = targets.payload[:, [3, 4, 200]].mean(1)
+    torch.testing.assert_close(mt, want[..., None].expand_as(mt),
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(mt, mt_p, rtol=1e-6, atol=1e-6)
 
 
 def test_register_pairs_on_the_card_matches_the_cpu_route(card):
@@ -232,6 +266,18 @@ def test_setup_kernels_match_their_plain_versions(card, n, n_valid, counts):
                                         thr[:, 0], cloud=cloud)
     assert _row_rel(ax[0], ax_p[0]) <= 1e-4
     assert _row_rel(ax[1][:, None], ax_p[1][:, None]) <= 1e-4
+
+
+@pytest.mark.parametrize("counts", [(20,), (90, 31, 30, 20)],
+                         ids=["T1", "T4"])
+def test_thresholds_kernel_at_its_edges(card, counts):
+    """K1 bit-equal to its plain version at width 600 (not a multiple of
+    the 32 queries a block) with n_valid 1, 511 and 513."""
+    points, nv = (x.to(card) for x in kcases.threshold_edge_clouds())
+    cc = torch.tensor([counts] * points.shape[0], device=card)
+    thr = cuda_moments.neighborhood_thresholds_batched(points, nv, cc)
+    thr_p = cuda_moments.neighborhood_thresholds_plain(points, nv, cc)
+    assert bool((thr == thr_p).all())
 
 
 def test_setup_kernels_refuse_what_they_do_not_take(card):

@@ -1,17 +1,22 @@
 """The setup kernels' CUDA sources -- K1 (``csrc/thresholds.cu``), K2
-and K3 (``csrc/moments.cu``) -- and the 1-NN kernels K6-K9
+and K3 (``csrc/moments.cu``) --, the loop's match K4
+(``csrc/match_affine.cu``) and the 1-NN kernels K6-K9
 (``csrc/nn_argmin.cu``) compiled for the CPU against an emulation of the
 CUDA built-ins (``tests/cuda_emulation.h``: one OS thread per CUDA
-thread, barriers for ``__syncthreads`` and the warp shuffles) and called
-through the wrappers' own C signatures, on the wrappers' own prepared
-inputs, against the plain PyTorch versions.
+thread, barriers for ``__syncthreads`` and the warp shuffles, the
+cp.async pipeline as plain copies) and called through the wrappers' own
+C signatures, on the wrappers' own prepared inputs, against the plain
+PyTorch versions.
 
 This checks the kernels' indexing, tiling, bounds, warp reductions and
 arithmetic order where no card is available; what only the card can
 show (that nvcc accepts the source for sm_90a, registers, launch limits,
 time) is ``chip_smoke.py``'s and ``test_torch_gpu_kernels.py``'s.  The
 tolerances are the card's: K1 bit-equal, K2 ball counts equal and sums
-within 1e-5 of each row's largest entry, K3 within 1e-4; K6-K9 d2
+within 1e-5 of each row's largest entry, K3 within 1e-4; K4 d2 within
+1e-4 (the plain version's q = feat @ W is a matrix product), at most 1%
+of rows matched elsewhere, tied rows averaged, its R3-phase chain
+bit-equal to its 12-FMA chain on the same targets; K6-K9 d2
 within 1e-5 of |q|^2 + max |t|^2 (an FMA chain here, a matrix product in
 the plain version), indices equal except between targets within that of
 each other (at most 1% of rows), matched rows copies of the indexed
@@ -28,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_kernel_cases as kcases
 import torch_port_cases as cases
 from se3_icp_tpu_torch.datasets import fixtures
 from se3_icp_tpu_torch.ops import _build, cuda_knn, cuda_nn, lrf
@@ -51,10 +57,13 @@ def emulated(tmp_path_factory):
                     "kernels")
     out = tmp_path_factory.mktemp("emulated_kernels")
     shutil.copy(HERE / "cuda_emulation.h", out / "cuda_runtime.h")
+    (out / "cuda_pipeline_primitives.h").write_text(
+        '#pragma once\n#include "cuda_runtime.h"\n')
     for h in _build.headers():
         shutil.copy(h, out / h.name)
     srcs = []
-    for name in ("thresholds.cu", "moments.cu", "nn_argmin.cu"):
+    for name in ("thresholds.cu", "moments.cu", "nn_argmin.cu",
+                 "match_affine.cu"):
         text, n = _LAUNCH.subn(
             lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, "
                        f"[&] {{ {m.group(1)}({m.group(4)}); }});"),
@@ -70,7 +79,7 @@ def emulated(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     for name in ("se3icp_thresholds", "se3icp_moments", "se3icp_axis",
                  "se3icp_nn_argmin", "se3icp_nn_match",
-                 "se3icp_nn_match_packed"):
+                 "se3icp_nn_match_packed", "se3icp_match_affine"):
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -115,7 +124,12 @@ def _row_rel_err(got, ref, nv):
     (_surface_clouds, (90, 31, 30)),
     (_surface_clouds, (30, 90, 20, 31)),
     (_gaussian_clouds, (20,)),
-], ids=["surface-T3", "surface-T4-unsorted", "gaussian-T1"])
+    # width 600, not a multiple of the 32 queries a block; n_valid 1, 511
+    # and 513: one point, one short of a 512-target tile, one past it
+    (kcases.threshold_edge_clouds, (20,)),
+    (kcases.threshold_edge_clouds, (90, 31, 30, 20)),
+], ids=["surface-T3", "surface-T4-unsorted", "gaussian-T1", "edges-T1",
+        "edges-T4"])
 def test_emulated_thresholds_kernel_is_bit_equal_to_plain(emulated, clouds,
                                                           counts):
     points, nv = clouds()
@@ -227,3 +241,50 @@ def test_emulated_packed_match_kernel_matches_plain(emulated):
     idx_p, d2_p, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
     _nn_hold(q, torch.stack([t_b[0], t_a[1]]), n, idx, d2, idx_p, d2_p)
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+
+
+# --------------------------------------------------------------- K4
+
+def _k4(lib, feat, w, targets, phase):
+    bsz, nq, _ = feat.shape
+    nt, p = targets.payload.shape[1:]
+    d2 = torch.full((bsz, nq), float("nan"))
+    mt = torch.full((bsz, p, nq), float("nan"))
+    assert lib.se3icp_match_affine(
+        feat.data_ptr(), w.data_ptr(), targets.emb.data_ptr(),
+        targets.tn.data_ptr(), targets.payload.data_ptr(),
+        targets.n.data_ptr(), phase.data_ptr(), d2.data_ptr(),
+        mt.data_ptr(), bsz, nq, nt, p, None) == 0
+    return d2, mt
+
+
+@pytest.mark.parametrize("n_tgt", [(333, 77, 300), (128, 300, 200)],
+                         ids=["ragged-tiles", "whole-tile"])
+def test_emulated_match_kernel_matches_plain(emulated, n_tgt):
+    """300 queries (not a multiple of the 256 a block) against 360 target
+    rows: 333 valid (ragged last tile), 77 (less than one tile of 128),
+    128 (one whole tile); SE(3)-phase, R3-phase and done pairs in one
+    batch; exact ties of two and three duplicated rows; the rows past
+    n_tgt never matched."""
+    feat, w, targets, phase, same = kcases.match_edge_case(300, 360, n_tgt)
+    d2, mt = _k4(emulated, feat, w, targets, phase)
+    d2_p, mt_p = cuda_knn.nn_match_affine_plain(feat, w, targets, phase)
+    kcases.hold_match(d2, mt, d2_p, mt_p, targets)
+    # the done pair returned at once: its outputs were not written
+    assert bool(d2[2].isnan().all() and mt[2].isnan().all())
+    # the R3 pair's 3-FMA chain gives the bits of the 12-FMA chain that
+    # the SE(3) path runs on the same (zero-rotation) targets
+    d2_s, mt_s = _k4(emulated, feat, w, same, torch.zeros_like(phase))
+    assert torch.equal(d2_s[1], d2[1]) and torch.equal(mt_s[1], mt[1])
+
+
+def test_emulated_match_kernel_finds_a_tie_across_tiles(emulated):
+    """Every query one point, three targets exactly there in two tiles:
+    the mean of the three rows, the same as the plain version's."""
+    feat, w, targets, phase = kcases.match_tie_case()
+    _, mt = _k4(emulated, feat, w, targets, phase)
+    _, mt_p = cuda_knn.nn_match_affine_plain(feat, w, targets, phase)
+    want = targets.payload[:, [3, 4, 200]].mean(1)            # [2,P]
+    torch.testing.assert_close(mt, want[..., None].expand_as(mt),
+                               rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(mt, mt_p, rtol=1e-6, atol=1e-6)

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Per-pair results and wall times of the port's main path and its
+multistart fleet, for holding two checkouts against each other on one
+card.
+
+    python3 tools/path_digest.py [--root DIR] --out FILE.npz [--reps N]
+    python3 tools/path_digest.py --compare A.npz B.npz
+
+The first form imports ``se3_icp_tpu_torch`` from ``--root`` (default:
+the checkout this script lies in) and runs, as ``chip_smoke.py`` does,
+the main path (``register_pairs``: 64 golden-shape pairs, ``se3_pt2pl``,
+``GOLDEN``, threshold route) and the multistart fleet
+(``register_pairs_multistart``: 8 pairs x 8 starts under
+``FLIPPED_POSE``), each once to warm up and then ``--reps`` times.  It
+saves every pair's iteration count and transform (of the last call),
+the kept starts and the wall time of every timed call (host clock
+around work that ends in a synchronize), and prints one JSON line with
+the medians.  The second form prints whether two such files hold the
+same iteration counts and the same transform bits.  Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run(root: str, out: str, reps: int) -> None:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("path_digest: no CUDA device")
+    from se3_icp_tpu_torch.datasets import fixtures
+    from se3_icp_tpu_torch.models import multistart
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    main = [fixtures.golden_shape_problem(seed=s) for s in range(1, 65)]
+    main_list = [(p.source, p.target) for p in main]
+    flip = [fixtures.golden_shape_problem(seed=s, **fixtures.FLIPPED_POSE)
+            for s in range(1, 9)]
+    flip_list = [(p.source, p.target) for p in flip]
+    main_fn = lambda: pairs.register_pairs(main_list, "se3_pt2pl", GOLDEN)
+    ms_fn = lambda: multistart.register_pairs_multistart(
+        flip_list, "se3_pt2pl", GOLDEN, n_starts=8, pair_chunk=8)
+    main_fn()
+    ms_fn()
+    main_s, ms_s = [], []
+    for _ in range(reps):          # in turns: the host clock drifts
+        main_res, t = timed(main_fn)
+        main_s.append(t)
+        ms_res, t = timed(ms_fn)
+        ms_s.append(t)
+    np.savez(out,
+             main_iterations=np.asarray([r.num_iterations for r in main_res]),
+             main_transforms=np.stack([r.transformation for r in main_res]),
+             ms_kept_starts=np.asarray([r.start_index for r in ms_res]),
+             ms_iterations=np.asarray([r.best.num_iterations
+                                       for r in ms_res]),
+             ms_transforms=np.stack([r.best.transformation
+                                     for r in ms_res]),
+             main_seconds=np.asarray(main_s), ms_seconds=np.asarray(ms_s))
+    print(json.dumps({
+        "phase": "path_digest", "root": os.path.abspath(root),
+        "device": torch.cuda.get_device_name(0),
+        "main_path_seconds": main_s,
+        "main_path_median_seconds": statistics.median(main_s),
+        "main_path_pairs_per_s": 64 / statistics.median(main_s),
+        "multistart_seconds": ms_s,
+        "multistart_median_seconds": statistics.median(ms_s),
+        "multistart_pairs_per_s": 8 / statistics.median(ms_s)}),
+        flush=True)
+
+
+def compare(a: str, b: str) -> bool:
+    with np.load(a) as x, np.load(b) as y:
+        same = {k: bool(np.array_equal(x[k], y[k]))
+                for k in ("main_iterations", "main_transforms",
+                          "ms_kept_starts", "ms_iterations", "ms_transforms")}
+        worst = float(np.abs(x["main_transforms"]
+                             - y["main_transforms"]).max())
+    print(json.dumps({"phase": "path_digest_compare", "a": a, "b": b,
+                      "equal": same,
+                      "main_transform_max_abs_diff": worst}), flush=True)
+    return all(same.values())
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--out")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    args = ap.parse_args()
+    if args.compare:
+        return 0 if compare(*args.compare) else 1
+    if not args.out:
+        ap.error("--out is required without --compare")
+    run(args.root, args.out, args.reps)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
