@@ -7,16 +7,19 @@ for an H100, sm_90a) and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``se3_icp_tpu_torch/csrc`` (printing
-ptxas's registers, spills and shared memory of K4 and K1 on a ``ptxas``
-line), holds each kernel against its plain PyTorch version on the card
-at the main path's shapes (64 pairs, 4608-point bucket): the setup
-kernels K1-K3 of the sort-free threshold route and the loop kernels K4
-(also at the KITTI bucket, 8 x 15360, and with its R3-phase chain held
-bit for bit against its 12-FMA chain), K5.  It then drives
-the main path through the public entry points (``register_pairs`` with
-``se3_pt2pl`` / ``GOLDEN`` on 64 seed-made golden-shape pairs, on the
-default threshold route and again with ``exact_knn=True``), then
-smaller batches of the other algorithms, then the CLI as a subprocess.
+ptxas's registers, spills and shared memory of K4, K1, K2 and K3 on a
+``ptxas`` line), holds each kernel against its plain PyTorch version on
+the card at the main path's shapes (64 pairs, 4608-point bucket): the
+setup kernels K1-K3 of the sort-free threshold route (K2 and K3 also bit
+for bit between the spatial query order and the index order, K2's
+one-ball instance against its three-ball block, both also at the KITTI
+bucket, 8 x 15360) and the loop kernels K4 (also at 8 x 15360, and with
+its R3-phase chain held bit for bit against its 12-FMA chain), K5. It
+then drives the main path through the public entry points
+(``register_pairs`` with ``se3_pt2pl`` / ``GOLDEN`` on 64 seed-made
+golden-shape pairs, on the default threshold route and again with
+``exact_knn=True``), then smaller batches of the other algorithms, then
+the CLI as a subprocess.
 Then the paths of the 1-NN kernels K6-K9: the multistart restart fleet
 (8 pairs x 8 starts), FGR + FPFH through ``register_pairs(..., "fgr")``
 (64 pairs), the metrics on the main path's results, the public 1-NN
@@ -33,6 +36,7 @@ one main-path call and of one multistart call.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -166,13 +170,19 @@ def build_phase() -> None:
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          sources=[os.path.relpath(s, ROOT) for s in _build.sources()],
          library=os.path.relpath(lib_path, ROOT))
-    # K4, and K1's instances by the number of counts T (template argument)
+    # K4, K1's instances by the number of counts T and K2's by the number
+    # of balls (template arguments), K3
     res = ptxas_resources(log.getvalue())
     emit("ptxas", nn_match_affine={k: v for k, v in res.items()
                                    if "match_affine_kernel" in k},
          neighborhood_thresholds_batched={
              f"T={k.split('thresholds_kernelILi')[1][0]}": v
-             for k, v in res.items() if "thresholds_kernelILi" in k})
+             for k, v in res.items() if "thresholds_kernelILi" in k},
+         moments_batched={
+             f"balls={k.split('moments_kernelILi')[1][0]}": v
+             for k, v in res.items() if "moments_kernelILi" in k},
+         axis_sums_batched={k: v for k, v in res.items()
+                            if "axis_kernel" in k})
 
 
 def golden_pairs(n_pairs, **kw):
@@ -431,9 +441,58 @@ def k1_case(name, points, nv, counts, with_topk=False):
     return case, thr
 
 
+def index_order(cloud):
+    """A copy of the cloud with K2's and K3's query order set to the row
+    order."""
+    bsz, _, n = cloud.pts_t.shape
+    other = copy.copy(cloud)
+    other.order = torch.arange(n, dtype=torch.int32,
+                               device=cloud.order.device).repeat(bsz, 1)
+    return other
+
+
+def query_order_case(points, nv, reps=7):
+    """Host and device time of K2's and K3's query order
+    (``cuda_moments._morton_order``) on one cloud batch.  A sleep kernel
+    holds the stream while the host enqueues the order's launches, so the
+    host time is the enqueueing alone and the events around the launches
+    time their run back to back on the card."""
+    from se3_icp_tpu_torch.ops import cuda_moments as cm
+    cloud = cm.setup_cloud(points, nv)
+    fn = lambda: cm._morton_order(cloud.pts_t, cloud.n)
+    check(torch.equal(fn(), cloud.order), "query order not reproducible")
+    host, dev = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+        b.record()
+        torch.cuda.synchronize()
+        dev.append(a.elapsed_time(b))
+    return dict(shape=dict(B=points.shape[0], N=points.shape[1]),
+                host_ms=statistics.median(host),
+                device_ms=statistics.median(dev))
+
+
+def same_bits(a, b) -> bool:
+    """Two results (tensors, tuples or dicts of tensors) hold the same
+    bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, tuple):
+        return all(same_bits(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
 def k2_case(name, points, nv, thr3):
     """K2 against its plain version: equal ball counts, sums within
-    K2_REL_TOL of each row's largest entry.  Returns (case, moments)."""
+    K2_REL_TOL of each row's largest entry; the same bits in the index
+    order as in the spatial order, and the one-ball instance equal to
+    its ball's block of the three-ball one.  Returns (case, moments)."""
     from se3_icp_tpu_torch.ops import cuda_moments as cm
     cloud = cm.setup_cloud(points, nv)
     args = (points, nv, *thr3)
@@ -448,26 +507,42 @@ def k2_case(name, points, nv, thr3):
     rel = max(errs.values())
     check(rel <= K2_REL_TOL,
           f"{name}: sums differ by {rel:.2e} > {K2_REL_TOL:.0e}")
+    by_index = index_order(cloud)
+    check(same_bits(cm.moments_batched(*args, cloud=by_index), mom),
+          f"{name}: other bits in the index order")
+    one = (points, nv, thr3[1])
+    check(same_bits(cm.moments_one_ball(*one, cloud=cloud),
+                    cm.moments_batched(*one, thr3[1], thr3[1], cloud=cloud)),
+          f"{name}: the one-ball instance differs from its block")
     ms_k = time_ms(lambda: cm.moments_batched(*args, cloud=cloud))
+    ms_idx = time_ms(lambda: cm.moments_batched(*args, cloud=by_index))
+    ms_one = time_ms(lambda: cm.moments_one_ball(*one, cloud=cloud))
     ms_p = time_ms(lambda: cm.moments_plain(*args, cloud=cloud), reps=3)
     bsz, n, _ = points.shape
     nvd = nv.double()
     valid = torch.arange(n, device=nv.device)[None, :] < nv[:, None]
-    members = sum(float(((mom[k] + 1.0) * valid).sum())
-                  for k in ("cen_cnt", "cov_cnt", "all_cnt"))
-    # distance (7) and three compares per (valid query, valid target);
-    # six products and ten adds per member and ball
-    ops = 10 * float((nvd * nvd).sum()) + 16 * members
+    cnt = [(mom[k] + 1.0) * valid for k in ("cen_cnt", "cov_cnt", "all_cnt")]
+    members = sum(float(c.sum()) for c in cnt)
+    widest = float(torch.maximum(torch.maximum(cnt[0], cnt[1]), cnt[2]).sum())
+    # per (valid query, valid target) the distance (7) and a compare with
+    # the largest threshold; per member of the widest ball six products
+    # and three compares, per member and ball ten adds.  None is an FMA
+    ops = 8 * float((nvd * nvd).sum()) + 9 * widest + 10 * members
     return dict(name=name, max_abs_err=rel, max_rel_err=errs,
-                counts_equal=True, tolerance=K2_REL_TOL, ms=ms_k,
-                plain_ms=ms_p, **bound(ops, 4 * bsz * n * (4 + 3 + 30)),
+                counts_equal=True, tolerance=K2_REL_TOL,
+                index_order_bits_equal=True, one_ball_bits_equal=True,
+                ms=ms_k, ms_index_order=ms_idx, ms_one_ball=ms_one,
+                plain_ms=ms_p,
+                **bound(ops, 4 * bsz * n * (4 + 1 + 3 + 30),
+                        op_rate=PEAK_F32_OPS_NO_FMA),
                 library_ms=None, members_per_query=members / float(
                     nvd.sum()), shape=dict(B=bsz, N=n)), mom
 
 
 def k3_case(name, points, nv, thr_k, mom):
     """K3 against its plain version at the main path's inputs (the TOLDI
-    normals of the moments)."""
+    normals of the moments); the same bits in the index order as in the
+    spatial order."""
     from se3_icp_tpu_torch.ops import cuda_moments as cm, lrf
     cloud = cm.setup_cloud(points, nv)
     normal_t, ndotq, radius = lrf.toldi_axis_inputs(mom, thr_k, 30)
@@ -480,17 +555,25 @@ def k3_case(name, points, nv, thr_k, mom):
     rel = max(row_rel_err(w_p, pw_p, nv), row_rel_err(w_sum, pw_sum, nv))
     check(rel <= K3_REL_TOL,
           f"{name}: sums differ by {rel:.2e} > {K3_REL_TOL:.0e}")
+    by_index = index_order(cloud)
+    check(same_bits(cm.axis_sums_batched(*args, cloud=by_index),
+                    (w_p, w_sum)), f"{name}: other bits in the index order")
     ms_k = time_ms(lambda: cm.axis_sums_batched(*args, cloud=cloud))
+    ms_idx = time_ms(lambda: cm.axis_sums_batched(*args, cloud=by_index))
     ms_p = time_ms(lambda: cm.axis_sums_plain(*args, cloud=cloud), reps=3)
     bsz, n, _ = points.shape
     nvd = nv.double()
     valid = torch.arange(n, device=nv.device)[None, :] < nv[:, None]
     members = float(((mom["all_cnt"] + 1.0) * valid).sum())
     # distance (7) and a compare per (valid query, valid target); ~20
-    # operations per member (sqrt, n.t, weight, three FMAs and an add)
+    # operations per member (sqrt, n.t, weight, three FMAs and an add).
+    # None of the per-target ones is an FMA
     ops = 8 * float((nvd * nvd).sum()) + 20 * members
-    return dict(name=name, max_abs_err=rel, tolerance=K3_REL_TOL, ms=ms_k,
-                plain_ms=ms_p, **bound(ops, 4 * bsz * n * (4 + 6 + 4)),
+    return dict(name=name, max_abs_err=rel, tolerance=K3_REL_TOL,
+                index_order_bits_equal=True, ms=ms_k,
+                ms_index_order=ms_idx, plain_ms=ms_p,
+                **bound(ops, 4 * bsz * n * (4 + 1 + 6 + 4),
+                        op_rate=PEAK_F32_OPS_NO_FMA),
                 library_ms=None, members_per_query=members / float(
                     nvd.sum()), shape=dict(B=bsz, N=n))
 
@@ -499,10 +582,15 @@ def setup_kernels_phase():
     """K1-K3 against their plain versions on the main path's clouds (both
     sides of 64 golden-shape pairs, 4167 of 4608 rows valid) with the
     main path's counts {90, 31, 30}; then K1 with GICP's count set and
-    with n_valid varying over the batch."""
+    with n_valid varying over the batch, and K2, K3 on the sources of 8
+    pairs in the KITTI bucket (8 x 15360).  Emits the time of K2's and
+    K3's query order on the sources at both shapes."""
+    from se3_icp_tpu_torch.ops import cuda_moments as cm
     problems = golden_pairs(N_PAIRS)
-    k1, k2, k3 = [], [], []
+    k1, k2, k3, order = [], [], [], []
     for side, (pts, nv) in zip(("", "[target]"), setup_clouds(problems)):
+        if not side:
+            order.append(query_order_case(pts, nv))
         case, thr = k1_case(f"neighborhood_thresholds_batched{side}", pts,
                             nv, (90, 31, 30), with_topk=True)
         k1.append(case)
@@ -522,6 +610,17 @@ def setup_kernels_phase():
                 pts, nv_mixed, (90, 31, 30))[0])
         del thr, mom
         torch.cuda.empty_cache()
+    (pts, nv), _ = setup_clouds(golden_pairs(SMALL_BATCH, n=15000))
+    order.append(query_order_case(pts, nv))
+    emit("query_order", cases=order)
+    cc = torch.tensor([90, 31, 30], dtype=torch.int32,
+                      device=pts.device).expand(pts.shape[0], -1)
+    thr = cm.neighborhood_thresholds_batched(pts, nv, cc)
+    shape = f"[{pts.shape[0]}x{pts.shape[1]}]"
+    case, mom = k2_case(f"moments_batched{shape}", pts, nv,
+                        (thr[:, 2], thr[:, 1], thr[:, 0]))
+    k2.append(case)
+    k3.append(k3_case(f"axis_sums_batched{shape}", pts, nv, thr[:, 0], mom))
     return k1, k2, k3
 
 

@@ -18,15 +18,21 @@ turns these sums into frames, normals and covariances is in
 operands (``pack_cloud_batched``): component-major float32 positions,
 |p|^2 and the valid count, built once per cloud and handed to all three
 kernels.  The limb packs and the poisoned padding do not survive:
-kernels and plain versions skip rows >= n_valid.
+kernels and plain versions skip rows >= n_valid.  It adds a spatial
+query order for K2 and K3 (a Z-order sort of the valid rows): a warp of
+neighbouring queries shares most of its balls' members, so the warp's
+member branch runs in few of its steps.  No result depends on the
+order: each query's sums run over its members in target-index order.
 
 Distances are r = |t|^2 - 2 q.t with q.t = (qx tx + qy ty) + qz tz and
 |t|^2 = (x x + y y) + z z, every step rounded on its own, in the kernels
 (``csrc/dist.cuh``) and in the plain versions alike; so are K1's probe
-values and K3's weights (square roots correctly rounded on both sides).  K1's thresholds and the balls' member counts are therefore the
-same bits on the card and in the plain versions; the float sums of
-K2/K3 differ only in their order.  The kernels work in float32 whatever
-the caller's dtype, as the JAX package's do.
+values and K3's weights (square roots correctly rounded on both sides).
+K1's thresholds and the balls' member counts are therefore the same
+bits on the card and in the plain versions; the float sums of K2/K3
+differ only in their order (the plain versions' are matrix products).
+The kernels work in float32 whatever the caller's dtype, as the JAX
+package's do.
 
 Each wrapper launches its CUDA kernel for tensors on the card and
 raises if it cannot; it takes the plain version only for CPU tensors.
@@ -35,7 +41,7 @@ Each ``*_plain`` twin has the wrapper's arguments and results.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
@@ -48,17 +54,45 @@ THR_PLAN = (16, 9, 6)    # K1 probes per descending-sorted count, then 8
 MAX_COUNTS = 8           # counts per K1 call
 _INIT = 3.0e38           # K1 candidate initial value
 _SUMS = 10               # K2 sums per ball: x y z | xx xy xz yy yz zz | 1
-# K2's six distinct products -> the nine of p p^T (row 3 i + j = p_j p_i)
-_P9 = (3, 4, 5, 4, 6, 7, 5, 7, 8)
 _CHUNK_BYTES = 400_000_000   # one [B, chunk, N] block of the plain versions
 
 
 @dataclass
 class SetupCloud:
-    """The per-cloud operands every setup kernel reads."""
+    """The per-cloud operands every setup kernel reads.  ``order`` is
+    built from the others, never passed in: K2 and K3 take it for a
+    permutation of each pair's rows."""
     pts_t: torch.Tensor     # [B,3,N] float32 positions, component-major
     tn: torch.Tensor        # [B,N]   float32 |p|^2
     n: torch.Tensor         # [B]     int32 valid rows
+    order: torch.Tensor = field(init=False, repr=False)   # [B,N] int32
+
+    def __post_init__(self):
+        self.order = _morton_order(self.pts_t, self.n).contiguous()
+
+
+def _spread3(v: torch.Tensor) -> torch.Tensor:
+    """The 10 low bits of v moved to every third bit (Z-order)."""
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    return (v | (v << 2)) & 0x09249249
+
+
+def _morton_order(pts_t: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """[B,N] int32: each pair's valid rows sorted (stably) by the Z-order
+    code of 10 bits an axis over their own bounding box, then the padded
+    rows in index order."""
+    valid = (torch.arange(pts_t.shape[2], device=pts_t.device)[None, :]
+             < n[:, None])[:, None, :]                        # [B,1,N]
+    lo = torch.where(valid, pts_t, float("inf")).amin(2, keepdim=True)
+    hi = torch.where(valid, pts_t, float("-inf")).amax(2, keepdim=True)
+    scale = 1023.0 / torch.clamp_min(hi - lo, 1e-30)
+    cell = torch.where(valid, (pts_t - lo) * scale, 0.0).clamp(0.0, 1023.0)
+    v = _spread3(cell.to(torch.int32))                        # [B,3,N]
+    key = torch.where(valid[:, 0], v[:, 0] | (v[:, 1] << 1) | (v[:, 2] << 2),
+                      1 << 30)
+    return torch.argsort(key, dim=1, stable=True).to(torch.int32)
 
 
 def setup_cloud(points: torch.Tensor, n_valid: torch.Tensor) -> SetupCloud:
@@ -112,6 +146,7 @@ def _check_cloud(cloud: SetupCloud):
     _check(cloud.pts_t, "cloud.pts_t", (bsz, 3, n), f32, dev)
     _check(cloud.tn, "cloud.tn", (bsz, n), f32, dev)
     _check(cloud.n, "cloud.n", (bsz,), torch.int32, dev)
+    _check(cloud.order, "cloud.order", (bsz, n), torch.int32, dev)
     return bsz, n, dev
 
 
@@ -261,56 +296,66 @@ neighborhood_thresholds_batched.launches = 0
 # ---------------------------------------------------------------- K2
 
 def _moments_raw_plain(cloud, thr_s):
-    """[B,30,N]: per ball m, rows 10 m .. 10 m + 9 = sums of x y z, xx
-    xy xz yy yz zz, 1 over the valid targets with r <= thr_s[:, m]
-    (self included)."""
-    bsz, _, n = cloud.pts_t.shape
+    """[B,10 M,N] for thr_s [B,M,N]: per ball m, rows 10 m .. 10 m + 9 =
+    sums of x y z, xx xy xz yy yz zz, 1 over the valid targets with
+    r <= thr_s[:, m] (self included)."""
+    bsz, balls, n = thr_s.shape
     valid = _valid_cols(cloud)
     x, y, z = cloud.pts_t.unbind(1)
     feat = torch.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z,
                         torch.ones_like(x)], -1)              # [B,N,10]
-    out = torch.empty((bsz, 3, _SUMS, n), dtype=torch.float32,
+    out = torch.empty((bsz, balls, _SUMS, n), dtype=torch.float32,
                       device=cloud.pts_t.device)
     chunk = _chunk(cloud)
     for s in range(0, n, chunk):
         e = min(n, s + chunk)
         r = _shifted_d2(cloud, s, e)
-        for m in range(3):
+        for m in range(balls):
             mask = (r <= thr_s[:, m, s:e, None]) & valid[:, None, :]
             out[:, m, :, s:e] = (mask.to(torch.float32) @ feat).mT
-    return out.view(bsz, 3 * _SUMS, n)
+    return out.view(bsz, balls * _SUMS, n)
 
 
-def _moments_inputs(points, n_valid, thr_cen, thr_cov, thr_all, cloud):
+def _moments_inputs(points, n_valid, thrs, cloud):
+    """The cloud and the shifted thresholds [B,M,N] of the M balls whose
+    thresholds [B,N] are ``thrs``."""
     cloud = _cloud(points, n_valid, cloud)
-    thr = torch.stack([thr_cen, thr_cov, thr_all], 1).to(torch.float32)
+    thr = torch.stack(thrs, 1).to(torch.float32)
     return cloud, (thr - cloud.tn[:, None, :]).contiguous()
 
 
 def _moments_dict(raw, points):
     """Component-major sums with the self term removed, the keys of the
-    JAX package's ``moments_batched``, in the caller's dtype."""
-    bsz, _, n = raw.shape
-    raw = raw.to(points.dtype).view(bsz, 3, _SUMS, n)
+    JAX package's ``moments_batched``, in the caller's dtype; a one-ball
+    ``raw`` serves all three balls."""
+    bsz, rows, n = raw.shape
     q_t = points.mT                                           # [B,3,N]
-    p9self = torch.cat([q_t * q_t[:, i:i + 1] for i in range(3)], 1)
+    x, y, z = q_t[:, 0:1], q_t[:, 1:2], q_t[:, 2:3]
+    # slices and concatenations only: indexing a card tensor with a list
+    # copies the list to the card and waits for the kernel before it
+    self10 = torch.cat([q_t, x * q_t, y * q_t[:, 1:], z * z,
+                        torch.ones_like(x)], 1)               # [B,10,N]
+    d = (raw.to(points.dtype).view(bsz, rows // _SUMS, _SUMS, n)
+         - self10[:, None])
 
     def block(m):
-        s = raw[:, m]
-        return s[:, :3], s[:, list(_P9)], s[:, 9]
-    cen_p, cen_p9, cen_c = block(0)
-    cov_p, cov_p9, cov_c = block(1)
-    all_p, _, all_c = block(2)
-    return dict(
-        cen_sum=cen_p - q_t, cen_cnt=cen_c - 1.0, cen_p9=cen_p9 - p9self,
-        cov_sum=cov_p - q_t, cov_p9=cov_p9 - p9self, cov_cnt=cov_c - 1.0,
-        all_sum=all_p - q_t, all_cnt=all_c - 1.0, q_t=q_t)
+        s = d[:, min(m, d.shape[1] - 1)]
+        # the nine of p p^T (row 3 i + j = p_j p_i) from xx xy xz yy yz zz
+        p9 = torch.cat([s[:, 3:6], s[:, 4:5], s[:, 6:8], s[:, 5:6],
+                        s[:, 7:9]], 1)
+        return s[:, :3], p9, s[:, 9]
+    cen_sum, cen_p9, cen_cnt = block(0)
+    cov_sum, cov_p9, cov_cnt = block(1)
+    all_sum, _, all_cnt = block(2)
+    return dict(cen_sum=cen_sum, cen_cnt=cen_cnt, cen_p9=cen_p9,
+                cov_sum=cov_sum, cov_p9=cov_p9, cov_cnt=cov_cnt,
+                all_sum=all_sum, all_cnt=all_cnt, q_t=q_t)
 
 
 def moments_plain(points, n_valid, thr_cen, thr_cov, thr_all, cloud=None):
     """Plain PyTorch version of ``moments_batched``."""
-    cloud, thr_s = _moments_inputs(points, n_valid, thr_cen, thr_cov,
-                                   thr_all, cloud)
+    cloud, thr_s = _moments_inputs(points, n_valid,
+                                   (thr_cen, thr_cov, thr_all), cloud)
     return _moments_dict(_moments_raw_plain(cloud, thr_s), points)
 
 
@@ -326,18 +371,33 @@ def moments_batched(points, n_valid, thr_cen, thr_cov, thr_all,
     cov_p9 [B,9,N], cen_cnt/cov_cnt/all_cnt [B,N], and q_t [B,3,N] (the
     query positions transposed).
     """
-    cloud, thr_s = _moments_inputs(points, n_valid, thr_cen, thr_cov,
-                                   thr_all, cloud)
+    return _moments(points, n_valid, (thr_cen, thr_cov, thr_all), cloud)
+
+
+def moments_one_ball(points, n_valid, thr, cloud=None):
+    """``moments_batched(points, n_valid, thr, thr, thr, cloud)`` with
+    the one ball summed once (K2's one-ball instance): the same dict,
+    the same bits.  Its launches count in ``moments_batched.launches``.
+    """
+    return _moments(points, n_valid, (thr,), cloud)
+
+
+def _moments(points, n_valid, thrs, cloud):
+    """K2 over the balls of ``thrs`` (three, or one serving all three)."""
+    cloud, thr_s = _moments_inputs(points, n_valid, thrs, cloud)
     if not cloud.pts_t.is_cuda:
         return _moments_dict(_moments_raw_plain(cloud, thr_s), points)
     bsz, n, dev = _check_cloud(cloud)
-    _check(thr_s, "thresholds", (bsz, 3, n), torch.float32, dev)
+    balls = thr_s.shape[1]
+    _check(thr_s, "thresholds", (bsz, balls, n), torch.float32, dev)
     lib = _build.load()
-    raw = torch.empty((bsz, 3 * _SUMS, n), dtype=torch.float32, device=dev)
+    raw = torch.empty((bsz, balls * _SUMS, n), dtype=torch.float32,
+                      device=dev)
     with torch.cuda.device(dev):
         code = lib.se3icp_moments(
             cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
-            thr_s.data_ptr(), raw.data_ptr(), bsz, n, _stream(dev))
+            cloud.order.data_ptr(), thr_s.data_ptr(), raw.data_ptr(), bsz,
+            n, balls, _stream(dev))
     _build.check(code, "moments_batched")
     moments_batched.launches += 1
     return _moments_dict(raw, points)
@@ -411,8 +471,8 @@ def axis_sums_batched(points, n_valid, normal_t, ndotq, radius, thr_all,
     with torch.cuda.device(dev):
         code = lib.se3icp_axis(
             cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
-            nrm.data_ptr(), aux.data_ptr(), out.data_ptr(), bsz, n,
-            _stream(dev))
+            cloud.order.data_ptr(), nrm.data_ptr(), aux.data_ptr(),
+            out.data_ptr(), bsz, n, _stream(dev))
     _build.check(code, "axis_sums_batched")
     axis_sums_batched.launches += 1
     return out[:, :3], out[:, 3]

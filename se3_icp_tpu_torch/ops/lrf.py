@@ -301,8 +301,7 @@ def normals_thr_t(points, thr, k_use: int, n_valid,
     """PCA normals [B,3,N] from one threshold per query: the ball of the
     self-inclusive count ``k_use`` (the mean still divides by k_use, as
     ``normals_dense``)."""
-    mom = cuda_moments.moments_batched(points, n_valid, thr, thr, thr,
-                                       cloud=cloud)
+    mom = cuda_moments.moments_one_ball(points, n_valid, thr, cloud=cloud)
     return _pca_normal_t(mom, k_use, "cov")
 
 

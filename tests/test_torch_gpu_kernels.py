@@ -18,6 +18,8 @@ within that of each other (at most 1% of rows), matched rows copies of
 the indexed payload rows.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -229,7 +231,8 @@ def _row_rel(got, ref):
 ])
 def test_setup_kernels_match_their_plain_versions(card, n, n_valid, counts):
     """K1 bit-equal to its plain version (same rounding steps); K2's ball
-    counts equal and its sums, K3's sums within tolerance.  N = 15360 is
+    counts equal and its sums, K3's sums within tolerance; K2 and K3 the
+    same bits in the index order as in the spatial order.  N = 15360 is
     the KITTI bucket: K1 streams 30 target tiles, and K3's balls are
     larger in absolute terms."""
     probs = [fixtures.golden_shape_problem(seed=s + 1, n=v)
@@ -256,6 +259,12 @@ def test_setup_kernels_match_their_plain_versions(card, n, n_valid, counts):
         assert bool((mom[key] == mom_p[key]).all()), key
     for key in ("cen_sum", "cen_p9", "cov_sum", "cov_p9", "all_sum"):
         assert _row_rel(mom[key], mom_p[key]) <= 1e-5, key
+    by_index = copy.copy(cloud)
+    by_index.order = torch.arange(n, dtype=torch.int32,
+                                  device=card).repeat(len(probs), 1)
+    mom_i = cuda_moments.moments_batched(*args, cloud=by_index)
+    for key in mom:
+        assert torch.equal(mom_i[key], mom[key]), key
 
     nrm = torch.nn.functional.normalize(mom["cov_sum"], dim=1)
     ndotq = (nrm * mom["q_t"]).sum(1)
@@ -266,6 +275,9 @@ def test_setup_kernels_match_their_plain_versions(card, n, n_valid, counts):
                                         thr[:, 0], cloud=cloud)
     assert _row_rel(ax[0], ax_p[0]) <= 1e-4
     assert _row_rel(ax[1][:, None], ax_p[1][:, None]) <= 1e-4
+    ax_i = cuda_moments.axis_sums_batched(pts_d, nv, nrm, ndotq, radius,
+                                          thr[:, 0], cloud=by_index)
+    assert torch.equal(ax_i[0], ax[0]) and torch.equal(ax_i[1], ax[1])
 
 
 @pytest.mark.parametrize("counts", [(20,), (90, 31, 30, 20)],

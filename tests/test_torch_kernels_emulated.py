@@ -23,6 +23,7 @@ each other (at most 1% of rows), matched rows copies of the indexed
 payload rows.  Needs a host C++20 compiler (``g++``).
 """
 
+import copy
 import ctypes
 import pathlib
 import re
@@ -140,33 +141,169 @@ def test_emulated_thresholds_kernel_is_bit_equal_to_plain(emulated, clouds,
     assert int((got != want).sum()) == 0
 
 
+def _k2(lib, cloud, thr_s):
+    """The emulated K2 on thr_s [B,M,N] (M = 1 or 3) -> raw [B,10 M,N]."""
+    bsz, balls, n = thr_s.shape
+    raw = torch.full((bsz, 10 * balls, n), float("nan"))
+    assert lib.se3icp_moments(
+        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+        cloud.order.data_ptr(), thr_s.data_ptr(), raw.data_ptr(), bsz, n,
+        balls, None) == 0
+    return raw
+
+
+def _k3(lib, cloud, nrm, aux):
+    bsz, _, n = nrm.shape
+    out = torch.full((bsz, 4, n), float("nan"))
+    assert lib.se3icp_axis(
+        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+        cloud.order.data_ptr(), nrm.data_ptr(), aux.data_ptr(),
+        out.data_ptr(), bsz, n, None) == 0
+    return out
+
+
+def _setup_inputs(points, nv):
+    """The main path's K2 and K3 inputs on a cloud: thresholds of the
+    counts (90, 31, 30) from K1's plain version, K2's shifted thresholds
+    (balls 30, 31, 90), and K3's normals and aux rows from K2's plain
+    sums."""
+    thr = cm.neighborhood_thresholds_plain(
+        points, nv, torch.tensor([[90, 31, 30]] * points.shape[0]))
+    cloud, thr_s = cm._moments_inputs(
+        points, nv, (thr[:, 2], thr[:, 1], thr[:, 0]), None)
+    mom = cm._moments_dict(cm._moments_raw_plain(cloud, thr_s), points)
+    normal_t, ndotq, radius = lrf.toldi_axis_inputs(mom, thr[:, 0], 30)
+    _, nrm, aux = cm._axis_inputs(points, nv, normal_t, ndotq, radius,
+                                  thr[:, 0], cloud)
+    return cloud, thr_s, nrm, aux
+
+
+def _ragged_clouds():
+    """Width 300 (no multiple of a tile or a block), n_valid 1, 255 and
+    300.  Padded rows are copies of valid ones, nearer to their queries
+    than any valid row: a kernel that reads them sums them."""
+    pts = np.zeros((3, 300, 3), np.float32)
+    nv = (1, 255, 300)
+    for b, n in enumerate(nv):
+        src = fixtures.golden_shape_problem(seed=b + 3, n=300).source
+        pts[b] = (src - src.mean(0)) / np.abs(src).max()
+        pts[b, n:] = pts[b, :300 - n] + 1e-4
+    return torch.as_tensor(pts), torch.tensor(nv, dtype=torch.int32)
+
+
 @pytest.mark.parametrize("clouds", [_surface_clouds, _gaussian_clouds],
                          ids=["surface", "gaussian"])
 def test_emulated_moments_and_axis_kernels_match_plain(emulated, clouds):
     points, nv = clouds()
-    thr = cm.neighborhood_thresholds_plain(
-        points, nv, torch.tensor([[90, 31, 30]] * points.shape[0]))
-    cloud, thr_s = cm._moments_inputs(points, nv, thr[:, 2], thr[:, 1],
-                                      thr[:, 0], None)
-    bsz, _, n = cloud.pts_t.shape
-    raw = torch.full((bsz, 30, n), float("nan"))
-    assert emulated.se3icp_moments(
-        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
-        thr_s.data_ptr(), raw.data_ptr(), bsz, n, None) == 0
+    cloud, thr_s, nrm, aux = _setup_inputs(points, nv)
+    raw = _k2(emulated, cloud, thr_s)
     raw_p = cm._moments_raw_plain(cloud, thr_s)
     counts = [9, 19, 29]                   # the three balls' member counts
     assert torch.equal(raw[:, counts], raw_p[:, counts])
     assert _row_rel_err(raw, raw_p, nv) <= 1e-5
-
-    mom = cm._moments_dict(raw_p, points)
-    normal_t, ndotq, radius = lrf.toldi_axis_inputs(mom, thr[:, 0], 30)
-    cloud, nrm, aux = cm._axis_inputs(points, nv, normal_t, ndotq, radius,
-                                      thr[:, 0], None)
-    out = torch.full((bsz, 4, n), float("nan"))
-    assert emulated.se3icp_axis(
-        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
-        nrm.data_ptr(), aux.data_ptr(), out.data_ptr(), bsz, n, None) == 0
+    out = _k3(emulated, cloud, nrm, aux)
     assert _row_rel_err(out, cm._axis_raw_plain(cloud, nrm, aux), nv) <= 1e-4
+
+
+def test_emulated_moments_kernel_sums_members_in_target_order(emulated):
+    """Every query row, padded ones too: each ball's ten sums are the
+    float32 sums of its members' feature rows taken one after another in
+    target-index order, bit for bit."""
+    points, nv = _ragged_clouds()
+    cloud, thr_s, _, _ = _setup_inputs(points, nv)
+    raw = _k2(emulated, cloud, thr_s).view(3, 3, 10, 300).numpy()
+    r = cm._shifted_d2(cloud, 0, 300).numpy()                # [B,N,N]
+    for b, n in enumerate(nv.tolist()):
+        x, y, z = cloud.pts_t[b, :, :n].numpy()
+        feat = np.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z,
+                         np.ones_like(x)], -1)               # [n,10] f32
+        for m in range(3):
+            member = r[b, :, :n] <= thr_s[b, m, :, None].numpy()
+            rows = np.where(member[..., None], feat[None], np.float32(0))
+            want = np.cumsum(rows, axis=1, dtype=np.float32)[:, -1]
+            assert np.array_equal(raw[b, m].T, want), (b, m)
+
+
+def test_emulated_moments_and_axis_kernels_ignore_the_query_order(emulated):
+    """The same bits under the identity order, the Z-order of
+    ``setup_cloud`` and a seeded random permutation."""
+    points, nv = _ragged_clouds()
+    cloud, thr_s, nrm, aux = _setup_inputs(points, nv)
+    bsz, _, n = cloud.pts_t.shape
+    gen = torch.Generator().manual_seed(0)
+    orders = [torch.arange(n, dtype=torch.int32).expand(bsz, n).contiguous(),
+              torch.stack([torch.randperm(n, generator=gen)
+                           for _ in range(bsz)]).to(torch.int32)]
+    assert not torch.equal(cloud.order, orders[0])
+    raw, out = _k2(emulated, cloud, thr_s), _k3(emulated, cloud, nrm, aux)
+    for order in orders:
+        other = copy.copy(cloud)
+        other.order = order
+        assert torch.equal(_k2(emulated, other, thr_s), raw)
+        assert torch.equal(_k3(emulated, other, nrm, aux), out)
+
+
+def test_emulated_moments_and_axis_kernels_skip_entries_that_are_no_row(
+        emulated):
+    """An order entry outside [0, N) is skipped: nothing is read or
+    written for it, the rows it displaced keep what the output held, and
+    every other row gets its bits."""
+    points, nv = _ragged_clouds()
+    cloud, thr_s, nrm, aux = _setup_inputs(points, nv)
+    raw, out = _k2(emulated, cloud, thr_s), _k3(emulated, cloud, nrm, aux)
+    bad = copy.copy(cloud)
+    bad.order = cloud.order.clone()
+    n = bad.order.shape[1]
+    pos = torch.tensor([0, 7, 150, n - 1])
+    dropped = bad.order[:, pos].long()
+    bad.order[:, pos] = torch.tensor([n, -1, 2**31 - 1, -2**31],
+                                     dtype=torch.int32)
+    for got, want in ((_k2(emulated, bad, thr_s), raw),
+                      (_k3(emulated, bad, nrm, aux), out)):
+        for b in range(got.shape[0]):
+            kept = torch.ones(n, dtype=torch.bool)
+            kept[dropped[b]] = False
+            assert bool(got[b][:, ~kept].isnan().all())
+            assert torch.equal(got[b][:, kept], want[b][:, kept])
+
+
+def test_emulated_one_ball_moments_equal_the_three_ball_block(emulated):
+    """K2's one-ball instance equals the three-ball kernel's block of
+    that ball; ``moments_one_ball``'s dict (plain version here) is the
+    dict of one threshold passed three times."""
+    points, nv = _ragged_clouds()
+    cloud, thr_s, _, _ = _setup_inputs(points, nv)
+    raw3 = _k2(emulated, cloud, thr_s)
+    for m in range(3):
+        one = thr_s[:, m:m + 1].contiguous()
+        assert torch.equal(_k2(emulated, cloud, one),
+                           raw3[:, 10 * m:10 * m + 10])
+    thr = thr_s[:, 1] + cloud.tn
+    got = cm.moments_one_ball(points, nv, thr, cloud=cloud)
+    want = cm.moments_plain(points, nv, thr, thr, thr, cloud=cloud)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_setup_cloud_query_order_is_a_permutation_valid_rows_first():
+    """K2's and K3's query order: a permutation of each row, the valid
+    rows first, then the padded ones in index order; the valid rows in a
+    spatial order (consecutive queries lie near each other, where the
+    fixture's index order is random)."""
+    points, nv = _ragged_clouds()
+    order = cm.setup_cloud(points, nv).order
+    assert order.dtype == torch.int32 and order.shape == (3, 300)
+    for b, n in enumerate(nv.tolist()):
+        row = order[b].tolist()
+        assert sorted(row) == list(range(300))
+        assert sorted(row[:n]) == list(range(n))
+        assert row[n:] == list(range(n, 300))
+        if n > 1:
+            step = lambda idx: float(
+                (points[b, idx[1:]] - points[b, idx[:-1]]).norm(dim=1)
+                .mean())
+            assert step(row[:n]) < 0.5 * step(list(range(n)))
 
 
 # ------------------------------------------------------------ K6-K9

@@ -1,29 +1,39 @@
 #!/usr/bin/env python3
-"""Tiling factors of K4 (``csrc/match_affine.cu``) and K1
-(``csrc/thresholds.cu``), measured side by side on one card.
+"""Tiling factors of K4 (``csrc/match_affine.cu``), K1
+(``csrc/thresholds.cu``) and K2, K3 (``csrc/moments.cu``), measured side
+by side on one card.
 
-    python3 tools/kernel_tiling_sweep.py [--k4 THREADS,R,MINBLOCKS,U,U3 ...]
-                                         [--k1 Q,WARPS ...] [--reps N]
+    python3 tools/kernel_tiling_sweep.py [--only k4 k1 moments]
+                                         [--k4 THREADS,R,MINBLOCKS,U,U3 ...]
+                                         [--k1 Q,WARPS ...]
+                                         [--moments T2,R2,T3,R3 ...]
+                                         [--reps N]
                                          [--extra-k4 LABEL=FILE.cu ...]
                                          [--extra-k1 LABEL=FILE.cu ...]
+                                         [--extra-moments LABEL=FILE.cu ...]
 
 Each variant is the committed source with its ``constexpr`` tiling
 factors replaced in a temporary copy (K4: ``kThreads``, ``kR``,
-``kMinBlocks``, ``kU``, ``kU3``; K1: ``kQ``, ``kWarps``), compiled by nvcc with
-the package's flags and ``-Xptxas -v`` (registers, spills, shared
-memory) into a library of its own, and called through the same C entry
-point on the main path's inputs as ``chip_smoke.py`` makes them (64
-golden-shape pairs in the 4608 bucket; K4 also at 8 x 15360): K4 in the
-SE(3) phase from the identity and in the R3 phase near the answer, K1
-on the sources with the main path's counts (90, 31, 30).  The variants
-are timed in turns (CUDA events, the median of ``--reps`` rounds), and
-each must return the bits of the first variant, the committed factors.
-``--extra-k4`` / ``--extra-k1`` add other sources with the same C entry
-point (an earlier version of the kernel, say) to the same turns; for
-them the bits are compared and reported, not required.  The committed
-sources are not changed.  ``--sass DIR`` also writes each
-variant's machine code (``cuobjdump -sass``) into DIR.  Needs a CUDA
-device and nvcc; prints one JSON line per kernel.
+``kMinBlocks``, ``kU``, ``kU3``; K1: ``kQ``, ``kWarps``; K2/K3:
+``kMomThreads``, ``kMomR``, ``kAxisThreads``, ``kAxisR``), compiled by nvcc with the package's flags and ``-Xptxas -v`` (registers,
+spills, shared memory) into a library of its own, and called through the
+same C entry point on the main path's inputs as ``chip_smoke.py`` makes
+them (64 golden-shape pairs in the 4608 bucket; K4, K2 and K3 also at 8
+x 15360): K4 in the SE(3) phase from the identity and in the R3 phase
+near the answer, K1 on the sources with the main path's counts (90, 31,
+30), K2 (also its one-ball instance, on the 31-ball) and K3 on the
+sources and the targets with those counts' balls. The variants are timed
+in turns (CUDA events, the median of ``--reps`` rounds), and each must
+return the bits of the first variant, the committed factors.
+``--extra-k4`` / ``--extra-k1`` / ``--extra-moments`` add other sources
+with the same C entry points (an earlier version of the kernel, say) to
+the same turns; for them the bits are compared and reported, not
+required. A ``moments.cu`` whose entry points take no query order (the
+one before the order was added) is called with its own arguments: it
+runs the queries in index order. The committed sources are not changed.
+``--sass DIR`` also writes each variant's machine code (``cuobjdump
+-sass``) into DIR.  Needs a CUDA device and nvcc; prints one JSON line
+per kernel.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ sys.path.insert(0, ROOT)
 
 K4_FACTORS = ("kThreads", "kR", "kMinBlocks", "kU", "kU3")
 K1_FACTORS = ("kQ", "kWarps")
+MOMENTS_FACTORS = ("kMomThreads", "kMomR", "kAxisThreads", "kAxisR")
 
 
 def committed(text: str, names) -> tuple:
@@ -250,14 +261,127 @@ def sweep_k1(variants, reps, sass_dir, extras=()):
         return rows
 
 
+def moments_cases():
+    """[(name, cloud, K2's shifted thresholds, K3's normals, K3's aux)] on
+    the main path's clouds and on 8 sources in the KITTI bucket."""
+    import chip_smoke as cs
+    from se3_icp_tpu_torch.ops import cuda_moments as cm, lrf
+    cases = []
+    clouds = cs.setup_clouds(cs.golden_pairs(cs.N_PAIRS))
+    big, _ = cs.setup_clouds(cs.golden_pairs(cs.SMALL_BATCH, n=15000))
+    for side, (pts, nv) in (("sources", clouds[0]), ("targets", clouds[1]),
+                            ("sources", big)):
+        cc = torch.tensor([90, 31, 30], dtype=torch.int32,
+                          device=pts.device).expand(pts.shape[0], -1)
+        cloud = cm.setup_cloud(pts, nv)
+        thr = cm.neighborhood_thresholds_batched(pts, nv, cc, cloud=cloud)
+        thr3 = (thr[:, 2], thr[:, 1], thr[:, 0])
+        _, thr_s = cm._moments_inputs(pts, nv, thr3, cloud)
+        mom = cm.moments_batched(pts, nv, *thr3, cloud=cloud)
+        normal_t, ndotq, radius = lrf.toldi_axis_inputs(mom, thr[:, 0], 30)
+        _, nrm, aux = cm._axis_inputs(pts, nv, normal_t, ndotq, radius,
+                                      thr[:, 0], cloud)
+        cases.append((f"{pts.shape[0]} x {pts.shape[1]} {side}", cloud,
+                      thr_s, nrm, aux))
+    return cases
+
+
+def moments_calls(lib, tag, indexed, cloud, thr_s, nrm, aux, outs):
+    """{kernel: call} of one library on one case: K2, K3 and, where the
+    library has it, K2's one-ball instance on the second ball; each call
+    leaves its result in ``outs[(kernel, tag)]``.  ``indexed``: the entry
+    points take no query order (and no ball count)."""
+    from se3_icp_tpu_torch.ops import _build
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bsz, balls, n = thr_s.shape
+    if indexed:
+        lib.se3icp_moments.argtypes = [P] * 5 + [I] * 2 + [P]
+        lib.se3icp_axis.argtypes = [P] * 6 + [I] * 2 + [P]
+    else:
+        for name in ("se3icp_moments", "se3icp_axis"):
+            getattr(lib, name).argtypes = _build.SIGNATURES[name]
+    head = (cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr())
+    if not indexed:
+        head += (cloud.order.data_ptr(),)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def k2(key="K2", thr=thr_s):
+        m = thr.shape[1]
+        raw = torch.empty((bsz, 10 * m, n), device="cuda")
+        extra = () if indexed else (m,)
+        _build.check(lib.se3icp_moments(
+            *head, thr.data_ptr(), raw.data_ptr(), bsz, n, *extra,
+            stream()), tag)
+        outs[(key, tag)] = raw
+
+    def k3():
+        out = torch.empty((bsz, 4, n), device="cuda")
+        _build.check(lib.se3icp_axis(
+            *head, nrm.data_ptr(), aux.data_ptr(), out.data_ptr(), bsz, n,
+            stream()), tag)
+        outs[("K3", tag)] = out
+    calls = {"K2": k2, "K3": k3}
+    if not indexed:
+        one = thr_s[:, 1:2].contiguous()
+        calls["K2 one ball"] = lambda: k2("K2 one ball", one)
+    return calls
+
+
+def sweep_moments(variants, reps, sass_dir, extras=()):
+    from se3_icp_tpu_torch.ops import _build
+    text = (_build.CSRC / "moments.cu").read_text()
+    variants = [committed(text, MOMENTS_FACTORS)] + [
+        v for v in variants if v != committed(text, MOMENTS_FACTORS)]
+    tags = ["mom_" + "_".join(map(str, v)) for v in variants]
+    extras = extra_sources(extras, "mom")
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_all([(t, variant_source(text, MOMENTS_FACTORS, v))
+                          for t, v in zip(tags, variants)]
+                         + [(t, src) for t, _, src in extras], tmp, sass_dir)
+        rows, how = {}, {}
+        for t, v in zip(tags, variants):
+            rows[t] = dict(zip(MOMENTS_FACTORS, v), ms={})
+            how[t] = False
+        for t, label, src in extras:
+            rows[t] = dict(source=label, ms={}, same_bits={})
+            how[t] = "const void* order" not in src
+        for t in rows:
+            rows[t]["ptxas"] = {
+                k: v for k, v in resources(libs[t][1], "").items()
+                if "moments_kernel" in k or "axis_kernel" in k}
+        tags = list(rows)
+        for name, cloud, thr_s, nrm, aux in moments_cases():
+            outs = {}
+            calls = {t: moments_calls(libs[t][0], t, how[t], cloud, thr_s,
+                                      nrm, aux, outs) for t in tags}
+            for kernel in calls[tags[0]]:
+                has = [t for t in tags if kernel in calls[t]]
+                med = time_turns({t: calls[t][kernel] for t in has}, reps)
+                ref = outs[(kernel, tags[0])]
+                for t in has:
+                    case = f"{kernel} {name}"
+                    same = torch.equal(outs[(kernel, t)], ref)
+                    if "same_bits" in rows[t]:
+                        rows[t]["same_bits"][case] = same
+                    elif not same:
+                        raise RuntimeError(f"{t}: other bits than the "
+                                           f"committed factors on {case}")
+                    rows[t]["ms"][case] = med[t]
+        return list(rows.values())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", nargs="*", default=["k4", "k1", "moments"],
+                    choices=["k4", "k1", "moments"])
     ap.add_argument("--k4", nargs="*", default=[])
     ap.add_argument("--k1", nargs="*", default=[])
+    ap.add_argument("--moments", nargs="*", default=[])
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--sass", metavar="DIR")
     ap.add_argument("--extra-k4", nargs="*", default=[])
     ap.add_argument("--extra-k1", nargs="*", default=[])
+    ap.add_argument("--extra-moments", nargs="*", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_tiling_sweep: no CUDA device", file=sys.stderr)
@@ -270,12 +394,22 @@ def main() -> int:
         timeout=60).stdout.strip()
     parse = lambda v: tuple(int(x) for x in v.split(","))
     with torch.no_grad():
-        print(json.dumps({"kernel": "K4", "card": smi, "variants": sweep_k4(
-            [parse(v) for v in args.k4], args.reps, args.sass,
-            args.extra_k4)}), flush=True)
-        print(json.dumps({"kernel": "K1", "card": smi, "variants": sweep_k1(
-            [parse(v) for v in args.k1], args.reps, args.sass,
-            args.extra_k1)}), flush=True)
+        if "k4" in args.only:
+            print(json.dumps({"kernel": "K4", "card": smi,
+                              "variants": sweep_k4(
+                                  [parse(v) for v in args.k4], args.reps,
+                                  args.sass, args.extra_k4)}), flush=True)
+        if "k1" in args.only:
+            print(json.dumps({"kernel": "K1", "card": smi,
+                              "variants": sweep_k1(
+                                  [parse(v) for v in args.k1], args.reps,
+                                  args.sass, args.extra_k1)}), flush=True)
+        if "moments" in args.only:
+            print(json.dumps({"kernel": "K2, K3", "card": smi,
+                              "variants": sweep_moments(
+                                  [parse(v) for v in args.moments],
+                                  args.reps, args.sass,
+                                  args.extra_moments)}), flush=True)
     return 0
 
 

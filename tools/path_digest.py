@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Per-pair results and wall times of the port's main path and its
-multistart fleet, for holding two checkouts against each other on one
-card.
+"""Per-pair results and wall times of the port's main path, its
+multistart fleet and the other algorithms' small batches, for holding
+two checkouts against each other on one card.
 
     python3 tools/path_digest.py [--root DIR] --out FILE.npz [--reps N]
     python3 tools/path_digest.py --compare A.npz B.npz
@@ -11,11 +11,13 @@ the checkout this script lies in) and runs, as ``chip_smoke.py`` does,
 the main path (``register_pairs``: 64 golden-shape pairs, ``se3_pt2pl``,
 ``GOLDEN``, threshold route) and the multistart fleet
 (``register_pairs_multistart``: 8 pairs x 8 starts under
-``FLIPPED_POSE``), each once to warm up and then ``--reps`` times.  It
-saves every pair's iteration count and transform (of the last call),
-the kept starts and the wall time of every timed call (host clock
-around work that ends in a synchronize), and prints one JSON line with
-the medians.  The second form prints whether two such files hold the
+``FLIPPED_POSE``) and, as ``chip_smoke.py`` runs them, 8 pairs each of
+``se3_gicp``, ``se3_gicp_with_cf`` (``LOUNGE``, noisy pairs),
+``se3_pt2pt`` and ``pt2pl`` (a small pose): each once to warm up and
+then ``--reps`` times, all paths in turns.  It saves every pair's
+iteration count and transform (of the last call), the kept starts and
+the wall time of every timed call (host clock around work that ends in
+a synchronize), and prints one JSON line with the medians.  The second form prints whether two such files hold the
 same iteration counts and the same transform bits.  Needs a CUDA
 device.
 """
@@ -23,6 +25,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -42,7 +45,7 @@ def run(root: str, out: str, reps: int) -> None:
     from se3_icp_tpu_torch.datasets import fixtures
     from se3_icp_tpu_torch.models import multistart
     from se3_icp_tpu_torch.parallel import pairs
-    from se3_icp_tpu_torch.utils.config import GOLDEN
+    from se3_icp_tpu_torch.utils.config import GOLDEN, LOUNGE
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -59,14 +62,38 @@ def run(root: str, out: str, reps: int) -> None:
     main_fn = lambda: pairs.register_pairs(main_list, "se3_pt2pl", GOLDEN)
     ms_fn = lambda: multistart.register_pairs_multistart(
         flip_list, "se3_pt2pl", GOLDEN, n_starts=8, pair_chunk=8)
+    small_fns = {}
+    for alg, cfg, kw in (("se3_gicp", GOLDEN, {}),
+                         ("se3_gicp_with_cf", LOUNGE, fixtures.NOISY),
+                         ("se3_pt2pt", GOLDEN, {}),
+                         ("pt2pl", GOLDEN, fixtures.SMALL_POSE)):
+        probs = [fixtures.golden_shape_problem(seed=s, **kw)
+                 for s in range(1, 9)]
+        small_fns[alg] = functools.partial(
+            pairs.register_pairs, [(p.source, p.target) for p in probs],
+            alg, cfg)
     main_fn()
     ms_fn()
+    for fn in small_fns.values():
+        fn()
     main_s, ms_s = [], []
+    small_s = {alg: [] for alg in small_fns}
+    small_res = {}
     for _ in range(reps):          # in turns: the host clock drifts
         main_res, t = timed(main_fn)
         main_s.append(t)
         ms_res, t = timed(ms_fn)
         ms_s.append(t)
+        for alg, fn in small_fns.items():
+            small_res[alg], t = timed(fn)
+            small_s[alg].append(t)
+    small_npz = {}
+    for alg, res in small_res.items():
+        small_npz[f"{alg}_iterations"] = np.asarray(
+            [r.num_iterations for r in res])
+        small_npz[f"{alg}_transforms"] = np.stack(
+            [r.transformation for r in res])
+        small_npz[f"{alg}_seconds"] = np.asarray(small_s[alg])
     np.savez(out,
              main_iterations=np.asarray([r.num_iterations for r in main_res]),
              main_transforms=np.stack([r.transformation for r in main_res]),
@@ -75,7 +102,8 @@ def run(root: str, out: str, reps: int) -> None:
                                        for r in ms_res]),
              ms_transforms=np.stack([r.best.transformation
                                      for r in ms_res]),
-             main_seconds=np.asarray(main_s), ms_seconds=np.asarray(ms_s))
+             main_seconds=np.asarray(main_s), ms_seconds=np.asarray(ms_s),
+             **small_npz)
     print(json.dumps({
         "phase": "path_digest", "root": os.path.abspath(root),
         "device": torch.cuda.get_device_name(0),
@@ -84,15 +112,17 @@ def run(root: str, out: str, reps: int) -> None:
         "main_path_pairs_per_s": 64 / statistics.median(main_s),
         "multistart_seconds": ms_s,
         "multistart_median_seconds": statistics.median(ms_s),
-        "multistart_pairs_per_s": 8 / statistics.median(ms_s)}),
+        "multistart_pairs_per_s": 8 / statistics.median(ms_s),
+        "small_batch_seconds": small_s,
+        "small_batch_median_seconds": {
+            alg: statistics.median(t) for alg, t in small_s.items()}}),
         flush=True)
 
 
 def compare(a: str, b: str) -> bool:
     with np.load(a) as x, np.load(b) as y:
-        same = {k: bool(np.array_equal(x[k], y[k]))
-                for k in ("main_iterations", "main_transforms",
-                          "ms_kept_starts", "ms_iterations", "ms_transforms")}
+        same = {k: bool(np.array_equal(x[k], y[k])) for k in x.files
+                if not k.endswith("seconds")}
         worst = float(np.abs(x["main_transforms"]
                              - y["main_transforms"]).max())
     print(json.dumps({"phase": "path_digest_compare", "a": a, "b": b,
