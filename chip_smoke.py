@@ -14,7 +14,9 @@ setup kernels K1-K3 of the sort-free threshold route (K2 and K3 also bit
 for bit between the spatial query order and the index order, K2's
 one-ball instance against its three-ball block, both also at the KITTI
 bucket, 8 x 15360) and the loop kernels K4 (also at 8 x 15360, and with
-its R3-phase chain held bit for bit against its 12-FMA chain), K5. It
+its R3-phase chain held bit for bit against its 12-FMA chain), K5 (also
+at 8 x 15360, each phase, whole and trimmed; its launch on the chosen
+cluster of blocks a pair held bit for bit against one block a pair).  It
 then drives the main path through the public entry points
 (``register_pairs`` with ``se3_pt2pl`` / ``GOLDEN`` on 64 seed-made
 golden-shape pairs, on the default threshold route and again with
@@ -24,7 +26,11 @@ Then the paths of the 1-NN kernels K6-K9: the multistart restart fleet
 (8 pairs x 8 starts), FGR + FPFH through ``register_pairs(..., "fgr")``
 (64 pairs), the metrics on the main path's results, the public 1-NN
 ops, ``run fgr`` and ``run --multi-start`` of the CLI, and K6-K9 against
-their plain versions.  It gates every result at 2 deg / 0.25, and shows
+their plain versions (K9 at 4608 points, D = 3, and 15360, D = 12, its
+targets split over several blocks a query tile and held bit for bit
+against the unsplit search).  K5's and K6-K9's cases report the kernel
+alone (torch.profiler) beside the time through the wrapper.  It gates
+every result at 2 deg / 0.25, and shows
 from the wrappers' launch counts that each path went through its
 kernels.  Every phase
 prints one JSON line; any failed phase raises, so the exit code is
@@ -98,6 +104,30 @@ def time_ms(fn, reps: int = 7) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def alone_ms(fn, tag: str, reps: int = 20) -> float:
+    """Device time of one launch of the kernel whose name holds ``tag``,
+    alone: torch.profiler's CUDA time of ``reps`` calls of ``fn`` (each
+    launching it once) after a warm-up call, the mean over the launches
+    the profiler recorded (it drops one now and then; at least half)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and tag in e.key]
+        calls = sum(e.count for e in rows)
+        if 2 * calls >= reps:
+            return sum(e.device_time_total for e in rows) / calls / 1e3
+    raise RuntimeError(f"chip_smoke: {tag}: {calls} profiled launches of "
+                       f"{reps} in the last of three tries")
 
 
 def gate(problems, results, what: str):
@@ -329,11 +359,19 @@ def k5_case(name, ms, cfg, matched_T, pf):
     check(rel_A <= rel and rel_b <= rel and rel_mse <= 1e-5,
           f"{name}: A/b/mse differ by {rel_A:.2e}/{rel_b:.2e}/"
           f"{rel_mse:.2e} (limit {rel:.0e}, mse 1e-5)")
-    # two runs give the same bits (fixed-order sums, no atomics)
+    # two runs give the same bits (fixed-order sums, no atomics), and a
+    # pair on one block (C = 1) the same bits as on the chosen cluster
     again = cuda_loop.loop_epilogue_batched(*args, **kw)
     check(all(bool((a == b).all()) for a, b in zip(out_k, again)),
           f"{name}: two runs of the kernel differ")
+    one = cuda_loop.loop_epilogue_batched(*args, **kw, cluster=1)
+    check(all(same_bits(a, b) for a, b in zip(out_k, one)),
+          f"{name}: C = 1 gives other bits than the chosen cluster")
+    cluster = cuda_loop.cluster_size(ms.src_cT.shape[0], ms.src_cT.device,
+                                     kw["do_trim"])
     ms_k = time_ms(lambda: cuda_loop.loop_epilogue_batched(*args, **kw))
+    ms_alone = alone_ms(lambda: cuda_loop.loop_epilogue_batched(*args, **kw),
+                        "epilogue_kernel")
     ms_p = time_ms(lambda: cuda_loop.loop_epilogue_plain(*args, **kw),
                    reps=3)
     bsz, _, n = ms.src_cT.shape
@@ -350,8 +388,9 @@ def k5_case(name, ms, cfg, matched_T, pf):
                 max_abs_err_unscaled=errs,
                 max_rel_err=dict(A=rel_A, b=rel_b, mse=rel_mse),
                 tolerance=dict(A_b_rel=rel, mse_rel=1e-5, wsum="exact"),
-                bitwise_repeatable=True, ms=ms_k, plain_ms=ms_p,
-                bound_ms=1e3 * max(t_ops, t_bytes),
+                bitwise_repeatable=True, cluster=cluster,
+                same_bits_as_cluster_1=True, ms=ms_k, kernel_alone_ms=ms_alone,
+                plain_ms=ms_p, bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, shape=dict(B=bsz, N=n, P=p_rows),
                 trim=cfg.estimated_overlap)
@@ -680,11 +719,21 @@ def kernels_phase():
                               torch.eye(4, device=dev).repeat(SMALL_BATCH,
                                                               1, 1))
     k4_cases.append(k4_case("nn_match_affine[8 x 15360]", ms, W, phase))
-    W, phase, _ = loop_inputs(ms, GOLDEN, ~false_8, false_8,
-                              near_gt_pose(big, pre, dev))
+    near8 = near_gt_pose(big, pre, dev)
+    W, phase, _ = loop_inputs(ms, GOLDEN, ~false_8, false_8, near8)
     name = "nn_match_affine[8 x 15360, R3 phase]"
     k4_cases.append(k4_case(name, ms, W, phase))
     k4_cases[-1].update(k4_r3_bits(name, ms, W, phase))
+    # K5 at the KITTI bucket: each phase, whole and trimmed
+    for switched, ph in ((false_8, "SE(3)"), (~false_8, "R3")):
+        for overlap in (1.0, 0.75):
+            cfg = GOLDEN.replace(estimated_overlap=overlap)
+            W, phase, pf = loop_inputs(ms, cfg, switched, false_8, near8)
+            _, matched_T = cuda_knn.nn_match_affine(ms.feat16, W,
+                                                    ms.targets, phase)
+            k5_cases.append(k5_case(
+                f"loop_epilogue_batched[8 x 15360, {ph} phase, overlap "
+                f"{overlap}]", ms, cfg, matched_T, pf))
     del ms
     torch.cuda.empty_cache()
     return k4_cases, k5_cases
@@ -1042,31 +1091,56 @@ def nn_bound(q, t, n, payload_width=0, tn_read=False):
 
 def nn_argmin_case(name, q, t, n, unbatched=False, with_cdist=False,
                    n_q=None):
-    """K6 (or K9 on one cloud) against its plain version."""
+    """K6 (or K9 on one cloud) against its plain version, and the
+    chosen target split against the unsplit search (S = 1), bit for
+    bit."""
     from se3_icp_tpu_torch.ops import cuda_nn
     if unbatched:
-        fn = lambda: cuda_nn.nn_argmin_unbatched(q[0], t[0], n[0])
+        wrapper = cuda_nn.nn_argmin_unbatched
+        fn = lambda split=None: [x[None] for x in wrapper(
+            q[0], t[0], n[0], split=split)]
         plain = lambda: cuda_nn.nn_argmin_unbatched_plain(q[0], t[0], n[0])
-        out_k, out_p = fn(), plain()
-        out_k = [x[None] for x in out_k]
-        out_p = [x[None] for x in out_p]
+        out_k, out_p = fn(), [x[None] for x in plain()]
     else:
-        fn = lambda: cuda_nn.nn_argmin_batched(q, t, n)
+        fn = lambda split=None: cuda_nn.nn_argmin_batched(q, t, n,
+                                                          split=split)
         plain = lambda: cuda_nn.nn_argmin_batched_plain(q, t, n)
         out_k, out_p = fn(), plain()
     torch.cuda.synchronize()
+    split = cuda_nn.split_size(q.shape[0], q.shape[1], q.device)
+    check(same_bits(tuple(out_k), tuple(fn(split=1))),
+          f"{name}: S = {split} gives other bits than the unsplit search")
     case = dict(name=name, **nn_check(name, q, t, n, *out_k, *out_p, n_q),
-                ms=time_ms(fn), plain_ms=time_ms(plain, reps=3),
+                split=split, same_bits_as_split_1=True,
+                ms=time_ms(fn), kernel_alone_ms=alone_ms(fn, "nn_kernel"),
+                plain_ms=time_ms(plain, reps=3),
                 **nn_bound(q, t, n), library_ms=None,
                 shape=dict(B=q.shape[0], Nq=q.shape[1], Nt=t.shape[1],
                            D=q.shape[2]),
                 n_targets=[int(n.min()), int(n.max())])
+    if unbatched:
+        # one cloud: torch.cdist + min over its valid targets computes
+        # the same function
+        tv = t[0, :int(n[0])]
+        case["library_ms"] = time_ms(
+            lambda: torch.cdist(q[0], tv).min(-1), reps=3)
+        case["library"] = "torch.cdist + min over the valid targets"
     if with_cdist:
         # context, not a yardstick: torch.cdist + min over all targets
         # (no valid-count mask), the nearest library call
         case["cdist_min_ms"] = time_ms(
             lambda: torch.cdist(q, t).amin(-1), reps=3)
     return case
+
+
+def cdist_min_gather_ms(q, t, payload):
+    """torch.cdist + min + gather of the payload rows over all target
+    rows (no valid-count mask): the library calls nearest to K7/K8."""
+    def run():
+        _, idx = torch.cdist(q, t).min(-1)
+        return torch.gather(payload, 1, idx[..., None].expand(
+            -1, -1, payload.shape[2]))
+    return time_ms(run, reps=3)
 
 
 def nn_match_case(name, q, t, payload, n):
@@ -1085,7 +1159,9 @@ def nn_match_case(name, q, t, payload, n):
                 ms=time_ms(lambda: cuda_nn.nn_match_batched(*args)),
                 plain_ms=time_ms(lambda: cuda_nn.nn_match_batched_plain(
                     *args), reps=3),
-                **nn_bound(q, t, n, payload.shape[2]), library_ms=None,
+                **nn_bound(q, t, n, payload.shape[2]),
+                library_ms=cdist_min_gather_ms(q, t, payload),
+                library="torch.cdist + min + gather over all target rows",
                 shape=dict(B=q.shape[0], Nq=q.shape[1], Nt=t.shape[1],
                            D=q.shape[2], P=payload.shape[2]),
                 n_targets=[int(n.min()), int(n.max())])
@@ -1111,7 +1187,10 @@ def nn_packed_case(name, q, targets, phase):
                 plain_ms=time_ms(lambda: cuda_nn.nn_match_packed_plain(
                     q, targets, phase), reps=3),
                 **nn_bound(q, t_sel, targets.n, targets.payload.shape[2],
-                           tn_read=True), library_ms=None,
+                           tn_read=True),
+                library_ms=cdist_min_gather_ms(q, t_sel, targets.payload),
+                library="torch.cdist + min + gather over the phase's "
+                        "target rows",
                 shape=dict(B=q.shape[0], Nq=q.shape[1], Nt=t_sel.shape[1],
                            D=q.shape[2], P=targets.payload.shape[2]),
                 phases=phase.tolist())
@@ -1480,10 +1559,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
     from se3_icp_tpu_torch.ops import knn
-    knn.require_full_precision()
+    # the plain versions' matrix products in full float32, as the
+    # port's entry points run theirs
+    with knn.full_precision():
+        return smoke()
 
+
+def smoke() -> int:
+    t_start = time.perf_counter()
     device = device_phase()
     build_phase()
     k1_cases, k2_cases, k3_cases = setup_kernels_phase()

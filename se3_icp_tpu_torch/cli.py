@@ -74,7 +74,10 @@ def build_parser():
         description="SE(3)-ICP point-cloud registration (PyTorch/CUDA)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("run", help="register two PLY files")
-    p.add_argument("algorithm", choices=ALGORITHMS + ("fgr",))
+    # se3_pure_* run through the API; the JAX CLI's run refuses them too
+    p.add_argument("algorithm", choices=[a for a in ALGORITHMS
+                                         if not a.startswith("se3_pure")]
+                   + ["fgr"])
     p.add_argument("source")
     p.add_argument("target")
     p.add_argument("--initial-transform", default=None,

@@ -31,17 +31,35 @@
 // the block at the same address (broadcasts, no bank conflicts); a
 // running (min, first index) in registers.  |t|^2 is computed once per
 // tile by one thread per target, or read from the packed targets (K8).
-// Register tiling over several queries a thread and tensor cores (a
-// 3xTF32 or bf16-limb split through wgmma, which would matter most at
-// D = 33) are left for a later change.
+// A grid of fewer than two blocks an SM (one cloud: K9, 36 blocks at
+// 4608 queries) splits the valid targets into S contiguous slices of
+// whole tiles (S <= 8, chosen by the wrapper): the S blocks of a query
+// tile form a thread-block cluster, each runs the same search over its
+// slice, and rank 0 merges the peers' (min, first index) through
+// distributed shared memory in slice order, taking a peer's only if it
+// is strictly smaller -- so the lowest index keeps a tie across slices
+// and idx and d2 are the unsplit search's bits (the per-target distances
+// are the same FMA chain).  A slice past the valid targets finds none
+// and loses every merge.  Register tiling over several queries a thread
+// and tensor cores (a 3xTF32 or bf16-limb split through wgmma, which
+// would matter most at D = 33) are left for a later change.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 128;   // queries per block, one per thread
 constexpr int kTile = 128;      // targets per shared-memory tile
 constexpr float kBig = 3.4e38f; // distance of "no valid target"
+constexpr int kMaxSplit = 8;    // the portable cluster size
+
+template <int D>
+constexpr int tile_words() {   // float4s of a target tile
+  return kTile * ((D + 4) / 4);
+}
 
 template <int D, bool kPay, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
@@ -54,16 +72,21 @@ nn_kernel(const float* __restrict__ q,        // [B,Nq,D]
           int* __restrict__ idx_out,          // [B,Nq]
           float* __restrict__ d2_out,         // [B,Nq]
           float* __restrict__ matched,        // kPay: [B,Nq,P]
-          int nq, int nt, int p) {
+          int nq, int nt, int p, int split) {
   constexpr int V = (D + 4) / 4;   // float4s a target row: D coords, |t|^2
   constexpr int S = 4 * V;
-  __shared__ float4 t_s4[kTile * V];
+  extern __shared__ float4 t_s4[];   // [kTile * V]
   float* t_s = reinterpret_cast<float*>(t_s4);
 
   const int b = blockIdx.y;
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
+  const int slice = blockIdx.x % split;      // the block's rank in its cluster
+  const int qi = (blockIdx.x / split) * kThreads + threadIdx.x;
   const bool active = qi < nq;
   const int n = min(max(n_tgt[b], 0), nt);
+  // this block's targets: whole tiles [lo_t, hi_t) of the valid ones
+  const int per = ((n + kTile - 1) / kTile + split - 1) / split * kTile;
+  const int lo_t = min(slice * per, n);
+  const int hi_t = min(lo_t + per, n);
   const int sel = kPacked ? (phase[b] != 0 ? 1 : 0) : 0;
   const size_t t_row0 = ((size_t)b * (kPacked ? 2 : 1) + sel) * nt;
   const float* t_b = t + t_row0 * D;
@@ -84,8 +107,8 @@ nn_kernel(const float* __restrict__ q,        // [B,Nq,D]
 
   float best = kBig;
   int bi = 0;
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const int m = min(kTile, n - t0);
+  for (int t0 = lo_t; t0 < hi_t; t0 += kTile) {
+    const int m = min(kTile, hi_t - t0);
     __syncthreads();               // the previous tile is fully consumed
     for (int i = threadIdx.x; i < m * D; i += kThreads) {
       const int r = i / D;
@@ -125,6 +148,28 @@ nn_kernel(const float* __restrict__ q,        // [B,Nq,D]
       }
     }
   }
+  if (split > 1) {
+    // merge the slices in cluster rank order, on rank 0; every thread of
+    // every block takes part in both cluster barriers
+    cg::cluster_group cluster = cg::this_cluster();
+    __syncthreads();               // the last tile is fully consumed
+    float* m_best = t_s;
+    int* m_idx = reinterpret_cast<int*>(t_s + kThreads);
+    m_best[threadIdx.x] = best;
+    m_idx[threadIdx.x] = bi;
+    cluster.sync();
+    if (slice == 0) {
+      for (int r = 1; r < split; ++r) {
+        const float ob = cluster.map_shared_rank(m_best, (unsigned)r)[threadIdx.x];
+        if (ob < best) {           // strict: the lower slice keeps a tie
+          best = ob;
+          bi = cluster.map_shared_rank(m_idx, (unsigned)r)[threadIdx.x];
+        }
+      }
+    }
+    cluster.sync();                // the peers' records outlive the reads
+    if (slice != 0) return;
+  }
   if (!active) return;
 
   const size_t o = (size_t)b * nq + qi;
@@ -140,19 +185,50 @@ nn_kernel(const float* __restrict__ q,        // [B,Nq,D]
 template <int D, bool kPay, bool kPacked>
 int launch(const void* q, const void* t, const void* tn, const void* payload,
            const void* n_tgt, const void* phase, void* idx, void* d2,
-           void* matched, int bsz, int nq, int nt, int p, void* stream) {
-  const dim3 grid((nq + kThreads - 1) / kThreads, bsz);
-  nn_kernel<D, kPay, kPacked><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)t, (const float*)tn,
-      (const float*)payload, (const int*)n_tgt, (const int*)phase,
-      (int*)idx, (float*)d2, (float*)matched, nq, nt, p);
+           void* matched, int bsz, int nq, int nt, int p, int split,
+           void* stream) {
+  if (split < 1 || split > kMaxSplit) return (int)cudaErrorInvalidValue;
+  const dim3 grid((nq + kThreads - 1) / kThreads * split, bsz);
+  const size_t smem = sizeof(float4) * tile_words<D>();
+  auto kern = nn_kernel<D, kPay, kPacked>;
+  const float* qf = (const float*)q;
+  const float* tf = (const float*)t;
+  const float* tnf = (const float*)tn;
+  const float* pay = (const float*)payload;
+  const int* nt_p = (const int*)n_tgt;
+  const int* ph = (const int*)phase;
+  if (split == 1) {
+    kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        qf, tf, tnf, pay, nt_p, ph, (int*)idx, (float*)d2, (float*)matched,
+        nq, nt, p, 1);
+    return (int)cudaGetLastError();
+  }
+  // the S blocks of a query tile as one cluster; a size the card refuses
+  // fails the launch (no fallback to the unsplit search)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, qf, tf, tnf, pay, nt_p,
+                                           ph, (int*)idx, (float*)d2,
+                                           (float*)matched, nq, nt, p, split);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <bool kPay>
 int launch_width(const void* q, const void* t, const void* payload,
                  const void* n_tgt, void* idx, void* d2, void* matched,
-                 int bsz, int nq, int nt, int d, int p, void* stream) {
+                 int bsz, int nq, int nt, int d, int p, int split,
+                 void* stream) {
   if (bsz <= 0 || nq <= 0) return (int)cudaGetLastError();
   if (bsz > 65535 || nt <= 0 || (kPay && p <= 0)) {
     return (int)cudaErrorInvalidValue;
@@ -160,16 +236,20 @@ int launch_width(const void* q, const void* t, const void* payload,
   switch (d) {   // the widths of ops/cuda_nn.py WIDTHS
     case 3:
       return launch<3, kPay, false>(q, t, nullptr, payload, n_tgt, nullptr,
-                                    idx, d2, matched, bsz, nq, nt, p, stream);
+                                    idx, d2, matched, bsz, nq, nt, p, split,
+                                    stream);
     case 12:
       return launch<12, kPay, false>(q, t, nullptr, payload, n_tgt, nullptr,
-                                     idx, d2, matched, bsz, nq, nt, p, stream);
+                                     idx, d2, matched, bsz, nq, nt, p, split,
+                                     stream);
     case 33:
       return launch<33, kPay, false>(q, t, nullptr, payload, n_tgt, nullptr,
-                                     idx, d2, matched, bsz, nq, nt, p, stream);
+                                     idx, d2, matched, bsz, nq, nt, p, split,
+                                     stream);
     case 64:
       return launch<64, kPay, false>(q, t, nullptr, payload, n_tgt, nullptr,
-                                     idx, d2, matched, bsz, nq, nt, p, stream);
+                                     idx, d2, matched, bsz, nq, nt, p, split,
+                                     stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -177,21 +257,24 @@ int launch_width(const void* q, const void* t, const void* payload,
 
 }  // namespace
 
-// K6 (and K9 at B = 1): idx [B,Nq] int32, d2 [B,Nq]
+// K6 (and K9 at B = 1): idx [B,Nq] int32, d2 [B,Nq]; `split` target
+// slices a query tile (1 = the unsplit search)
 extern "C" int se3icp_nn_argmin(const void* q, const void* t,
                                 const void* n_tgt, void* idx, void* d2,
-                                int bsz, int nq, int nt, int d, void* stream) {
+                                int bsz, int nq, int nt, int d, int split,
+                                void* stream) {
   return launch_width<false>(q, t, nullptr, n_tgt, idx, d2, nullptr, bsz, nq,
-                             nt, d, 0, stream);
+                             nt, d, 0, split, stream);
 }
 
 // K7: K6 plus matched [B,Nq,P] = payload[b, idx]
 extern "C" int se3icp_nn_match(const void* q, const void* t,
                                const void* payload, const void* n_tgt,
                                void* idx, void* d2, void* matched, int bsz,
-                               int nq, int nt, int d, int p, void* stream) {
+                               int nq, int nt, int d, int p, int split,
+                               void* stream) {
   return launch_width<true>(q, t, payload, n_tgt, idx, d2, matched, bsz, nq,
-                            nt, d, p, stream);
+                            nt, d, p, split, stream);
 }
 
 // K8: K7 against dual-phase 12-D targets emb [B,2,Nt,12] with their
@@ -201,9 +284,9 @@ extern "C" int se3icp_nn_match_packed(const void* q, const void* emb,
                                       const void* n_tgt, const void* phase,
                                       void* idx, void* d2, void* matched,
                                       int bsz, int nq, int nt, int p,
-                                      void* stream) {
+                                      int split, void* stream) {
   if (bsz <= 0 || nq <= 0) return (int)cudaGetLastError();
   if (bsz > 65535 || nt <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
   return launch<12, true, true>(q, emb, tn, payload, n_tgt, phase, idx, d2,
-                                matched, bsz, nq, nt, p, stream);
+                                matched, bsz, nq, nt, p, split, stream);
 }

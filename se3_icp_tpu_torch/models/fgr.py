@@ -251,8 +251,7 @@ def fgr_register_arrays(src, n_src, tgt, n_tgt, cfg: FGRConfig,
     ``raw_triples``).  ``stats`` (optional dict) receives the per-pair
     reciprocal-set sizes (``reciprocal``) and correspondences kept by the
     tuple test (``kept_correspondences``)."""
-    knn.require_full_precision()
-    with torch.no_grad():
+    with torch.no_grad(), knn.full_precision():
         feat_s = features(src, n_src, cfg)
         feat_t = features(tgt, n_tgt, cfg)
         fwd, bwd = reciprocal_matches(feat_s, n_src, feat_t, n_tgt)

@@ -553,9 +553,8 @@ def register_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
     num_iterations are undefined).
     """
     check_supported(cfg)
-    knn.require_full_precision()
     is_se3 = mode != "icp"
-    with torch.no_grad():
+    with torch.no_grad(), knn.full_precision():
         ms, pre = setup(src, n_src, tgt, n_tgt, cfg, mode, variant,
                         exact_knn)
         T_init = None

@@ -43,21 +43,21 @@ SIGNATURES = {
     "se3icp_match_affine": [_P] * 9 + [_I] * 4 + [_P],
     # srcT, matchedT, pf, cov6, conf, A, b, st,
     # B, N, P, variant, is_se3, use_cf, do_trim,
-    # off_tr, off_nrm, off_cov, off_conf, isteps, stream
-    "se3icp_loop_epilogue": [_P] * 8 + [_I] * 12 + [_P],
+    # off_tr, off_nrm, off_cov, off_conf, isteps, cluster, stream
+    "se3icp_loop_epilogue": [_P] * 8 + [_I] * 13 + [_P],
     # pts_t, tn, n_valid, counts, hib, out, B, N, T, stream
     "se3icp_thresholds": [_P] * 6 + [_I] * 3 + [_P],
     # pts_t, tn, n_valid, order, thr_s, out, B, N, balls, stream
     "se3icp_moments": [_P] * 6 + [_I] * 3 + [_P],
     # pts_t, tn, n_valid, order, normal_t, aux, out, B, N, stream
     "se3icp_axis": [_P] * 7 + [_I] * 2 + [_P],
-    # q, t, n_tgt, idx, d2, B, Nq, Nt, D, stream
-    "se3icp_nn_argmin": [_P] * 5 + [_I] * 4 + [_P],
-    # q, t, payload, n_tgt, idx, d2, matched, B, Nq, Nt, D, P, stream
-    "se3icp_nn_match": [_P] * 7 + [_I] * 5 + [_P],
+    # q, t, n_tgt, idx, d2, B, Nq, Nt, D, split, stream
+    "se3icp_nn_argmin": [_P] * 5 + [_I] * 5 + [_P],
+    # q, t, payload, n_tgt, idx, d2, matched, B, Nq, Nt, D, P, split, stream
+    "se3icp_nn_match": [_P] * 7 + [_I] * 6 + [_P],
     # q, emb, tn, payload, n_tgt, phase, idx, d2, matched,
-    # B, Nq, Nt, P, stream
-    "se3icp_nn_match_packed": [_P] * 9 + [_I] * 4 + [_P],
+    # B, Nq, Nt, P, split, stream
+    "se3icp_nn_match_packed": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 
@@ -152,3 +152,33 @@ def load() -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+def launch(fn, device, *args) -> int:
+    """Call the C entry point ``fn`` with ``args`` and the current
+    stream of CUDA ``device``, inside a device context only when
+    ``device`` is not the current one; returns the entry point's code."""
+    import torch
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cluster_for(blocks: int, index: int, waves: int = 1,
+                most: int = 8) -> int:
+    """The smallest cluster size C (a power of two, at most ``most``,
+    the portable size) with ``blocks * C`` at least ``waves`` times the
+    SM count of device ``index``: the blocks a grid spreads one unit of
+    work over when the grid alone would leave SMs idle."""
+    c, sms = 1, sm_count(index)
+    while c < most and blocks * c < waves * sms:
+        c *= 2
+    return c

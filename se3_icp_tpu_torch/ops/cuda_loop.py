@@ -175,7 +175,8 @@ def loop_epilogue_plain(srcT, matchedT, pf, cov6=None, conf=None, *,
 
 def loop_epilogue_batched(srcT, matchedT, pf, cov6=None, conf=None, *,
                           variant, is_se3, use_cf, do_trim,
-                          off_tr=0, off_nrm=0, off_cov=0, off_conf=0):
+                          off_tr=0, off_nrm=0, off_cov=0, off_conf=0,
+                          cluster=None):
     """Batched fused epilogue.
 
     srcT [B,3,N] loop-invariant centred source (feature-major);
@@ -184,6 +185,8 @@ def loop_epilogue_batched(srcT, matchedT, pf, cov6=None, conf=None, *,
     cov6 [B,6,N] loop-invariant source covariance components (gicp);
     conf [B,N] source confidences (with_cf); ``off_*`` the payload rows
     of the beta-weighted translation, normal, covariance, confidence.
+    ``cluster``: the blocks a pair runs on (1, 2, 4 or 8; default:
+    ``cluster_size``); every C gives the same bits.
 
     Returns (A [B,6,6], b [B,8], st [B,8]):
       pt2pl/gicp: A = JtJ, b[:6] = Jtr;
@@ -193,11 +196,11 @@ def loop_epilogue_batched(srcT, matchedT, pf, cov6=None, conf=None, *,
     """
     if variant not in _VARIANT_CODE:
         raise ValueError(f"Invalid ICP variant name: {variant!r}")
-    kw = dict(variant=variant, is_se3=is_se3, use_cf=use_cf,
-              do_trim=do_trim, off_tr=off_tr, off_nrm=off_nrm,
-              off_cov=off_cov, off_conf=off_conf)
     if not srcT.is_cuda:
-        return loop_epilogue_plain(srcT, matchedT, pf, cov6, conf, **kw)
+        return loop_epilogue_plain(
+            srcT, matchedT, pf, cov6, conf, variant=variant, is_se3=is_se3,
+            use_cf=use_cf, do_trim=do_trim, off_tr=off_tr, off_nrm=off_nrm,
+            off_cov=off_cov, off_conf=off_conf)
     bsz, _, n = srcT.shape
     p = matchedT.shape[1]
     dev, f32 = srcT.device, torch.float32
@@ -223,20 +226,35 @@ def loop_epilogue_batched(srcT, matchedT, pf, cov6=None, conf=None, *,
     if p < need:
         raise ValueError(f"matchedT has {p} rows, the payload layout "
                          f"needs {need}")
-    lib = _build.load()
-    A = torch.empty((bsz, 6, 6), dtype=f32, device=dev)
-    b = torch.empty((bsz, 8), dtype=f32, device=dev)
-    st = torch.empty((bsz, 8), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        code = lib.se3icp_loop_epilogue(
-            srcT.data_ptr(), matchedT.data_ptr(), pf.data_ptr(), cov_ptr,
-            conf_ptr, A.data_ptr(), b.data_ptr(), st.data_ptr(),
-            bsz, n, p, _VARIANT_CODE[variant], int(is_se3), int(use_cf),
-            int(do_trim), off_tr, off_nrm, off_cov, off_conf,
-            index_steps(n), torch.cuda.current_stream(dev).cuda_stream)
+    if cluster is None:
+        cluster = cluster_size(bsz, dev, do_trim)
+    elif cluster not in (1, 2, 4, 8):
+        raise ValueError(f"cluster {cluster}: the kernel takes 1, 2, 4 "
+                         "or 8 blocks a pair")
+    # A, b and st: views of one allocation
+    out = torch.empty(bsz * 52, dtype=f32, device=dev)
+    A = out[:bsz * 36].view(bsz, 6, 6)
+    b = out[bsz * 36:bsz * 44].view(bsz, 8)
+    st = out[bsz * 44:].view(bsz, 8)
+    args = (srcT.data_ptr(), matchedT.data_ptr(), pf.data_ptr(), cov_ptr,
+            conf_ptr, A.data_ptr(), b.data_ptr(), st.data_ptr(), bsz, n, p,
+            _VARIANT_CODE[variant], int(is_se3), int(use_cf), int(do_trim),
+            off_tr, off_nrm, off_cov, off_conf, index_steps(n), cluster)
+    code = _build.launch(_build.load().se3icp_loop_epilogue, dev, *args)
     _build.check(code, "loop_epilogue_batched")
     loop_epilogue_batched.launches += 1
     return A, b, st
+
+
+def cluster_size(bsz: int, device, do_trim: bool) -> int:
+    """Blocks a pair runs on: the smallest C in (1, 2, 4, 8) with
+    ``bsz * C`` at least the SM count of ``device`` (8 if none), and at
+    most 2 when the call trims: every block of a pair runs the trim's
+    bisections over all the pair's keys, so more, smaller blocks slow
+    them (64 x 4608 trimmed to 0.75 on an H100: 0.030 ms alone at C = 2,
+    0.044 at C = 4; ``tools/kernel_tiling_sweep.py --only k5``)."""
+    c = _build.cluster_for(bsz, torch.device(device).index or 0)
+    return min(c, 2) if do_trim else c
 
 
 loop_epilogue_batched.launches = 0

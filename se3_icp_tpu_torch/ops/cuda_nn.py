@@ -32,15 +32,13 @@ if it cannot; it takes the plain version only for CPU tensors.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from se3_icp_tpu_torch.ops import _build, cuda_knn, knn
 
 WIDTHS = (3, 12, 33, 64)    # query widths the kernel is instantiated for
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 # ---------------------------------------------------------------- plain
@@ -114,6 +112,31 @@ def nn_match_packed_plain(queries, targets: cuda_knn.MatchTargets, phase):
 
 # ---------------------------------------------------------------- kernels
 
+MAX_SPLIT = 8   # target slices a query tile (the portable cluster size)
+_QUERY_TILE = 128   # queries a block (csrc/nn_argmin.cu kThreads)
+
+
+def split_size(bsz: int, nq: int, device) -> int:
+    """Target slices a query tile: the smallest S in (1, 2, 4, 8) with
+    S times the grid's ceil(Nq/128) * B blocks at least twice the SM
+    count of ``device`` (8 if none); 1 for a grid that fills the card
+    twice.  Two blocks an SM: one cloud of 4608 queries ran 0.022 ms
+    at S = 8 and 0.034 ms at S = 4 (one block an SM) on an H100
+    (``tools/kernel_tiling_sweep.py --only nn``)."""
+    blocks = -(-nq // _QUERY_TILE) * bsz
+    return _build.cluster_for(blocks, torch.device(device).index or 0,
+                              waves=2, most=MAX_SPLIT)
+
+
+def _split_arg(split, bsz, nq, dev) -> int:
+    if split is None:
+        return split_size(bsz, nq, dev)
+    if not 1 <= split <= MAX_SPLIT:
+        raise ValueError(f"split {split}: the kernel takes 1 to "
+                         f"{MAX_SPLIT} target slices")
+    return int(split)
+
+
 def _check_search(queries, targets, n_targets):
     """The shapes every variant shares; returns (B, Nq, Nt, D, device)."""
     bsz, nq, d = queries.shape
@@ -130,47 +153,66 @@ def _check_search(queries, targets, n_targets):
 
 
 def _outputs(bsz, nq, dev):
-    return (torch.empty((bsz, nq), dtype=torch.int32, device=dev),
-            torch.empty((bsz, nq), dtype=torch.float32, device=dev))
+    """idx [B,Nq] int32 and d2 [B,Nq] float32: views of one allocation."""
+    out = torch.empty((2, bsz, nq), dtype=torch.float32, device=dev)
+    return out[0].view(torch.int32), out[1]
 
 
-def _launch_argmin(queries, targets, n_targets, what):
+def _launch_argmin(queries, targets, n_targets, what, split):
     bsz, nq, nt, d, dev = _check_search(queries, targets, n_targets)
     cuda_knn._check(targets, "targets", (bsz, nt, d), torch.float32, dev)
     idx, d2 = _outputs(bsz, nq, dev)
-    with torch.cuda.device(dev):
-        code = _build.load().se3icp_nn_argmin(
-            queries.data_ptr(), targets.data_ptr(), n_targets.data_ptr(),
-            idx.data_ptr(), d2.data_ptr(), bsz, nq, nt, d, _stream(dev))
+    code = _build.launch(
+        _build.load().se3icp_nn_argmin, dev, queries.data_ptr(),
+        targets.data_ptr(), n_targets.data_ptr(), idx.data_ptr(),
+        d2.data_ptr(), bsz, nq, nt, d, _split_arg(split, bsz, nq, dev))
     _build.check(code, what)
     return idx, d2
 
 
-def nn_argmin_batched(queries, targets, n_targets):
+def nn_argmin_batched(queries, targets, n_targets, split=None):
     """K6: batched exact 1-NN.  queries [B,Nq,D], targets [B,Nt,D]
-    float32, n_targets [B] int32 -> (idx [B,Nq] int32, d2 [B,Nq])."""
+    float32, n_targets [B] int32 -> (idx [B,Nq] int32, d2 [B,Nq]).
+    ``split``: target slices a query tile (default ``split_size``; every
+    S gives the same bits)."""
     if not queries.is_cuda:
         return nn_argmin_batched_plain(queries, targets, n_targets)
-    out = _launch_argmin(queries, targets, n_targets, "nn_argmin_batched")
+    out = _launch_argmin(queries, targets, n_targets, "nn_argmin_batched",
+                         split)
     nn_argmin_batched.launches += 1
     return out
 
 
-def nn_argmin_unbatched(queries, targets, n_targets):
+@functools.lru_cache(maxsize=64)
+def _count_on(device, n: int) -> torch.Tensor:
+    """A [1] int32 count on the card, made once per (device, value)."""
+    return torch.tensor([n], dtype=torch.int32, device=device)
+
+
+def nn_argmin_unbatched(queries, targets, n_targets, split=None):
     """K9: exact 1-NN of one cloud.  queries [Nq,D], targets [Nt,D]
-    float32, n_targets an int or a 0-d/[1] integer tensor -> (idx [Nq]
-    int32, d2 [Nq])."""
+    float32, n_targets an int or a 0-d/[1] integer tensor (on the card
+    it is used where it lies, without a copy; an int becomes a cached
+    device tensor) -> (idx [Nq] int32, d2 [Nq]).  ``split`` as in
+    ``nn_argmin_batched``."""
     if not queries.is_cuda:
         return nn_argmin_unbatched_plain(queries, targets, n_targets)
-    n = torch.as_tensor(n_targets, device=queries.device).reshape(1).to(
-        torch.int32)
+    dev = queries.device
+    if isinstance(n_targets, torch.Tensor):
+        n = n_targets.reshape(1)
+        if n.device != dev:
+            n = n.to(dev)
+        if n.dtype != torch.int32:
+            n = n.to(torch.int32)
+    else:
+        n = _count_on(dev, int(n_targets))
     idx, d2 = _launch_argmin(queries[None], targets[None], n,
-                             "nn_argmin_unbatched")
+                             "nn_argmin_unbatched", split)
     nn_argmin_unbatched.launches += 1
     return idx[0], d2[0]
 
 
-def nn_match_batched(queries, targets, payload, n_targets):
+def nn_match_batched(queries, targets, payload, n_targets, split=None):
     """K7: K6 plus the matched payload rows.  payload [B,Nt,P] float32
     -> (idx, d2, matched [B,Nq,P])."""
     if not queries.is_cuda:
@@ -183,17 +225,18 @@ def nn_match_batched(queries, targets, payload, n_targets):
         raise ValueError("payload has no columns")
     idx, d2 = _outputs(bsz, nq, dev)
     matched = torch.empty((bsz, nq, p), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        code = _build.load().se3icp_nn_match(
-            queries.data_ptr(), targets.data_ptr(), payload.data_ptr(),
-            n_targets.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-            matched.data_ptr(), bsz, nq, nt, d, p, _stream(dev))
+    code = _build.launch(
+        _build.load().se3icp_nn_match, dev, queries.data_ptr(),
+        targets.data_ptr(), payload.data_ptr(), n_targets.data_ptr(),
+        idx.data_ptr(), d2.data_ptr(), matched.data_ptr(), bsz, nq, nt, d,
+        p, _split_arg(split, bsz, nq, dev))
     _build.check(code, "nn_match_batched")
     nn_match_batched.launches += 1
     return idx, d2, matched
 
 
-def nn_match_packed(queries, targets: cuda_knn.MatchTargets, phase):
+def nn_match_packed(queries, targets: cuda_knn.MatchTargets, phase,
+                    split=None):
     """K8: K7 against pre-packed dual-phase targets.  queries [B,Nq,12]
     float32, ``targets`` from ``cuda_knn.pack_match_targets``, phase [B]
     int32 (0 = first block, 1 = second) -> (idx, d2, matched
@@ -213,12 +256,12 @@ def nn_match_packed(queries, targets: cuda_knn.MatchTargets, phase):
         raise ValueError("no target rows or no payload columns")
     idx, d2 = _outputs(bsz, nq, dev)
     matched = torch.empty((bsz, nq, p), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        code = _build.load().se3icp_nn_match_packed(
-            queries.data_ptr(), targets.emb.data_ptr(), targets.tn.data_ptr(),
-            targets.payload.data_ptr(), targets.n.data_ptr(),
-            phase.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-            matched.data_ptr(), bsz, nq, nt, p, _stream(dev))
+    code = _build.launch(
+        _build.load().se3icp_nn_match_packed, dev, queries.data_ptr(),
+        targets.emb.data_ptr(), targets.tn.data_ptr(),
+        targets.payload.data_ptr(), targets.n.data_ptr(), phase.data_ptr(),
+        idx.data_ptr(), d2.data_ptr(), matched.data_ptr(), bsz, nq, nt, p,
+        _split_arg(split, bsz, nq, dev))
     _build.check(code, "nn_match_packed")
     nn_match_packed.launches += 1
     return idx, d2, matched

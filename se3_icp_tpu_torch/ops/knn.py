@@ -11,7 +11,7 @@ All functions take clouds ``[B, N, D]`` with per-cloud valid counts
 toward the lowest target index.  Squared distances are written in the
 explicit ``|q|^2 - 2 q.t^T + |t|^2`` form (not ``torch.cdist``) so they
 round like the JAX package's ``_pairwise_d2``; the product must run in
-full float32 (see ``require_full_precision``).
+full float32 (see ``full_precision``).
 
 The k-NN is a masked distance block and ``torch.topk``; the 1-NN
 searches (``nn_argmin``, ``nn_match``, ``nn_match_packed``,
@@ -20,6 +20,8 @@ searches (``nn_argmin``, ``nn_match``, ``nn_match_packed``,
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -33,14 +35,29 @@ _BIG = 3.4e38  # ~f32 max; used instead of inf so masked math stays finite
 _TOPK_BATCH_BUDGET = 1_500_000_000
 
 
-def require_full_precision() -> None:
-    """State and enforce full-float32 matrix products.  TF32 or bf16
-    distances flip nearest neighbours between close candidates and the
-    GICP solve diverges; every contraction of the engine is exact-class
-    float32, as the JAX package runs them at ``highest`` precision."""
+@contextlib.contextmanager
+def full_precision():
+    """Run the body with full-float32 matrix products, and give the
+    caller's settings back on exit (also when the body raises).  TF32 or
+    bf16 distances flip nearest neighbours between close candidates and
+    the GICP solve diverges; every contraction of the engine is
+    exact-class float32, as the JAX package runs its own work at
+    ``highest`` precision.  Saved and restored:
+    ``torch.backends.cuda.matmul.allow_tf32``,
+    ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.get_float32_matmul_precision()``."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.backends.cudnn.allow_tf32 = saved[1]
+        torch.set_float32_matmul_precision(saved[2])
 
 
 def _pairwise_d2(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -117,13 +134,15 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
 
 def _n_targets(targets: torch.Tensor, n_targets, bsz: int | None):
     """Valid-target counts as the wrappers take them: [B] int32 for a
-    batch, a 0-d int32 tensor for one cloud."""
+    batch; for one cloud an int or an integer tensor, passed on as it is
+    (``cuda_nn.nn_argmin_unbatched`` keeps a device count where it lies
+    and an int in a cached device tensor)."""
     nt = targets.shape[-2]
     if n_targets is None:
         n_targets = nt
-    n = torch.as_tensor(n_targets, device=targets.device).to(torch.int32)
     if bsz is None:
-        return n.reshape(())
+        return n_targets
+    n = torch.as_tensor(n_targets, device=targets.device).to(torch.int32)
     return n.expand(bsz).contiguous() if n.dim() == 0 else n.contiguous()
 
 

@@ -374,3 +374,49 @@ def test_nn_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError):
         cuda_nn.nn_match_batched(q, q, torch.zeros((2, 63, 4), device=card),
                                  nv)
+
+
+@pytest.mark.parametrize("variant,is_se3,use_cf,overlap,ties", [
+    ("pt2pl", True, False, 1.0, False),
+    ("pt2pt", True, False, 0.6, True),
+    ("gicp", True, True, 0.75, False),
+])
+def test_epilogue_cluster_sizes_give_the_same_bits(card, variant, is_se3,
+                                                   use_cf, overlap, ties):
+    """K5 as a cluster of C = 1, 2, 4 and 8 blocks a pair: the bits of
+    C = 1 for every C, and the plain version's kept count and sums; a
+    size the kernel does not take is refused."""
+    case = [None if x is None else x.to(card) for x in
+            kcases.epilogue_case(variant, is_se3, use_cf, overlap,
+                                 ties=ties)[:5]]
+    kw = kcases.epilogue_case(variant, is_se3, use_cf, overlap,
+                              ties=ties)[5]
+    ref = cuda_loop.loop_epilogue_batched(*case, **kw, cluster=1)
+    kcases.hold_epilogue(ref, cuda_loop.loop_epilogue_plain(*case, **kw),
+                         variant)
+    for c in (2, 4, 8):
+        got = cuda_loop.loop_epilogue_batched(*case, **kw, cluster=c)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), c
+    with pytest.raises(ValueError):
+        cuda_loop.loop_epilogue_batched(*case, **kw, cluster=3)
+
+
+@pytest.mark.parametrize("d", [3, 12])
+def test_split_search_gives_the_unsplit_bits(card, d):
+    """K6/K9 with the targets split over S = 2 to 8 blocks a query tile:
+    the bits of S = 1 (counts past, inside and at slice boundaries, one
+    target; ties across a boundary), and one cloud through K9 with an
+    int count and a device count."""
+    q, t, n = (x.to(card) for x in kcases.split_case(d))
+    ref = cuda_nn.nn_argmin_batched(q, t, n, split=1)
+    for s in range(2, cuda_nn.MAX_SPLIT + 1):
+        got = cuda_nn.nn_argmin_batched(q, t, n, split=s)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert int(ref[0][0, 0]) == kcases.TIE_LO
+    one = cuda_nn.nn_argmin_unbatched(q[1], t[1], int(n[1]))
+    dev_n = cuda_nn.nn_argmin_unbatched(q[1], t[1], n[1])
+    for got in (one, dev_n):
+        assert torch.equal(got[0], ref[0][1]) and torch.equal(got[1],
+                                                              ref[1][1])
+    with pytest.raises(ValueError):
+        cuda_nn.nn_argmin_batched(q, t, n, split=9)

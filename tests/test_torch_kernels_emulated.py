@@ -37,7 +37,8 @@ import torch
 import torch_kernel_cases as kcases
 import torch_port_cases as cases
 from se3_icp_tpu_torch.datasets import fixtures
-from se3_icp_tpu_torch.ops import _build, cuda_knn, cuda_nn, lrf
+from se3_icp_tpu_torch.ops import _build, cuda_knn, cuda_loop, cuda_nn, lrf
+from se3_icp_tpu_torch.ops import trim
 from se3_icp_tpu_torch.ops import cuda_moments as cm
 
 # the suite runs several worker processes side by side: keep each
@@ -47,7 +48,12 @@ torch.set_num_threads(1)
 HERE = pathlib.Path(__file__).resolve().parent
 # kernel<<<grid, threads, smem, stream>>>(args);
 _LAUNCH = re.compile(
-    r"(\w+(?:<[^<>;]*>)?)<<<([^,]+),\s*([^,]+),[^>]*>>>\((.*?)\);", re.S)
+    r"(\w+(?:<[^<>;]*>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),[^>]*>>>"
+    r"\((.*?)\);", re.S)
+# extern __shared__ [__align__(n)] type name[];  (a block's dynamic
+# shared memory)
+_DYN_SMEM = re.compile(
+    r"extern __shared__ (?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];")
 
 
 @pytest.fixture(scope="module")
@@ -58,18 +64,25 @@ def emulated(tmp_path_factory):
                     "kernels")
     out = tmp_path_factory.mktemp("emulated_kernels")
     shutil.copy(HERE / "cuda_emulation.h", out / "cuda_runtime.h")
-    (out / "cuda_pipeline_primitives.h").write_text(
-        '#pragma once\n#include "cuda_runtime.h"\n')
+    for h in ("cuda_pipeline_primitives.h", "cooperative_groups.h",
+              "math_constants.h"):
+        (out / h).write_text('#pragma once\n#include "cuda_runtime.h"\n')
     for h in _build.headers():
         shutil.copy(h, out / h.name)
     srcs = []
     for name in ("thresholds.cu", "moments.cu", "nn_argmin.cu",
-                 "match_affine.cu"):
+                 "match_affine.cu", "loop_epilogue.cu"):
         text, n = _LAUNCH.subn(
             lambda m: (f"emu_launch({m.group(2)}, {m.group(3)}, "
-                       f"[&] {{ {m.group(1)}({m.group(4)}); }});"),
+                       f"{m.group(4)}, [&] {{ {m.group(1)}({m.group(5)}); "
+                       "});"),
             (_build.CSRC / name).read_text())
-        assert n > 0 and "<<<" not in text, name
+        text = _DYN_SMEM.sub(
+            lambda m: (f"{m.group(1)}* {m.group(2)} = "
+                       f"reinterpret_cast<{m.group(1)}*>(emu_dyn_smem());"),
+            text)
+        assert (n > 0 or "cudaLaunchKernelEx" in text) and "<<<" not in \
+            text and "extern __shared__" not in text, name
         srcs.append(out / f"{name}.cpp")
         srcs[-1].write_text(text)
     so = out / "libemulated.so"
@@ -80,7 +93,8 @@ def emulated(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     for name in ("se3icp_thresholds", "se3icp_moments", "se3icp_axis",
                  "se3icp_nn_argmin", "se3icp_nn_match",
-                 "se3icp_nn_match_packed", "se3icp_match_affine"):
+                 "se3icp_nn_match_packed", "se3icp_match_affine",
+                 "se3icp_loop_epilogue"):
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -342,7 +356,7 @@ def test_emulated_nn_kernels_match_plain(emulated, d):
     d2 = torch.full((bsz, nq), float("nan"))
     assert emulated.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(),
                                      n.data_ptr(), idx.data_ptr(),
-                                     d2.data_ptr(), bsz, nq, nt, d,
+                                     d2.data_ptr(), bsz, nq, nt, d, 1,
                                      None) == 0
     _nn_hold(q, t, n, idx, d2, *cuda_nn.nn_argmin_batched_plain(q, t, n))
     pay = torch.randn(bsz, nt, 5)
@@ -350,13 +364,13 @@ def test_emulated_nn_kernels_match_plain(emulated, d):
     assert emulated.se3icp_nn_match(q.data_ptr(), t.data_ptr(),
                                     pay.data_ptr(), n.data_ptr(),
                                     idx.data_ptr(), d2.data_ptr(),
-                                    m.data_ptr(), bsz, nq, nt, d, 5,
+                                    m.data_ptr(), bsz, nq, nt, d, 5, 1,
                                     None) == 0
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
     # a width the kernel is not built for is refused, not run
     assert emulated.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(),
                                      n.data_ptr(), idx.data_ptr(),
-                                     d2.data_ptr(), bsz, nq, nt, 5,
+                                     d2.data_ptr(), bsz, nq, nt, 5, 1,
                                      None) != 0
 
 
@@ -373,12 +387,187 @@ def test_emulated_packed_match_kernel_matches_plain(emulated):
     assert emulated.se3icp_nn_match_packed(
         q.data_ptr(), targets.emb.data_ptr(), targets.tn.data_ptr(),
         targets.payload.data_ptr(), targets.n.data_ptr(), phase.data_ptr(),
-        idx.data_ptr(), d2.data_ptr(), m.data_ptr(), 2, 300, 333, 9,
+        idx.data_ptr(), d2.data_ptr(), m.data_ptr(), 2, 300, 333, 9, 1,
         None) == 0
     idx_p, d2_p, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
     _nn_hold(q, torch.stack([t_b[0], t_a[1]]), n, idx, d2, idx_p, d2_p)
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
 
+
+
+def _nn_split(lib, q, t, n, split, pay=None):
+    """The emulated K6 (K7 with ``pay``) at ``split`` target slices."""
+    bsz, nq, d = q.shape
+    nt = t.shape[1]
+    idx = torch.full((bsz, nq), -1, dtype=torch.int32)
+    d2 = torch.full((bsz, nq), float("nan"))
+    if pay is None:
+        code = lib.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(), n.data_ptr(),
+                                    idx.data_ptr(), d2.data_ptr(), bsz, nq,
+                                    nt, d, split, None)
+        return code, idx, d2
+    m = torch.full((bsz, nq, pay.shape[2]), float("nan"))
+    code = lib.se3icp_nn_match(q.data_ptr(), t.data_ptr(), pay.data_ptr(),
+                               n.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+                               m.data_ptr(), bsz, nq, nt, d, pay.shape[2],
+                               split, None)
+    return code, idx, d2, m
+
+
+@pytest.mark.parametrize("d", [3, 12])
+def test_emulated_split_search_returns_the_unsplit_bits(emulated, d):
+    """The targets split into S = 2, 3 and 8 slices of a query tile (a
+    cluster of S blocks, merged on rank 0): the bits of S = 1 and the
+    plain version's result, with counts past the rows, inside a slice,
+    at a slice boundary and of one target, slices with no valid target
+    (S = 8 everywhere, S = 3 at one target), and exact ties across a
+    slice boundary and inside a count (the lower index wins)."""
+    q, t, n = kcases.split_case(d)
+    code, idx, d2 = _nn_split(emulated, q, t, n, 1)
+    assert code == 0
+    for split in (2, 3, 8):
+        code, idx_s, d2_s = _nn_split(emulated, q, t, n, split)
+        assert code == 0
+        assert torch.equal(idx_s, idx) and torch.equal(d2_s, d2), split
+    assert int(idx[0, 0]) == kcases.TIE_LO and int(idx[1, 1]) == 20
+    assert bool((idx[3] == 0).all())              # one valid target
+    n_eff = n.clamp(max=t.shape[1])
+    _nn_hold(q, t, n_eff, idx, d2,
+             *cuda_nn.nn_argmin_batched_plain(q, t, n_eff))
+    pay = torch.randn(4, t.shape[1], 5,
+                      generator=torch.Generator().manual_seed(d))
+    code, idx_m, d2_m, m = _nn_split(emulated, q, t, n, 3, pay)
+    assert code == 0 and torch.equal(idx_m, idx) and torch.equal(d2_m, d2)
+    assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+    # slice counts the kernel does not take are refused, not run
+    for split in (0, 9):
+        assert _nn_split(emulated, q, t, n, split)[0] != 0
+
+
+# --------------------------------------------------------------- K5
+
+def _k5(lib, srcT, mt, pf, cov6, conf, kw, cluster):
+    bsz, _, n = srcT.shape
+    A = torch.full((bsz, 6, 6), float("nan"))
+    b = torch.full((bsz, 8), float("nan"))
+    st = torch.full((bsz, 8), float("nan"))
+    code = lib.se3icp_loop_epilogue(
+        srcT.data_ptr(), mt.data_ptr(), pf.data_ptr(),
+        None if cov6 is None else cov6.data_ptr(),
+        None if conf is None else conf.data_ptr(), A.data_ptr(),
+        b.data_ptr(), st.data_ptr(), bsz, n, mt.shape[1],
+        cuda_loop._VARIANT_CODE[kw["variant"]], int(kw["is_se3"]),
+        int(kw["use_cf"]), int(kw["do_trim"]), kw["off_tr"], kw["off_nrm"],
+        kw["off_cov"], kw["off_conf"], cuda_loop.index_steps(n), cluster,
+        None)
+    return code, (A, b, st)
+
+
+@pytest.mark.parametrize("variant,is_se3,use_cf,overlap,ties", [
+    ("pt2pl", True, False, 1.0, False),
+    ("pt2pl", True, False, 0.75, False),
+    ("pt2pt", True, False, 0.6, True),
+    ("pt2pl", False, False, 0.6, True),
+    ("gicp", True, True, 0.75, False),
+], ids=["pt2pl", "pt2pl-trim", "pt2pt-trim-ties", "icp-pt2pl-trim-ties",
+        "gicp-cf-trim"])
+def test_emulated_epilogue_kernel_matches_plain_on_every_cluster(
+        emulated, variant, is_se3, use_cf, overlap, ties):
+    """K5 as a cluster of C = 1, 2 and 4 blocks a pair: the same bits
+    for every C, and the plain version's kept count exactly, A, b and the
+    MSE within K5's tolerances.  With ``ties`` the trim keys take a few
+    values many times each and the keep count falls inside a run of
+    equal keys: a kept set other than the lowest indices of the boundary
+    band moves the pt2pt means in b and the pt2pl sums in A."""
+    case = kcases.epilogue_case(variant, is_se3, use_cf, overlap,
+                                ties=ties)
+    want = cuda_loop.loop_epilogue_plain(*case[:5], **case[5])
+    code, ref = _k5(emulated, *case, 1)
+    assert code == 0
+    kcases.hold_epilogue(ref, want, variant)
+    for cluster in (2, 4):
+        code, got = _k5(emulated, *case, cluster)
+        assert code == 0
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), cluster
+    assert _k5(emulated, *case, 3)[0] != 0        # no such cluster size
+
+
+def _k_level_trim(keys, valid, count, levels):
+    """The kernel's trim (``csrc/loop_epilogue.cu``) on one pair in numpy
+    float32: the value bisection and the index bisection, each counting
+    the 2^levels - 1 mids of ``levels`` tree levels in one pass and then
+    walking them.  Returns (lo, hi, #(d <= lo) from the walk, kept)."""
+    f = np.float32
+    n = len(keys)
+    d = np.where(valid, keys, f(3.4e38)).astype(np.float32)
+    col = np.arange(n, dtype=np.float32)
+
+    def mids(a, b, index):
+        out, br = [], [(a, b)]
+        for h in range((1 << levels) - 1):
+            lo_h, hi_h = br[h]
+            m = f(0.5) * (lo_h + hi_h)
+            m = np.floor(m) if index else m
+            out.append(m)
+            br += [(lo_h, m), (m, hi_h)]
+        return out
+
+    def walk(a, b, steps, counts, target, index):
+        low_count, done = 0, 0
+        while done < steps:
+            m = mids(a, b, index)
+            c = counts(m)
+            h = 0
+            for _ in range(min(levels, steps - done)):
+                if c[h] >= target:
+                    b, h = m[h], 2 * h + 1
+                else:
+                    a, low_count, h = m[h], c[h], 2 * h + 2
+            done += levels
+        return a, b, low_count
+
+    hi0 = f(max(0.0, float(d[valid].max()))) if valid.any() else f(0)
+    lo, hi, clo = walk(f(-1), hi0, trim._STEPS,
+                       lambda m: [int((d <= x).sum()) for x in m], count,
+                       False)
+    band = (d > lo) & (d <= hi)
+    _, hii, _ = walk(f(-1), f(n - 1), cuda_loop.index_steps(n),
+                     lambda m: [int((band & (col <= x)).sum()) for x in m],
+                     count - clo, True)
+    return lo, hi, clo, (d <= lo) | (band & (col <= hii))
+
+
+@pytest.mark.parametrize("levels", [2, 3, 4])
+def test_k_level_trim_walk_gives_the_sequential_brackets(levels):
+    """Counting several bisection levels a pass reaches the brackets and
+    the kept set of the sequential bisection (``trim._value_brackets``,
+    ``cuda_loop._kept_mask``) on keys with long runs of equal values,
+    duplicates at the keep boundary, zeros, and padded rows."""
+    rng = np.random.default_rng(levels)
+    n = 700
+    rows = [
+        rng.integers(0, 6, n).astype(np.float32) * np.float32(0.25),
+        np.sqrt(rng.integers(0, 12, n).astype(np.float32) * 0.25),
+        np.repeat(np.float32(1.5), n),
+        rng.random(n, dtype=np.float32),
+    ]
+    for r, keys in enumerate(rows):
+        for n_valid in (n, 601, 3):
+            valid = np.arange(n) < n_valid
+            for count in sorted({1, n_valid // 2, (3 * n_valid) // 4,
+                                 n_valid}):
+                lo, hi, clo, kept = _k_level_trim(keys, valid, count,
+                                                  levels)
+                kt, vt = torch.as_tensor(keys)[None], torch.as_tensor(
+                    valid)[None]
+                ct = torch.tensor([[float(count)]])
+                _, lo_s, hi_s = trim._value_brackets(kt, vt, ct)
+                assert (lo, hi) == (float(lo_s), float(hi_s)), (r, count)
+                d = np.where(valid, keys, np.float32(3.4e38))
+                assert clo == int((d <= lo).sum())
+                want = cuda_loop._kept_mask(kt, vt, ct, n)[0].numpy()
+                assert np.array_equal(kept, want), (r, n_valid, count)
+                assert int(kept.sum()) == count
 
 # --------------------------------------------------------------- K4
 

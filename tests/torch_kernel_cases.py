@@ -122,3 +122,119 @@ def threshold_edge_clouds(seed=0, n=600, n_valid=(1, 511, 513)):
     pts = rng.normal(size=(len(n_valid), n, 3)).astype(np.float32)
     return (torch.as_tensor(pts),
             torch.tensor(n_valid, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------- K5
+
+def epilogue_layout(variant, is_se3, use_cf):
+    """Payload rows of the loop's epilogue (K5): (offsets, rows)."""
+    off = {"tr": 3 if is_se3 else 0}
+    p_rows = 3 + (3 if is_se3 else 0)
+    if variant == "pt2pl":
+        off["nrm"] = p_rows
+        p_rows += 3
+    if variant == "gicp":
+        off["cov"] = p_rows
+        p_rows += 6
+        if use_cf:
+            off["conf"] = p_rows
+            p_rows += 1
+    return off, p_rows
+
+
+def epilogue_case(variant, is_se3, use_cf, overlap, seed=7, b=3, n=700,
+                  ties=False):
+    """Inputs of K5: ``b`` pairs of ``n`` points (not a multiple of the
+    512 threads a pair), valid counts n, 5n/7 and n/3 + 1, phases mixed.
+    ``ties``: rotation identity, no translation, integer-grid sources and
+    matched points a few grid offsets away, so the trim keys take a few
+    values, each many times, and the keep count falls inside a run of
+    equal keys (the kept set is then decided by index).  Returns (srcT,
+    matchedT, pf, cov6, conf, keyword arguments) as torch CPU tensors."""
+    from se3_icp_tpu_torch.ops import cuda_loop as cl
+    rng = np.random.default_rng(seed)
+    off, p_rows = epilogue_layout(variant, is_se3, use_cf)
+    mt = rng.normal(size=(b, p_rows, n)).astype(np.float32)
+    pf = np.zeros((b, cl.PF_WIDTH), np.float32)
+    if ties:
+        srcT = rng.integers(-8, 9, size=(b, 3, n)).astype(np.float32)
+        step = rng.integers(0, 3, size=(b, 3, n)).astype(np.float32) * 0.5
+        mt[:, 0:3] = srcT + step
+        if is_se3:
+            mt[:, off["tr"]:off["tr"] + 3] = srcT - step
+        pf[:, cl.PF_R:cl.PF_R + 9] = np.eye(3, dtype=np.float32).reshape(9)
+        pf[:, cl.PF_BETA] = 1.0
+    else:
+        srcT = rng.normal(size=(b, 3, n)).astype(np.float32)
+        for i in range(b):
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            q *= np.sign(np.linalg.det(q))
+            pf[i, cl.PF_R:cl.PF_R + 9] = q.reshape(9)
+        pf[:, cl.PF_T:cl.PF_T + 3] = rng.normal(size=(b, 3))
+        pf[:, cl.PF_BETA] = 1.25
+    pf[:, cl.PF_SWITCHED] = (np.arange(b) % 2).astype(np.float32)
+    ns = np.array([n, 5 * n // 7, n // 3 + 1][:b] + [n] * max(0, b - 3),
+                  np.float32)
+    pf[:, cl.PF_NSRC] = ns
+    pf[:, cl.PF_COUNT] = np.floor(overlap * ns)
+    cov6 = conf = None
+    if variant == "pt2pl":
+        nr = mt[:, off["nrm"]:off["nrm"] + 3]
+        mt[:, off["nrm"]:off["nrm"] + 3] = (
+            nr / np.linalg.norm(nr, axis=1, keepdims=True))
+    if variant == "gicp":
+        def spd6(a):
+            return np.stack([a[:, 0] ** 2 + 0.5, a[:, 0] * a[:, 1] * .1,
+                             a[:, 0] * a[:, 2] * .1, a[:, 1] ** 2 + 0.7,
+                             a[:, 1] * a[:, 2] * .1, a[:, 2] ** 2 + 0.9],
+                            axis=1).astype(np.float32)
+        cov6 = torch.as_tensor(spd6(rng.normal(size=(b, 3, n))))
+        mt[:, off["cov"]:off["cov"] + 6] = spd6(rng.normal(size=(b, 3, n)))
+        if use_cf:
+            conf = torch.as_tensor(
+                rng.uniform(0.2, 1.0, size=(b, n)).astype(np.float32))
+            mt[:, off["conf"]] = rng.uniform(0.2, 1.0, (b, n))
+    kw = dict(variant=variant, is_se3=is_se3, use_cf=use_cf,
+              do_trim=overlap < 1.0, off_tr=off.get("tr", 0),
+              off_nrm=off.get("nrm", 0), off_cov=off.get("cov", 0),
+              off_conf=off.get("conf", 0))
+    return (torch.as_tensor(srcT), torch.as_tensor(mt), torch.as_tensor(pf),
+            cov6, conf, kw)
+
+
+def hold_epilogue(got, want, variant):
+    """K5's contract against its plain version: the kept count exactly,
+    A and b within 1e-5 of each pair's largest entry (gicp 1e-4), the MSE
+    within 1e-5 relative."""
+    A, b, st = got
+    Ap, bp, stp = want
+    assert torch.equal(st[:, 1], stp[:, 1])
+    rel = 1e-4 if variant == "gicp" else 1e-5
+    for k, p in ((A, Ap), (b, bp)):
+        scale = p.abs().flatten(1).amax(1).clamp_min(1.0)
+        assert float(((k - p).abs().flatten(1).amax(1) / scale).max()) <= rel
+    assert float(((st[:, 0] - stp[:, 0]).abs()
+                  / stp[:, 0].abs().clamp_min(1e-6)).max()) <= 1e-5
+
+
+# ------------------------------------------------------- K6-K9 split
+
+# the 1-NN split cases: four pairs of 300 queries against 333 target
+# rows (three tiles of 128); valid counts past the rows (clipped to
+# 333), inside a tile, at a tile (slice) boundary, and one target
+SPLIT_COUNTS = (400, 200, 256, 1)
+# target row TIE_HI repeats row TIE_LO in every pair, across the slice
+# boundaries at 128 and 256; query 0 sits exactly on them
+TIE_LO, TIE_HI = 100, 300
+
+
+def split_case(d, seed=0):
+    """(q [4,300,d], t [4,333,d], n [4] int32) for the split 1-NN."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(4, 300, d, generator=g)
+    t = torch.randn(4, 333, d, generator=g)
+    t[:, TIE_HI] = t[:, TIE_LO]
+    t[:, 150] = t[:, 20]          # an exact tie inside pair 1's count
+    q[:, 0] = t[:, TIE_LO]
+    q[:, 1] = t[:, 20]
+    return q, t, torch.tensor(SPLIT_COUNTS, dtype=torch.int32)

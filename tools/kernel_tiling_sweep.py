@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Tiling factors of K4 (``csrc/match_affine.cu``), K1
-(``csrc/thresholds.cu``) and K2, K3 (``csrc/moments.cu``), measured side
-by side on one card.
+(``csrc/thresholds.cu``) and K2, K3 (``csrc/moments.cu``), and the
+cluster and split sizes of K5 (``csrc/loop_epilogue.cu``) and of the 1-NN
+template K6-K9 (``csrc/nn_argmin.cu``), measured side by side on one card.
 
-    python3 tools/kernel_tiling_sweep.py [--only k4 k1 moments]
+    python3 tools/kernel_tiling_sweep.py [--only k4 k1 moments k5 nn]
                                          [--k4 THREADS,R,MINBLOCKS,U,U3 ...]
                                          [--k1 Q,WARPS ...]
                                          [--moments T2,R2,T3,R3 ...]
+                                         [--k5 LEVELS ...]
                                          [--reps N]
                                          [--extra-k4 LABEL=FILE.cu ...]
                                          [--extra-k1 LABEL=FILE.cu ...]
                                          [--extra-moments LABEL=FILE.cu ...]
+                                         [--extra-k5 LABEL=FILE.cu ...]
+                                         [--extra-nn LABEL=FILE.cu ...]
 
 Each variant is the committed source with its ``constexpr`` tiling
 factors replaced in a temporary copy (K4: ``kThreads``, ``kR``,
 ``kMinBlocks``, ``kU``, ``kU3``; K1: ``kQ``, ``kWarps``; K2/K3:
-``kMomThreads``, ``kMomR``, ``kAxisThreads``, ``kAxisR``), compiled by nvcc with the package's flags and ``-Xptxas -v`` (registers,
+``kMomThreads``, ``kMomR``, ``kAxisThreads``, ``kAxisR``; K5: ``kLevels``,
+the trim's bisection levels a counting pass), compiled by nvcc with the package's flags and ``-Xptxas -v`` (registers,
 spills, shared memory) into a library of its own, and called through the
 same C entry point on the main path's inputs as ``chip_smoke.py`` makes
 them (64 golden-shape pairs in the 4608 bucket; K4, K2 and K3 also at 8
@@ -25,12 +30,26 @@ near the answer, K1 on the sources with the main path's counts (90, 31,
 sources and the targets with those counts' balls. The variants are timed
 in turns (CUDA events, the median of ``--reps`` rounds), and each must
 return the bits of the first variant, the committed factors.
-``--extra-k4`` / ``--extra-k1`` / ``--extra-moments`` add other sources
-with the same C entry points (an earlier version of the kernel, say) to
-the same turns; for them the bits are compared and reported, not
-required. A ``moments.cu`` whose entry points take no query order (the
-one before the order was added) is called with its own arguments: it
-runs the queries in index order. The committed sources are not changed.
+K5's and the 1-NN template's variants are timed by their device time
+(torch.profiler, ``per`` launches of each variant in turn a round; K5
+also by events around one call, which is mostly the launch), and are
+K5's cluster sizes C = 1, 2, 4, 8 (blocks a pair; the
+wrapper's choice first), on the main path's pt2pl epilogue near the
+answer with mixed phases at 64 x 4608 (whole and trimmed to 0.75) and at
+8 x 15360 (each phase, whole and trimmed), gicp whole and gicp with
+confidences trimmed.  The 1-NN template's are its target splits S = 1, 2, 4, 8 on
+one cloud (K9: 4608 points at D = 3, 15360 at D = 12); K6 (64 x 4608,
+D = 3, and FGR's features at D = 33), K7 and K8 (the main path's
+targets, D = 12) run at the wrapper's S alone.
+``--extra-k4`` / ``--extra-k1`` / ``--extra-moments`` / ``--extra-k5`` /
+``--extra-nn`` add other sources with the same C entry points (an
+earlier version of the kernel, say) to the same turns; for them the bits
+are compared and reported, not required. A ``moments.cu`` whose entry
+points take no query order (the one before the order was added) is called
+with its own arguments: it runs the queries in index order; so are a
+``loop_epilogue.cu`` without the cluster argument and an ``nn_argmin.cu``
+without the split argument (one block a pair, the unsplit search). The
+committed sources are not changed.
 ``--sass DIR`` also writes each variant's machine code (``cuobjdump
 -sass``) into DIR.  Needs a CUDA device and nvcc; prints one JSON line
 per kernel.
@@ -56,6 +75,7 @@ sys.path.insert(0, ROOT)
 K4_FACTORS = ("kThreads", "kR", "kMinBlocks", "kU", "kU3")
 K1_FACTORS = ("kQ", "kWarps")
 MOMENTS_FACTORS = ("kMomThreads", "kMomR", "kAxisThreads", "kAxisR")
+K5_FACTORS = ("kLevels",)
 
 
 def committed(text: str, names) -> tuple:
@@ -122,6 +142,41 @@ def time_turns(fns: dict, reps: int) -> dict:
             b.record()
             torch.cuda.synchronize()
             times[tag].append(a.elapsed_time(b))
+    return {tag: statistics.median(t) for tag, t in times.items()}
+
+
+def time_turns_device(fns: dict, reps: int, kernel: str,
+                      per: int = 5) -> dict:
+    """{tag: fn} -> {tag: median device ms of one launch}: a round
+    profiles ``per`` calls of each fn in turn (torch.profiler) and takes
+    the CUDA time of the kernels whose name holds ``kernel``.  For
+    kernels of a few microseconds, where events around one call measure
+    the launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {tag: [] for tag in fns}
+    for _ in range(reps):
+        for tag, fn in fns.items():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(per):
+                    fn()
+                torch.cuda.synchronize()
+            # the profiler may drop a launch's record now and then: the
+            # mean over those it kept
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and kernel in e.key]
+            calls = sum(e.count for e in rows)
+            if calls:
+                times[tag].append(sum(e.device_time_total for e in rows)
+                                  / calls / 1e3)
+    for tag, t in times.items():
+        if len(t) < (reps + 1) // 2:
+            raise RuntimeError(f"{tag}: {kernel} profiled in {len(t)} of "
+                               f"{reps} rounds")
     return {tag: statistics.median(t) for tag, t in times.items()}
 
 
@@ -370,24 +425,278 @@ def sweep_moments(variants, reps, sass_dir, extras=()):
         return list(rows.values())
 
 
+def stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def k5_cases():
+    """[(name, args, kw)] of K5 as the loop calls it: the pt2pl state of
+    the main path (and at 8 x 15360) near the answer, and the gicp state
+    with confidences."""
+    import chip_smoke as cs
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.ops import cuda_knn
+    from se3_icp_tpu_torch.utils.config import GOLDEN, LOUNGE
+    dev = torch.device("cuda")
+    out = []
+    for n_pairs, kw, alg, base, phases, overlaps in (
+            (cs.N_PAIRS, {}, "se3_pt2pl", GOLDEN, ("mixed",), (1.0, 0.75)),
+            (cs.SMALL_BATCH, {"n": 15000}, "se3_pt2pl", GOLDEN,
+             ("SE(3)", "R3"), (1.0, 0.75)),
+            (cs.N_PAIRS, {}, "se3_gicp", GOLDEN, ("mixed",), (1.0,)),
+            (cs.N_PAIRS, {}, "se3_gicp_with_cf", LOUNGE, ("mixed",),
+             (0.75,))):
+        problems = cs.golden_pairs(n_pairs, **kw)
+        ms, pre = cs.match_state(problems, base, alg)
+        near = cs.near_gt_pose(problems, pre, dev)
+        off = torch.zeros(n_pairs, dtype=torch.bool, device=dev)
+        for ph in phases:
+            switched = {"mixed": torch.arange(n_pairs, device=dev) % 2 == 1,
+                        "SE(3)": off, "R3": ~off}[ph]
+            for overlap in overlaps:
+                cfg = base.replace(estimated_overlap=overlap)
+                W, phase, pf = cs.loop_inputs(ms, cfg, switched, off, near)
+                _, mt = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets,
+                                                 phase)
+                name = (f"{n_pairs} x {ms.src_cT.shape[2]} {ms.variant}"
+                        f"{'+cf' if ms.use_cf else ''}, {ph} phase"
+                        f"{'s' if ph == 'mixed' else ''}, overlap {overlap}")
+                out.append((name, (ms.src_cT, mt, pf, ms.cov_src6,
+                                   ms.conf_src),
+                            reg.epilogue_options(ms, cfg)))
+    return out
+
+
+def sweep_k5(variants, reps, sass_dir, extras=()):
+    from se3_icp_tpu_torch.ops import _build, cuda_loop
+    text = (_build.CSRC / "loop_epilogue.cu").read_text()
+    mine = committed(text, K5_FACTORS)
+    variants = [v for v in variants if v != mine]
+    extras = extra_sources(extras, "k5")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    with tempfile.TemporaryDirectory() as tmp:
+        levels = [(f"k5_{v[0]}", variant_source(text, K5_FACTORS, v))
+                  for v in variants]
+        libs = build_all([("k5", text)] + levels
+                         + [(t, src) for t, _, src in extras], tmp, sass_dir)
+        rows = {f"C={c}": dict(zip(K5_FACTORS, mine), cluster=c, ms={},
+                               ptxas=resources(libs["k5"][1],
+                                               "epilogue_kernel"))
+                for c in (1, 2, 4, 8)}
+        # other factors: at the wrapper's cluster size
+        for (t, _), v in zip(levels, variants):
+            rows[t] = dict(zip(K5_FACTORS, v), cluster="the wrapper's",
+                           ms={}, ptxas=resources(libs[t][1],
+                                                  "epilogue_kernel"))
+        for t, label, _ in extras:
+            rows[t] = dict(source=label, ms={}, same_bits={},
+                           ptxas=resources(libs[t][1], "epilogue_kernel"))
+        lib = libs["k5"][0]
+        for t in ["k5"] + [t for t, _ in levels]:
+            libs[t][0].se3icp_loop_epilogue.argtypes = \
+                _build.SIGNATURES["se3icp_loop_epilogue"]
+        for t, _, src in extras:
+            # an entry point without the cluster argument: one block a pair
+            own = "int cluster" not in src
+            libs[t][0].se3icp_loop_epilogue.argtypes = (
+                [P] * 8 + [I] * 12 + [P] if own
+                else _build.SIGNATURES["se3icp_loop_epilogue"])
+            rows[t]["own_signature"] = own
+        for name, args, kw in k5_cases():
+            srcT, mt, pf, cov6, conf = args
+            bsz, _, n = srcT.shape
+            head = (srcT.data_ptr(), mt.data_ptr(), pf.data_ptr(),
+                    None if kw["variant"] != "gicp" else cov6.data_ptr(),
+                    conf.data_ptr() if kw["use_cf"] else None)
+            tail = (bsz, n, mt.shape[1], cuda_loop._VARIANT_CODE[kw["variant"]],
+                    int(kw["is_se3"]), int(kw["use_cf"]), int(kw["do_trim"]),
+                    kw["off_tr"], kw["off_nrm"], kw["off_cov"],
+                    kw["off_conf"], cuda_loop.index_steps(n))
+            outs, fns = {}, {}
+
+            def call(fn, tag, extra):
+                out = outs[tag] = torch.empty(bsz * 52, device="cuda")
+                ptrs = (out.data_ptr(), out.data_ptr() + 4 * bsz * 36,
+                        out.data_ptr() + 4 * bsz * 44)
+
+                def run():
+                    _build.check(fn(*head, *ptrs, *tail, *extra, stream()),
+                                 tag)
+                return run
+            chosen = cuda_loop.cluster_size(bsz, srcT.device, kw["do_trim"])
+            order = [f"C={chosen}"] + [t for t in rows if t != f"C={chosen}"]
+            for tag in order:
+                if tag.startswith("C="):
+                    fns[tag] = call(lib.se3icp_loop_epilogue, tag,
+                                    (rows[tag]["cluster"],))
+                elif "source" not in rows[tag]:
+                    fns[tag] = call(libs[tag][0].se3icp_loop_epilogue, tag,
+                                    (chosen,))
+                else:
+                    fn = libs[tag][0].se3icp_loop_epilogue
+                    fns[tag] = call(fn, tag, () if rows[tag]["own_signature"]
+                                    else (chosen,))
+            med = time_turns_device(fns, reps, "epilogue_kernel")
+            events = time_turns(fns, reps)
+            ref = outs[f"C={chosen}"]
+            for tag in order:
+                same = torch.equal(outs[tag], ref)
+                if "same_bits" in rows[tag]:
+                    rows[tag]["same_bits"][name] = same
+                elif not same:
+                    raise RuntimeError(f"K5 {tag}: other bits than C = "
+                                       f"{chosen} on {name}")
+                rows[tag]["ms"][name] = med[tag]
+                rows[tag].setdefault("ms_events", {})[name] = events[tag]
+            rows[f"C={chosen}"].setdefault("chosen_for", []).append(name)
+        return list(rows.values())
+
+
+def nn_cases():
+    """[(name, q, t, n, payload, packed phase, splits)] of the 1-NN
+    template at its paths' shapes: ``splits`` the forced S to time
+    beside the wrapper's."""
+    import chip_smoke as cs
+    from se3_icp_tpu_torch.models import fgr
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    dev = torch.device("cuda")
+    problems = cs.golden_pairs(cs.N_PAIRS)
+    q3, t3, n3 = cs.moved_sources(problems, dev)
+    big = cs.golden_pairs(cs.SMALL_BATCH, n=15000)
+    qb, tb, nb = cs.moved_sources(big, dev)
+    out = [("K9 4608, D=3", q3[:1].contiguous(), t3[:1].contiguous(),
+            n3[:1].contiguous(), None, None, (1, 2, 4, 8)),
+           ("K9 15360, D=12", cs.embedding12(qb[:1], 1),
+            cs.embedding12(tb[:1], 2), nb[:1].contiguous(), None, None,
+            (1, 2, 4, 8)),
+           ("K6 64 x 4608, D=3", q3, t3, n3, None, None, ())]
+    src, n_src, tgt, n_tgt = (torch.as_tensor(a, device=dev) for a in
+                              pairs.pack_pairs([(p.source, p.target)
+                                                for p in problems]))
+    cfg = fgr.FGRConfig()
+    fs, ft = fgr.features(src, n_src, cfg), fgr.features(tgt, n_tgt, cfg)
+    out.append(("K6 64 x 4608, D=33 (FGR features)", fs, ft, n_tgt, None,
+                None, ()))
+    ms, pre = cs.match_state(problems, GOLDEN, "se3_pt2pl")
+    off = torch.zeros(cs.N_PAIRS, dtype=torch.bool, device=dev)
+    near = cs.near_gt_pose(problems, pre, dev)
+    W, _, _ = cs.loop_inputs(ms, GOLDEN, off, off, near)
+    q12 = (ms.feat16 @ W)[..., :12].contiguous()
+    out.append(("K7 64 x 4608, D=12, P=9", q12,
+                ms.targets.emb[:, 0].contiguous(), ms.targets.n,
+                ms.targets.payload, None, ()))
+    switched = torch.arange(cs.N_PAIRS, device=dev) % 2 == 1
+    W, phase, _ = cs.loop_inputs(ms, GOLDEN, switched, off, near)
+    q12 = (ms.feat16 @ W)[..., :12].contiguous()
+    out.append(("K8 64 x 4608, mixed phases", q12, ms.targets, ms.targets.n,
+                ms.targets.payload, phase[:, 0].contiguous(), ()))
+    return out
+
+
+def nn_call(lib, own, q, t, n, payload, phase, split):
+    """One launch of the case's entry point in ``lib`` -> (run, outputs);
+    ``own``: the entry points take no split argument."""
+    from se3_icp_tpu_torch.ops import _build
+    P, I = ctypes.c_void_p, ctypes.c_int
+    bsz, nq, d = q.shape
+    extra = () if own else (split,)
+    idx = torch.empty((bsz, nq), dtype=torch.int32, device="cuda")
+    d2 = torch.empty((bsz, nq), device="cuda")
+    if payload is None:
+        fn = lib.se3icp_nn_argmin
+        fn.argtypes = [P] * 5 + [I] * (4 if own else 5) + [P]
+        args = (q.data_ptr(), t.data_ptr(), n.data_ptr(), idx.data_ptr(),
+                d2.data_ptr(), bsz, nq, t.shape[1], d)
+        return (lambda: _build.check(fn(*args, *extra, stream()), "nn")), \
+            (idx, d2)
+    m = torch.empty((bsz, nq, payload.shape[2]), device="cuda")
+    if phase is None:
+        fn = lib.se3icp_nn_match
+        fn.argtypes = [P] * 7 + [I] * (5 if own else 6) + [P]
+        args = (q.data_ptr(), t.data_ptr(), payload.data_ptr(), n.data_ptr(),
+                idx.data_ptr(), d2.data_ptr(), m.data_ptr(), bsz, nq,
+                t.shape[1], d, payload.shape[2])
+    else:
+        fn = lib.se3icp_nn_match_packed
+        fn.argtypes = [P] * 9 + [I] * (4 if own else 5) + [P]
+        args = (q.data_ptr(), t.emb.data_ptr(), t.tn.data_ptr(),
+                payload.data_ptr(), n.data_ptr(), phase.data_ptr(),
+                idx.data_ptr(), d2.data_ptr(), m.data_ptr(), bsz, nq,
+                t.emb.shape[2], payload.shape[2])
+    return (lambda: _build.check(fn(*args, *extra, stream()), "nn")), \
+        (idx, d2, m)
+
+
+def sweep_nn(reps, sass_dir, extras=()):
+    from se3_icp_tpu_torch.ops import _build, cuda_nn
+    text = (_build.CSRC / "nn_argmin.cu").read_text()
+    extras = extra_sources(extras, "nn")
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_all([("nn", text)] + [(t, src) for t, _, src in extras],
+                         tmp, sass_dir)
+        rows = {"S=wrapper": dict(split="the wrapper's", ms={}, split_by={},
+                                  ptxas=resources(libs["nn"][1], "nn_kernel"))}
+        for s in (1, 2, 4, 8):
+            rows[f"S={s}"] = dict(split=s, ms={})
+        own = {}
+        for t, label, src in extras:
+            own[t] = "int split" not in src
+            rows[t] = dict(source=label, ms={}, same_bits={},
+                           own_signature=own[t],
+                           ptxas=resources(libs[t][1], "nn_kernel"))
+        for name, q, t, n, payload, phase, splits in nn_cases():
+            chosen = cuda_nn.split_size(q.shape[0], q.shape[1], q.device)
+            fns, outs = {}, {}
+            fns["S=wrapper"], outs["S=wrapper"] = nn_call(
+                libs["nn"][0], False, q, t, n, payload, phase, chosen)
+            for s in splits:
+                if s != chosen:
+                    fns[f"S={s}"], outs[f"S={s}"] = nn_call(
+                        libs["nn"][0], False, q, t, n, payload, phase, s)
+            for tag, _, _ in extras:
+                fns[tag], outs[tag] = nn_call(libs[tag][0], own[tag], q, t,
+                                              n, payload, phase, chosen)
+            med = time_turns_device(fns, reps, "nn_kernel")
+            ref = outs["S=wrapper"]
+            rows["S=wrapper"]["split_by"][name] = chosen
+            for tag in fns:
+                same = all(torch.equal(a, b) for a, b in zip(outs[tag], ref))
+                if "same_bits" in rows[tag]:
+                    rows[tag]["same_bits"][name] = same
+                elif not same:
+                    raise RuntimeError(f"1-NN {tag}: other bits than S = "
+                                       f"{chosen} on {name}")
+                rows[tag]["ms"][name] = med[tag]
+        return [r for r in rows.values() if r["ms"]]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", nargs="*", default=["k4", "k1", "moments"],
-                    choices=["k4", "k1", "moments"])
+    ap.add_argument("--only", nargs="*",
+                    default=["k4", "k1", "moments", "k5", "nn"],
+                    choices=["k4", "k1", "moments", "k5", "nn"])
     ap.add_argument("--k4", nargs="*", default=[])
     ap.add_argument("--k1", nargs="*", default=[])
     ap.add_argument("--moments", nargs="*", default=[])
+    ap.add_argument("--k5", nargs="*", default=[])
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--sass", metavar="DIR")
     ap.add_argument("--extra-k4", nargs="*", default=[])
     ap.add_argument("--extra-k1", nargs="*", default=[])
     ap.add_argument("--extra-moments", nargs="*", default=[])
+    ap.add_argument("--extra-k5", nargs="*", default=[])
+    ap.add_argument("--extra-nn", nargs="*", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_tiling_sweep: no CUDA device", file=sys.stderr)
         return 2
     from se3_icp_tpu_torch.ops import knn
-    knn.require_full_precision()
+    with knn.full_precision():
+        return sweep(args)
+
+
+def sweep(args) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -410,6 +719,17 @@ def main() -> int:
                                   [parse(v) for v in args.moments],
                                   args.reps, args.sass,
                                   args.extra_moments)}), flush=True)
+        if "k5" in args.only:
+            print(json.dumps({"kernel": "K5", "card": smi,
+                              "variants": sweep_k5(
+                                  [parse(v) for v in args.k5], args.reps,
+                                  args.sass, args.extra_k5)}),
+                  flush=True)
+        if "nn" in args.only:
+            print(json.dumps({"kernel": "K6-K9", "card": smi,
+                              "variants": sweep_nn(args.reps, args.sass,
+                                                   args.extra_nn)}),
+                  flush=True)
     return 0
 
 

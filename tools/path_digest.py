@@ -13,9 +13,13 @@ the main path (``register_pairs``: 64 golden-shape pairs, ``se3_pt2pl``,
 (``register_pairs_multistart``: 8 pairs x 8 starts under
 ``FLIPPED_POSE``) and, as ``chip_smoke.py`` runs them, 8 pairs each of
 ``se3_gicp``, ``se3_gicp_with_cf`` (``LOUNGE``, noisy pairs),
-``se3_pt2pt`` and ``pt2pl`` (a small pose): each once to warm up and
-then ``--reps`` times, all paths in turns.  It saves every pair's
-iteration count and transform (of the last call), the kept starts and
+``se3_pt2pt`` and ``pt2pl`` (a small pose), and the metrics on the main
+path's 64 results as ``chip_smoke.py`` evaluates them (each pair's
+squared chamfer distance and GT correspondences, three K9 launches a
+pair): each once to warm up and then ``--reps`` times, all paths in
+turns.  It saves every pair's
+iteration count and transform (of the last call), the kept starts, the
+chamfer distances and correspondence indices of the metrics, and
 the wall time of every timed call (host clock around work that ends in
 a synchronize), and prints one JSON line with the medians.  The second form prints whether two such files hold the
 same iteration counts and the same transform bits.  Needs a CUDA
@@ -45,6 +49,7 @@ def run(root: str, out: str, reps: int) -> None:
     from se3_icp_tpu_torch.datasets import fixtures
     from se3_icp_tpu_torch.models import multistart
     from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils import metrics
     from se3_icp_tpu_torch.utils.config import GOLDEN, LOUNGE
 
     def timed(fn):
@@ -72,11 +77,23 @@ def run(root: str, out: str, reps: int) -> None:
         small_fns[alg] = functools.partial(
             pairs.register_pairs, [(p.source, p.target) for p in probs],
             alg, cfg)
-    main_fn()
+    evaluated = main_fn()
+
+    def metrics_fn():
+        chamfer, corrs = [], []
+        for p, r in zip(main, evaluated):
+            T = r.transformation
+            moved = p.source @ T[:3, :3].T + T[:3, 3]
+            chamfer.append(float(metrics.chamfer_distance_sq(moved,
+                                                             p.target)))
+            corrs.append(metrics.compute_corrs_with_gt(
+                p.source, p.target, p.T_gt).cpu().numpy())
+        return np.asarray(chamfer), np.stack(corrs)
     ms_fn()
     for fn in small_fns.values():
         fn()
-    main_s, ms_s = [], []
+    metrics_fn()
+    main_s, ms_s, metrics_s = [], [], []
     small_s = {alg: [] for alg in small_fns}
     small_res = {}
     for _ in range(reps):          # in turns: the host clock drifts
@@ -87,6 +104,8 @@ def run(root: str, out: str, reps: int) -> None:
         for alg, fn in small_fns.items():
             small_res[alg], t = timed(fn)
             small_s[alg].append(t)
+        (chamfer, corrs), t = timed(metrics_fn)
+        metrics_s.append(t)
     small_npz = {}
     for alg, res in small_res.items():
         small_npz[f"{alg}_iterations"] = np.asarray(
@@ -103,7 +122,8 @@ def run(root: str, out: str, reps: int) -> None:
              ms_transforms=np.stack([r.best.transformation
                                      for r in ms_res]),
              main_seconds=np.asarray(main_s), ms_seconds=np.asarray(ms_s),
-             **small_npz)
+             metrics_chamfer=chamfer, metrics_corrs=corrs,
+             metrics_seconds=np.asarray(metrics_s), **small_npz)
     print(json.dumps({
         "phase": "path_digest", "root": os.path.abspath(root),
         "device": torch.cuda.get_device_name(0),
@@ -115,7 +135,9 @@ def run(root: str, out: str, reps: int) -> None:
         "multistart_pairs_per_s": 8 / statistics.median(ms_s),
         "small_batch_seconds": small_s,
         "small_batch_median_seconds": {
-            alg: statistics.median(t) for alg, t in small_s.items()}}),
+            alg: statistics.median(t) for alg, t in small_s.items()},
+        "metrics_seconds": metrics_s,
+        "metrics_median_seconds": statistics.median(metrics_s)}),
         flush=True)
 
 
