@@ -7,29 +7,31 @@ for an H100, sm_90a) and the CUDA toolkit:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``se3_icp_tpu_torch/csrc`` (printing
-ptxas's registers, spills and shared memory of K4, K1, K2 and K3 on a
-``ptxas`` line), holds each kernel against its plain PyTorch version on
-the card at the main path's shapes (64 pairs, 4608-point bucket): the
-setup kernels K1-K3 of the sort-free threshold route (K2 and K3 also bit
-for bit between the spatial query order and the index order, K2's
-one-ball instance against its three-ball block, both also at the KITTI
-bucket, 8 x 15360) and the loop kernels K4 (also at 8 x 15360, and with
-its R3-phase chain held bit for bit against its 12-FMA chain), K5 (also
-at 8 x 15360, each phase, whole and trimmed; its launch on the chosen
-cluster of blocks a pair held bit for bit against one block a pair).  It
-then drives the main path through the public entry points
-(``register_pairs`` with ``se3_pt2pl`` / ``GOLDEN`` on 64 seed-made
-golden-shape pairs, on the default threshold route and again with
-``exact_knn=True``), then smaller batches of the other algorithms, then
-the CLI as a subprocess.
+ptxas's registers, spills and shared memory of K4, K1, K2, K3 and the
+tiled 1-NN search of K6/K7 on a ``ptxas`` line), holds each kernel
+against its plain PyTorch version on the card at the main path's shapes
+(64 pairs, 4608-point bucket): the setup kernels K1-K3 of the sort-free
+threshold route (K2 and K3 also bit for bit between the spatial query
+order and the index order, K2's one-ball instance against its three-ball
+block, both also at the KITTI bucket, 8 x 15360) and the loop kernels K4
+(also at 8 x 15360, and with its R3-phase chain held bit for bit against
+its 12-FMA chain), K5 (also at 8 x 15360, each phase, whole and trimmed;
+its launch on the chosen cluster of blocks a pair held bit for bit
+against one block a pair). It then drives the main path through the
+public entry points (``register_pairs`` with ``se3_pt2pl`` / ``GOLDEN``
+on 64 seed-made golden-shape pairs, on the default threshold route and
+again with ``exact_knn=True``), then smaller batches of the other
+algorithms, then the CLI as a subprocess.
 Then the paths of the 1-NN kernels K6-K9: the multistart restart fleet
 (8 pairs x 8 starts), FGR + FPFH through ``register_pairs(..., "fgr")``
 (64 pairs), the metrics on the main path's results, the public 1-NN
 ops, ``run fgr`` and ``run --multi-start`` of the CLI, and K6-K9 against
 their plain versions (K9 at 4608 points, D = 3, and 15360, D = 12, its
 targets split over several blocks a query tile and held bit for bit
-against the unsplit search).  K5's and K6-K9's cases report the kernel
-alone (torch.profiler) beside the time through the wrapper.  It gates
+against the unsplit search; K6 and K7, the register-tiled search, held
+bit for bit against the one-query-a-thread search at S = 1 on the same
+batch).  K5's, K6's, K7's and K9's cases report the kernel alone
+(torch.profiler) beside the time through the wrapper.  It gates
 every result at 2 deg / 0.25, and shows
 from the wrappers' launch counts that each path went through its
 kernels.  Every phase
@@ -201,10 +203,23 @@ def build_phase() -> None:
          sources=[os.path.relpath(s, ROOT) for s in _build.sources()],
          library=os.path.relpath(lib_path, ROOT))
     # K4, K1's instances by the number of counts T and K2's by the number
-    # of balls (template arguments), K3
+    # of balls (template arguments), K3; the tiled 1-NN search (K6, K7)
+    # by width, with its dynamic shared memory a block
     res = ptxas_resources(log.getvalue())
+    lib = _build.load()
+
+    def tiled(pay):
+        out = {}
+        for k, v in res.items():
+            if "nn_tiled_kernelILi" not in k or f"ELb{pay}E" not in k:
+                continue
+            d = int(k.split("nn_tiled_kernelILi")[1].split("E")[0])
+            out[f"D={d}"] = dict(v, dynamic_smem_bytes=(
+                lib.se3icp_nn_tiled_smem(d)))
+        return out
     emit("ptxas", nn_match_affine={k: v for k, v in res.items()
                                    if "match_affine_kernel" in k},
+         nn_argmin_batched=tiled(0), nn_match_batched=tiled(1),
          neighborhood_thresholds_batched={
              f"T={k.split('thresholds_kernelILi')[1][0]}": v
              for k, v in res.items() if "thresholds_kernelILi" in k},
@@ -845,7 +860,8 @@ def profile_line(call, phase="profile"):
     own = {tag: dict(ms=sum(r[0] for r in rows if tag in r[2]) / 1e3,
                      calls=sum(r[1] for r in rows if tag in r[2]))
            for tag in ("thresholds_kernel", "moments_kernel", "axis_kernel",
-                       "match_affine_kernel", "epilogue_kernel", "nn_kernel")}
+                       "match_affine_kernel", "epilogue_kernel", "nn_kernel",
+                       "nn_tiled_kernel")}
     emit(phase, device_ms_total=total / 1e3, wall_ms_profiled=1e3 * wall,
          device_kernel_launches=sum(r[1] for r in rows),
          hand_written=own,
@@ -1091,8 +1107,10 @@ def nn_bound(q, t, n, payload_width=0, tn_read=False):
 
 def nn_argmin_case(name, q, t, n, unbatched=False, with_cdist=False,
                    n_q=None):
-    """K6 (or K9 on one cloud) against its plain version, and the
-    chosen target split against the unsplit search (S = 1), bit for
+    """K6 (the tiled search) against its plain version and, bit for bit,
+    against the one-query-a-thread search (K9's entry point at S = 1 on
+    the same batch); or K9 on one cloud against its plain version and
+    its chosen target split against the unsplit search (S = 1), bit for
     bit."""
     from se3_icp_tpu_torch.ops import cuda_nn
     if unbatched:
@@ -1101,18 +1119,26 @@ def nn_argmin_case(name, q, t, n, unbatched=False, with_cdist=False,
             q[0], t[0], n[0], split=split)]
         plain = lambda: cuda_nn.nn_argmin_unbatched_plain(q[0], t[0], n[0])
         out_k, out_p = fn(), [x[None] for x in plain()]
+        torch.cuda.synchronize()
+        split = cuda_nn.split_size(q.shape[0], q.shape[1], q.device)
+        check(same_bits(tuple(out_k), tuple(fn(split=1))),
+              f"{name}: S = {split} gives other bits than the unsplit "
+              "search")
+        route = dict(split=split, same_bits_as_split_1=True)
+        tag = "nn_kernel"
     else:
-        fn = lambda split=None: cuda_nn.nn_argmin_batched(q, t, n,
-                                                          split=split)
+        fn = lambda: cuda_nn.nn_argmin_batched(q, t, n)
         plain = lambda: cuda_nn.nn_argmin_batched_plain(q, t, n)
         out_k, out_p = fn(), plain()
-    torch.cuda.synchronize()
-    split = cuda_nn.split_size(q.shape[0], q.shape[1], q.device)
-    check(same_bits(tuple(out_k), tuple(fn(split=1))),
-          f"{name}: S = {split} gives other bits than the unsplit search")
+        torch.cuda.synchronize()
+        check(same_bits(tuple(out_k),
+                        cuda_nn.untiled_argmin(q, t, n, split=1)),
+              f"{name}: the tiled search gives other bits than the "
+              "untiled one")
+        route = dict(same_bits_as_untiled=True)
+        tag = "nn_tiled_kernel"
     case = dict(name=name, **nn_check(name, q, t, n, *out_k, *out_p, n_q),
-                split=split, same_bits_as_split_1=True,
-                ms=time_ms(fn), kernel_alone_ms=alone_ms(fn, "nn_kernel"),
+                **route, ms=time_ms(fn), kernel_alone_ms=alone_ms(fn, tag),
                 plain_ms=time_ms(plain, reps=3),
                 **nn_bound(q, t, n), library_ms=None,
                 shape=dict(B=q.shape[0], Nq=q.shape[1], Nt=t.shape[1],
@@ -1144,19 +1170,25 @@ def cdist_min_gather_ms(q, t, payload):
 
 
 def nn_match_case(name, q, t, payload, n):
-    """K7 against its plain version: the matched rows are copies."""
+    """K7 (the tiled search) against its plain version and, bit for bit,
+    against the one-query-a-thread search (K9's entry point at S = 1):
+    the matched rows are copies of the indexed payload rows."""
     from se3_icp_tpu_torch.ops import cuda_nn
     args = (q, t, payload, n)
-    idx, d2, m = cuda_nn.nn_match_batched(*args)
+    fn = lambda: cuda_nn.nn_match_batched(*args)
+    idx, d2, m = fn()
     torch.cuda.synchronize()
     idx_p, d2_p, _ = cuda_nn.nn_match_batched_plain(*args)
     case = nn_check(name, q, t, n, idx, d2, idx_p, d2_p)
+    check(same_bits((idx, d2), cuda_nn.untiled_argmin(q, t, n, split=1)),
+          f"{name}: the tiled search gives other bits than the untiled one")
     want = torch.gather(payload, 1, idx.long()[..., None].expand(
         -1, -1, payload.shape[2]))
     check(bool((m == want).all()), f"{name}: matched rows are not the "
           "payload rows of the returned indices")
     return dict(name=name, **case, payload_bit_equal=True,
-                ms=time_ms(lambda: cuda_nn.nn_match_batched(*args)),
+                same_bits_as_untiled=True, ms=time_ms(fn),
+                kernel_alone_ms=alone_ms(fn, "nn_tiled_kernel"),
                 plain_ms=time_ms(lambda: cuda_nn.nn_match_batched_plain(
                     *args), reps=3),
                 **nn_bound(q, t, n, payload.shape[2]),

@@ -12,9 +12,11 @@ unchanged one is reused, also by a second process.
 A missing ``nvcc`` or a failing build raises: nothing here gives way to
 a kernel's plain version.
 
-Each exported C function launches on the stream it is handed, allocates
-nothing and returns ``cudaGetLastError()``; ``check`` turns a non-zero
-code into an exception.
+Each exported C function that launches a kernel launches it on the
+stream it is handed, allocates nothing and returns
+``cudaGetLastError()``; ``check`` turns a non-zero code into an
+exception.  ``se3icp_nn_tiled_smem`` launches nothing: it returns the
+tiled 1-NN search's shared memory a block, for the card checks' report.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argtypes; every function returns the cudaError_t as int
+# name -> argtypes; every function returns an int: the cudaError_t of its
+# launch, or (``se3icp_nn_tiled_smem``) a size
 SIGNATURES = {
     # feat, w, emb, tn, payload, n_tgt, phase, d2, matchedT,
     # B, Nq, Nt, P, stream
@@ -53,8 +56,12 @@ SIGNATURES = {
     "se3icp_axis": [_P] * 7 + [_I] * 2 + [_P],
     # q, t, n_tgt, idx, d2, B, Nq, Nt, D, split, stream
     "se3icp_nn_argmin": [_P] * 5 + [_I] * 5 + [_P],
-    # q, t, payload, n_tgt, idx, d2, matched, B, Nq, Nt, D, P, split, stream
-    "se3icp_nn_match": [_P] * 7 + [_I] * 6 + [_P],
+    # q, t, n_tgt, idx, d2, B, Nq, Nt, D, stream
+    "se3icp_nn_argmin_batched": [_P] * 5 + [_I] * 4 + [_P],
+    # q, t, payload, n_tgt, idx, d2, matched, B, Nq, Nt, D, P, stream
+    "se3icp_nn_match_batched": [_P] * 7 + [_I] * 5 + [_P],
+    # D -> dynamic shared memory bytes of a tiled-search block
+    "se3icp_nn_tiled_smem": [_I],
     # q, emb, tn, payload, n_tgt, phase, idx, d2, matched,
     # B, Nq, Nt, P, split, stream
     "se3icp_nn_match_packed": [_P] * 9 + [_I] * 5 + [_P],

@@ -7,8 +7,7 @@ that compute one function:
     ``nn_argmin_pallas_batched``: q [B,Nq,D], t [B,Nt,D], n_targets [B]
     -> (idx [B,Nq] int32, d2 [B,Nq]);
   * K9 ``nn_argmin_unbatched`` <- ``_kernel`` / ``nn_argmin_pallas``: the
-    same for one cloud, q [Nq,D], t [Nt,D] (the same CUDA kernel at
-    B = 1, counted on its own);
+    same for one cloud, q [Nq,D], t [Nt,D];
   * K7 ``nn_match_batched``   <- ``_kernel_match`` /
     ``nn_match_pallas_batched``: K6 plus matched [B,Nq,P] =
     payload[b, idx[b, i]], bit for bit;
@@ -26,8 +25,13 @@ with a full-float32 matrix product, so the two agree to a few ulps of
 than that.  The kernel takes the widths ``WIDTHS``; ``knn.nn_argmin``
 pads other widths (zero columns change no distance).
 
-Each wrapper launches its CUDA kernel for tensors on the card and raises
-if it cannot; it takes the plain version only for CPU tensors.
+K6 and K7 launch the register-tiled search (``nn_tiled_kernel``), K8
+and K9 the search of one query a thread (``nn_kernel``, its targets split
+over S blocks a query tile where the grid is small); both return the
+same bits on the same inputs (one FMA chain a distance, the lowest index
+on ties).  Each wrapper launches its CUDA kernel for tensors on the card
+and raises if it cannot; it takes the plain version only for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -113,11 +117,12 @@ def nn_match_packed_plain(queries, targets: cuda_knn.MatchTargets, phase):
 # ---------------------------------------------------------------- kernels
 
 MAX_SPLIT = 8   # target slices a query tile (the portable cluster size)
-_QUERY_TILE = 128   # queries a block (csrc/nn_argmin.cu kThreads)
+_QUERY_TILE = 128   # queries a block of nn_kernel (csrc/nn_argmin.cu kThreads)
 
 
 def split_size(bsz: int, nq: int, device) -> int:
-    """Target slices a query tile: the smallest S in (1, 2, 4, 8) with
+    """Target slices a query tile of ``nn_kernel`` (K8, K9): the
+    smallest S in (1, 2, 4, 8) with
     S times the grid's ceil(Nq/128) * B blocks at least twice the SM
     count of ``device`` (8 if none); 1 for a grid that fills the card
     twice.  Two blocks an SM: one cloud of 4608 queries ran 0.022 ms
@@ -158,7 +163,13 @@ def _outputs(bsz, nq, dev):
     return out[0].view(torch.int32), out[1]
 
 
-def _launch_argmin(queries, targets, n_targets, what, split):
+def untiled_argmin(queries, targets, n_targets, split=None):
+    """The search of one query a thread (``nn_kernel``, K9's entry point)
+    at any batch: queries [B,Nq,D], targets [B,Nt,D] float32 on the card,
+    n_targets [B] int32 -> (idx [B,Nq] int32, d2 [B,Nq]).  ``split``:
+    target slices a query tile (default ``split_size``; every S gives the
+    same bits).  K9's wrapper launches it at B = 1; the card checks hold
+    K6 and K7 bit for bit against it.  Counts no launch."""
     bsz, nq, nt, d, dev = _check_search(queries, targets, n_targets)
     cuda_knn._check(targets, "targets", (bsz, nt, d), torch.float32, dev)
     idx, d2 = _outputs(bsz, nq, dev)
@@ -166,21 +177,25 @@ def _launch_argmin(queries, targets, n_targets, what, split):
         _build.load().se3icp_nn_argmin, dev, queries.data_ptr(),
         targets.data_ptr(), n_targets.data_ptr(), idx.data_ptr(),
         d2.data_ptr(), bsz, nq, nt, d, _split_arg(split, bsz, nq, dev))
-    _build.check(code, what)
+    _build.check(code, "nn_argmin (untiled)")
     return idx, d2
 
 
-def nn_argmin_batched(queries, targets, n_targets, split=None):
+def nn_argmin_batched(queries, targets, n_targets):
     """K6: batched exact 1-NN.  queries [B,Nq,D], targets [B,Nt,D]
-    float32, n_targets [B] int32 -> (idx [B,Nq] int32, d2 [B,Nq]).
-    ``split``: target slices a query tile (default ``split_size``; every
-    S gives the same bits)."""
+    float32, n_targets [B] int32 -> (idx [B,Nq] int32, d2 [B,Nq])."""
     if not queries.is_cuda:
         return nn_argmin_batched_plain(queries, targets, n_targets)
-    out = _launch_argmin(queries, targets, n_targets, "nn_argmin_batched",
-                         split)
+    bsz, nq, nt, d, dev = _check_search(queries, targets, n_targets)
+    cuda_knn._check(targets, "targets", (bsz, nt, d), torch.float32, dev)
+    idx, d2 = _outputs(bsz, nq, dev)
+    code = _build.launch(
+        _build.load().se3icp_nn_argmin_batched, dev, queries.data_ptr(),
+        targets.data_ptr(), n_targets.data_ptr(), idx.data_ptr(),
+        d2.data_ptr(), bsz, nq, nt, d)
+    _build.check(code, "nn_argmin_batched")
     nn_argmin_batched.launches += 1
-    return out
+    return idx, d2
 
 
 @functools.lru_cache(maxsize=64)
@@ -193,8 +208,9 @@ def nn_argmin_unbatched(queries, targets, n_targets, split=None):
     """K9: exact 1-NN of one cloud.  queries [Nq,D], targets [Nt,D]
     float32, n_targets an int or a 0-d/[1] integer tensor (on the card
     it is used where it lies, without a copy; an int becomes a cached
-    device tensor) -> (idx [Nq] int32, d2 [Nq]).  ``split`` as in
-    ``nn_argmin_batched``."""
+    device tensor) -> (idx [Nq] int32, d2 [Nq]).  ``split``: target
+    slices a query tile (default ``split_size``; every S gives the same
+    bits)."""
     if not queries.is_cuda:
         return nn_argmin_unbatched_plain(queries, targets, n_targets)
     dev = queries.device
@@ -206,13 +222,12 @@ def nn_argmin_unbatched(queries, targets, n_targets, split=None):
             n = n.to(torch.int32)
     else:
         n = _count_on(dev, int(n_targets))
-    idx, d2 = _launch_argmin(queries[None], targets[None], n,
-                             "nn_argmin_unbatched", split)
+    idx, d2 = untiled_argmin(queries[None], targets[None], n, split)
     nn_argmin_unbatched.launches += 1
     return idx[0], d2[0]
 
 
-def nn_match_batched(queries, targets, payload, n_targets, split=None):
+def nn_match_batched(queries, targets, payload, n_targets):
     """K7: K6 plus the matched payload rows.  payload [B,Nt,P] float32
     -> (idx, d2, matched [B,Nq,P])."""
     if not queries.is_cuda:
@@ -226,10 +241,10 @@ def nn_match_batched(queries, targets, payload, n_targets, split=None):
     idx, d2 = _outputs(bsz, nq, dev)
     matched = torch.empty((bsz, nq, p), dtype=torch.float32, device=dev)
     code = _build.launch(
-        _build.load().se3icp_nn_match, dev, queries.data_ptr(),
+        _build.load().se3icp_nn_match_batched, dev, queries.data_ptr(),
         targets.data_ptr(), payload.data_ptr(), n_targets.data_ptr(),
         idx.data_ptr(), d2.data_ptr(), matched.data_ptr(), bsz, nq, nt, d,
-        p, _split_arg(split, bsz, nq, dev))
+        p)
     _build.check(code, "nn_match_batched")
     nn_match_batched.launches += 1
     return idx, d2, matched

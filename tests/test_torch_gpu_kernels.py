@@ -403,20 +403,46 @@ def test_epilogue_cluster_sizes_give_the_same_bits(card, variant, is_se3,
 
 @pytest.mark.parametrize("d", [3, 12])
 def test_split_search_gives_the_unsplit_bits(card, d):
-    """K6/K9 with the targets split over S = 2 to 8 blocks a query tile:
-    the bits of S = 1 (counts past, inside and at slice boundaries, one
-    target; ties across a boundary), and one cloud through K9 with an
-    int count and a device count."""
+    """K9 with the targets split over S = 2 to 8 blocks a query tile:
+    the bits of S = 1 on every pair of the split case (counts past,
+    inside and at slice boundaries, one target; ties across a boundary),
+    with an int count and a device count; the tiled K6 on the batch
+    gives the same bits."""
     q, t, n = (x.to(card) for x in kcases.split_case(d))
-    ref = cuda_nn.nn_argmin_batched(q, t, n, split=1)
-    for s in range(2, cuda_nn.MAX_SPLIT + 1):
-        got = cuda_nn.nn_argmin_batched(q, t, n, split=s)
+    tiled = cuda_nn.nn_argmin_batched(q, t, n)
+    for b in range(q.shape[0]):
+        ref = cuda_nn.nn_argmin_unbatched(q[b], t[b], n[b], split=1)
+        assert torch.equal(ref[0], tiled[0][b])
+        assert torch.equal(ref[1], tiled[1][b])
+        for s in range(2, cuda_nn.MAX_SPLIT + 1):
+            got = cuda_nn.nn_argmin_unbatched(q[b], t[b], n[b], split=s)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1],
+                                                               ref[1])
+        got = cuda_nn.nn_argmin_unbatched(q[b], t[b], int(n[b]))
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    assert int(ref[0][0, 0]) == kcases.TIE_LO
-    one = cuda_nn.nn_argmin_unbatched(q[1], t[1], int(n[1]))
-    dev_n = cuda_nn.nn_argmin_unbatched(q[1], t[1], n[1])
-    for got in (one, dev_n):
-        assert torch.equal(got[0], ref[0][1]) and torch.equal(got[1],
-                                                              ref[1][1])
+    assert int(tiled[0][0, 0]) == kcases.TIE_LO
     with pytest.raises(ValueError):
-        cuda_nn.nn_argmin_batched(q, t, n, split=9)
+        cuda_nn.nn_argmin_unbatched(q[0], t[0], n[0], split=9)
+
+
+@pytest.mark.parametrize("one_point", [False, True],
+                         ids=["planted-ties", "one-point"])
+@pytest.mark.parametrize("d", [3, 12, 33, 64])
+def test_tiled_search_gives_the_untiled_bits(card, d, one_point):
+    """K6 and K7 (the register-tiled search) against the
+    one-query-a-thread search at S = 1 on the same batch, bit for bit,
+    on the emulated tests' case: ragged query and target tiles, a pair
+    with no valid target (row 0, 3.4e38 + |q|^2), exact ties inside a
+    thread's step, between the threads of a query, across steps and
+    tiles; K7's rows are copies of the payload rows."""
+    q, t, n = (x.to(card) for x in kcases.tiled_case(d, one_point))
+    idx, d2 = cuda_nn.nn_argmin_batched(q, t, n)
+    ref = cuda_nn.untiled_argmin(q, t, n, split=1)
+    assert torch.equal(idx, ref[0]) and torch.equal(d2, ref[1])
+    for (b, i), j in kcases.tiled_answers(one_point).items():
+        assert int(idx[b, i]) == j, (b, i)
+    assert bool((idx[1] == 0).all() and (d2[1] >= 3.4e38).all())
+    pay = torch.randn(4, t.shape[1], 9, device=card)
+    idx_m, d2_m, m = cuda_nn.nn_match_batched(q, t, pay, n)
+    assert torch.equal(idx_m, idx) and torch.equal(d2_m, d2)
+    assert torch.equal(m, cuda_nn._gather_rows(pay, idx))

@@ -20,7 +20,8 @@ bit-equal to its 12-FMA chain on the same targets; K6-K9 d2
 within 1e-5 of |q|^2 + max |t|^2 (an FMA chain here, a matrix product in
 the plain version), indices equal except between targets within that of
 each other (at most 1% of rows), matched rows copies of the indexed
-payload rows.  Needs a host C++20 compiler (``g++``).
+payload rows, and the tiled K6/K7 bit-equal to the untiled search.
+Needs a host C++20 compiler (``g++``).
 """
 
 import copy
@@ -92,9 +93,9 @@ def emulated(tmp_path_factory):
                    check=True, capture_output=True, text=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     for name in ("se3icp_thresholds", "se3icp_moments", "se3icp_axis",
-                 "se3icp_nn_argmin", "se3icp_nn_match",
-                 "se3icp_nn_match_packed", "se3icp_match_affine",
-                 "se3icp_loop_epilogue"):
+                 "se3icp_nn_argmin", "se3icp_nn_argmin_batched",
+                 "se3icp_nn_match_batched", "se3icp_nn_match_packed",
+                 "se3icp_match_affine", "se3icp_loop_epilogue"):
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -348,30 +349,94 @@ def _nn_inputs(d, seed):
     return q, t, torch.tensor([333, 200], dtype=torch.int32)
 
 
+def _nn_untiled(lib, q, t, n, split):
+    """The emulated one-query-a-thread search (K9's entry point) at
+    ``split`` target slices and q's batch -> (code, idx, d2)."""
+    bsz, nq, d = q.shape
+    idx = torch.full((bsz, nq), -1, dtype=torch.int32)
+    d2 = torch.full((bsz, nq), float("nan"))
+    code = lib.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(), n.data_ptr(),
+                                idx.data_ptr(), d2.data_ptr(), bsz, nq,
+                                t.shape[1], d, split, None)
+    return code, idx, d2
+
+
+def _nn_tiled(lib, q, t, n, pay=None, d=None):
+    """The emulated tiled search: K6 -> (code, idx, d2), K7 with ``pay``
+    -> (code, idx, d2, matched); ``d`` overrides the width passed."""
+    bsz, nq, width = q.shape
+    d = width if d is None else d
+    nt = t.shape[1]
+    idx = torch.full((bsz, nq), -1, dtype=torch.int32)
+    d2 = torch.full((bsz, nq), float("nan"))
+    if pay is None:
+        code = lib.se3icp_nn_argmin_batched(
+            q.data_ptr(), t.data_ptr(), n.data_ptr(), idx.data_ptr(),
+            d2.data_ptr(), bsz, nq, nt, d, None)
+        return code, idx, d2
+    m = torch.full((bsz, nq, pay.shape[2]), float("nan"))
+    code = lib.se3icp_nn_match_batched(
+        q.data_ptr(), t.data_ptr(), pay.data_ptr(), n.data_ptr(),
+        idx.data_ptr(), d2.data_ptr(), m.data_ptr(), bsz, nq, nt, d,
+        pay.shape[2], None)
+    return code, idx, d2, m
+
+
 @pytest.mark.parametrize("d", cuda_nn.WIDTHS)
 def test_emulated_nn_kernels_match_plain(emulated, d):
     q, t, n = _nn_inputs(d, d)
-    bsz, nq, nt = 2, 300, 333
-    idx = torch.full((bsz, nq), -1, dtype=torch.int32)
-    d2 = torch.full((bsz, nq), float("nan"))
-    assert emulated.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(),
-                                     n.data_ptr(), idx.data_ptr(),
-                                     d2.data_ptr(), bsz, nq, nt, d, 1,
-                                     None) == 0
+    code, idx, d2 = _nn_tiled(emulated, q, t, n)
+    assert code == 0
     _nn_hold(q, t, n, idx, d2, *cuda_nn.nn_argmin_batched_plain(q, t, n))
-    pay = torch.randn(bsz, nt, 5)
-    m = torch.full((bsz, nq, 5), float("nan"))
-    assert emulated.se3icp_nn_match(q.data_ptr(), t.data_ptr(),
-                                    pay.data_ptr(), n.data_ptr(),
-                                    idx.data_ptr(), d2.data_ptr(),
-                                    m.data_ptr(), bsz, nq, nt, d, 5, 1,
-                                    None) == 0
+    pay = torch.randn(2, 333, 5)
+    code, idx_m, d2_m, m = _nn_tiled(emulated, q, t, n, pay)
+    assert code == 0 and torch.equal(idx_m, idx) and torch.equal(d2_m, d2)
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
-    # a width the kernel is not built for is refused, not run
+    # a width the kernels are not built for is refused, not run
+    assert _nn_tiled(emulated, q, t, n, d=5)[0] != 0
+    assert _nn_tiled(emulated, q, t, n, pay, d=5)[0] != 0
     assert emulated.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(),
                                      n.data_ptr(), idx.data_ptr(),
-                                     d2.data_ptr(), bsz, nq, nt, 5, 1,
+                                     d2.data_ptr(), 2, 300, 333, 5, 1,
                                      None) != 0
+
+
+@pytest.mark.parametrize("one_point", [False, True],
+                         ids=["planted-ties", "one-point"])
+@pytest.mark.parametrize("d", cuda_nn.WIDTHS)
+def test_emulated_tiled_search_returns_the_untiled_bits(emulated, d,
+                                                        one_point):
+    """K6 and K7 (the tiled search) against the one-query-a-thread
+    search at S = 1 on the same batch, bit for bit: 300 queries (a
+    ragged query tile) against 333 target rows with counts of every row,
+    none, 201 and 129 (ragged target tiles and steps), rows past a count
+    nearer than any valid one, and exact ties inside a thread's step,
+    between two threads of a query, across steps and across tiles (or
+    every query one point on a tie of twelve rows); the lowest index of
+    each tie; a pair with no valid target gives row 0 and 3.4e38 + |q|^2;
+    K7's rows are copies of the payload rows; the plain version's
+    results within the kernels' tolerance."""
+    q, t, n = kcases.tiled_case(d, one_point)
+    code, idx, d2 = _nn_tiled(emulated, q, t, n)
+    assert code == 0
+    code, idx_u, d2_u = _nn_untiled(emulated, q, t, n, 1)
+    assert code == 0
+    assert torch.equal(idx, idx_u) and torch.equal(d2, d2_u)
+    for (b, i), j in kcases.tiled_answers(one_point).items():
+        assert int(idx[b, i]) == j, (b, i)
+    qn = torch.zeros(q.shape[:2])
+    for k in range(d):                       # the kernel's |q|^2 chain
+        qn = torch.addcmul(qn, q[..., k], q[..., k])
+    assert bool((idx[1] == 0).all())
+    assert torch.equal(d2[1], torch.tensor(3.4e38) + qn[1])
+    live = n > 0
+    _nn_hold(q[live], t[live], n[live], idx[live], d2[live],
+             *cuda_nn.nn_argmin_batched_plain(q[live], t[live], n[live]))
+    pay = torch.randn(4, t.shape[1], 9,
+                      generator=torch.Generator().manual_seed(d))
+    code, idx_m, d2_m, m = _nn_tiled(emulated, q, t, n, pay)
+    assert code == 0 and torch.equal(idx_m, idx) and torch.equal(d2_m, d2)
+    assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
 
 
 def test_emulated_packed_match_kernel_matches_plain(emulated):
@@ -394,26 +459,6 @@ def test_emulated_packed_match_kernel_matches_plain(emulated):
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
 
 
-
-def _nn_split(lib, q, t, n, split, pay=None):
-    """The emulated K6 (K7 with ``pay``) at ``split`` target slices."""
-    bsz, nq, d = q.shape
-    nt = t.shape[1]
-    idx = torch.full((bsz, nq), -1, dtype=torch.int32)
-    d2 = torch.full((bsz, nq), float("nan"))
-    if pay is None:
-        code = lib.se3icp_nn_argmin(q.data_ptr(), t.data_ptr(), n.data_ptr(),
-                                    idx.data_ptr(), d2.data_ptr(), bsz, nq,
-                                    nt, d, split, None)
-        return code, idx, d2
-    m = torch.full((bsz, nq, pay.shape[2]), float("nan"))
-    code = lib.se3icp_nn_match(q.data_ptr(), t.data_ptr(), pay.data_ptr(),
-                               n.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-                               m.data_ptr(), bsz, nq, nt, d, pay.shape[2],
-                               split, None)
-    return code, idx, d2, m
-
-
 @pytest.mark.parametrize("d", [3, 12])
 def test_emulated_split_search_returns_the_unsplit_bits(emulated, d):
     """The targets split into S = 2, 3 and 8 slices of a query tile (a
@@ -421,12 +466,13 @@ def test_emulated_split_search_returns_the_unsplit_bits(emulated, d):
     plain version's result, with counts past the rows, inside a slice,
     at a slice boundary and of one target, slices with no valid target
     (S = 8 everywhere, S = 3 at one target), and exact ties across a
-    slice boundary and inside a count (the lower index wins)."""
+    slice boundary and inside a count (the lower index wins); the tiled
+    K6 and K7 give the same bits."""
     q, t, n = kcases.split_case(d)
-    code, idx, d2 = _nn_split(emulated, q, t, n, 1)
+    code, idx, d2 = _nn_untiled(emulated, q, t, n, 1)
     assert code == 0
     for split in (2, 3, 8):
-        code, idx_s, d2_s = _nn_split(emulated, q, t, n, split)
+        code, idx_s, d2_s = _nn_untiled(emulated, q, t, n, split)
         assert code == 0
         assert torch.equal(idx_s, idx) and torch.equal(d2_s, d2), split
     assert int(idx[0, 0]) == kcases.TIE_LO and int(idx[1, 1]) == 20
@@ -436,12 +482,14 @@ def test_emulated_split_search_returns_the_unsplit_bits(emulated, d):
              *cuda_nn.nn_argmin_batched_plain(q, t, n_eff))
     pay = torch.randn(4, t.shape[1], 5,
                       generator=torch.Generator().manual_seed(d))
-    code, idx_m, d2_m, m = _nn_split(emulated, q, t, n, 3, pay)
+    code, idx_m, d2_m, m = _nn_tiled(emulated, q, t, n, pay)
     assert code == 0 and torch.equal(idx_m, idx) and torch.equal(d2_m, d2)
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+    code, idx_t, d2_t = _nn_tiled(emulated, q, t, n)
+    assert code == 0 and torch.equal(idx_t, idx) and torch.equal(d2_t, d2)
     # slice counts the kernel does not take are refused, not run
     for split in (0, 9):
-        assert _nn_split(emulated, q, t, n, split)[0] != 0
+        assert _nn_untiled(emulated, q, t, n, split)[0] != 0
 
 
 # --------------------------------------------------------------- K5

@@ -238,3 +238,67 @@ def split_case(d, seed=0):
     q[:, 0] = t[:, TIE_LO]
     q[:, 1] = t[:, 20]
     return q, t, torch.tensor(SPLIT_COUNTS, dtype=torch.int32)
+
+
+# ------------------------------------------------- K6/K7 tiled search
+
+# exact ties planted in the targets of the tiled search (csrc/nn_argmin.cu
+# nn_tiled_kernel: 4 threads share a query, each with 8 targets a step in
+# two groups of 4, 32 targets a step, tiles of 256 targets at D <= 12 and
+# of 64 above): inside one thread's group (1, 2) and across its two
+# groups (6, 22); between two threads of a query, the lower index in the
+# higher thread (13, 17) and in the lower one (5, 9); across steps of one
+# thread (10, 74; 3, 35) and of two (28, 32); across tiles (20, 148,
+# 276).  Query i sits exactly on the first row of tie i, so the lowest
+# index is its answer.
+TILED_TIES = ((1, 2), (6, 22), (13, 17), (5, 9), (10, 74), (3, 35),
+              (28, 32), (20, 148, 276))
+# valid counts: every row (333, no multiple of a tile or a step), none,
+# inside a tile (201: the last tie reaches past it), one past a tile of
+# 128 (129)
+TILED_COUNTS = (333, 0, 201, 129)
+
+
+def tiled_case(d, one_point=False, seed=0):
+    """(q [4,300,d], t [4,333,d], n [4] int32) for the tiled 1-NN: 300
+    queries (no multiple of the 128 a block).  Rows at or past a pair's
+    count are copies of its queries, nearer than any valid row, so a
+    search that reads them matches them.  ``one_point``: every query is
+    one point and the ties' rows are that point (the others far), so every
+    lane of every warp sees the same distances."""
+    rng = np.random.default_rng(seed)
+    nq, nt = 300, 333
+    q = rng.normal(size=(4, nq, d))
+    t = rng.normal(size=(4, nt, d))
+    rows = [j for tie in TILED_TIES for j in tie]
+    if one_point:
+        t += 8.0
+        x = rng.normal(size=(4, 1, d))
+        q[:] = x
+        t[:, rows] = x
+    else:
+        for i, tie in enumerate(TILED_TIES):
+            t[:, list(tie)] = t[:, [tie[0]]]
+            q[:, i] = t[:, tie[0]]
+    for b, n in enumerate(TILED_COUNTS):
+        k = min(nt - n, nq)
+        t[b, n:n + k] = q[b, :k]
+    return (torch.as_tensor(q.astype(np.float32)),
+            torch.as_tensor(t.astype(np.float32)),
+            torch.tensor(TILED_COUNTS, dtype=torch.int32))
+
+
+def tiled_answers(one_point=False):
+    """{(pair, query): index} the planted ties fix in ``tiled_case``."""
+    out = {}
+    for b, n in enumerate(TILED_COUNTS):
+        if one_point:
+            lo = min(j for tie in TILED_TIES for j in tie if j < n) \
+                if n > 1 else None
+            if lo is not None:
+                out.update({(b, i): lo for i in range(300)})
+            continue
+        for i, tie in enumerate(TILED_TIES):
+            if tie[0] < n:
+                out[(b, i)] = tie[0]
+    return out

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Tiling factors of K4 (``csrc/match_affine.cu``), K1
-(``csrc/thresholds.cu``) and K2, K3 (``csrc/moments.cu``), and the
-cluster and split sizes of K5 (``csrc/loop_epilogue.cu``) and of the 1-NN
-template K6-K9 (``csrc/nn_argmin.cu``), measured side by side on one card.
+(``csrc/thresholds.cu``), K2, K3 (``csrc/moments.cu``) and the tiled 1-NN
+search of K6/K7 (``csrc/nn_argmin.cu``), and the cluster and split sizes
+of K5 (``csrc/loop_epilogue.cu``) and of the one-query-a-thread search of
+K8/K9, measured side by side on one card.
 
     python3 tools/kernel_tiling_sweep.py [--only k4 k1 moments k5 nn]
                                          [--k4 THREADS,R,MINBLOCKS,U,U3 ...]
                                          [--k1 Q,WARPS ...]
                                          [--moments T2,R2,T3,R3 ...]
                                          [--k5 LEVELS ...]
+                                         [--nn-tile R,C,COLS,THREADS,NARROW,WIDE,MINBLOCKS ...]
                                          [--reps N]
                                          [--extra-k4 LABEL=FILE.cu ...]
                                          [--extra-k1 LABEL=FILE.cu ...]
@@ -20,7 +22,10 @@ Each variant is the committed source with its ``constexpr`` tiling
 factors replaced in a temporary copy (K4: ``kThreads``, ``kR``,
 ``kMinBlocks``, ``kU``, ``kU3``; K1: ``kQ``, ``kWarps``; K2/K3:
 ``kMomThreads``, ``kMomR``, ``kAxisThreads``, ``kAxisR``; K5: ``kLevels``,
-the trim's bisection levels a counting pass), compiled by nvcc with the package's flags and ``-Xptxas -v`` (registers,
+the trim's bisection levels a counting pass; the tiled 1-NN search:
+``kTR``, ``kTC`` (queries and targets a thread), ``kTCols`` (threads
+that share a query), ``kTThreads``, ``kTTileNarrow``, ``kTTileWide``
+(targets a staged tile at D <= 12 and above), ``kTMinBlocks``), compiled by nvcc with the package's flags and ``-Xptxas -v`` (registers,
 spills, shared memory) into a library of its own, and called through the
 same C entry point on the main path's inputs as ``chip_smoke.py`` makes
 them (64 golden-shape pairs in the 4608 bucket; K4, K2 and K3 also at 8
@@ -30,17 +35,19 @@ near the answer, K1 on the sources with the main path's counts (90, 31,
 sources and the targets with those counts' balls. The variants are timed
 in turns (CUDA events, the median of ``--reps`` rounds), and each must
 return the bits of the first variant, the committed factors.
-K5's and the 1-NN template's variants are timed by their device time
+K5's and the 1-NN kernels' variants are timed by their device time
 (torch.profiler, ``per`` launches of each variant in turn a round; K5
 also by events around one call, which is mostly the launch), and are
 K5's cluster sizes C = 1, 2, 4, 8 (blocks a pair; the
 wrapper's choice first), on the main path's pt2pl epilogue near the
 answer with mixed phases at 64 x 4608 (whole and trimmed to 0.75) and at
 8 x 15360 (each phase, whole and trimmed), gicp whole and gicp with
-confidences trimmed.  The 1-NN template's are its target splits S = 1, 2, 4, 8 on
-one cloud (K9: 4608 points at D = 3, 15360 at D = 12); K6 (64 x 4608,
-D = 3, and FGR's features at D = 33), K7 and K8 (the main path's
-targets, D = 12) run at the wrapper's S alone.
+confidences trimmed.  The 1-NN kernels' are the tiled search's
+tilings on K6 (64 x 4608 at D = 3, FGR's features at D = 33, and 8 x
+15360 at D = 3) and K7 (the main path's targets, D = 12, P = 9), with
+the one-query-a-thread search at S = 1 beside K6 (the tiled search must
+return its bits); its target splits S = 1, 2, 4, 8 on one cloud (K9:
+4608 points at D = 3, 15360 at D = 12); K8 at the wrapper's S.
 ``--extra-k4`` / ``--extra-k1`` / ``--extra-moments`` / ``--extra-k5`` /
 ``--extra-nn`` add other sources with the same C entry points (an
 earlier version of the kernel, say) to the same turns; for them the bits
@@ -48,8 +55,10 @@ are compared and reported, not required. A ``moments.cu`` whose entry
 points take no query order (the one before the order was added) is called
 with its own arguments: it runs the queries in index order; so are a
 ``loop_epilogue.cu`` without the cluster argument and an ``nn_argmin.cu``
-without the split argument (one block a pair, the unsplit search). The
-committed sources are not changed.
+without the split argument (one block a pair, the unsplit search), and
+an ``nn_argmin.cu`` without the tiled entry points runs K6 and K7 through
+``se3icp_nn_argmin`` / ``se3icp_nn_match`` at the S that K9's rule picks.
+The committed sources are not changed.
 ``--sass DIR`` also writes each variant's machine code (``cuobjdump
 -sass``) into DIR.  Needs a CUDA device and nvcc; prints one JSON line
 per kernel.
@@ -76,6 +85,8 @@ K4_FACTORS = ("kThreads", "kR", "kMinBlocks", "kU", "kU3")
 K1_FACTORS = ("kQ", "kWarps")
 MOMENTS_FACTORS = ("kMomThreads", "kMomR", "kAxisThreads", "kAxisR")
 K5_FACTORS = ("kLevels",)
+NN_TILE_FACTORS = ("kTR", "kTC", "kTCols", "kTThreads", "kTTileNarrow",
+                   "kTTileWide", "kTMinBlocks")
 
 
 def committed(text: str, names) -> tuple:
@@ -553,9 +564,8 @@ def sweep_k5(variants, reps, sass_dir, extras=()):
 
 
 def nn_cases():
-    """[(name, q, t, n, payload, packed phase, splits)] of the 1-NN
-    template at its paths' shapes: ``splits`` the forced S to time
-    beside the wrapper's."""
+    """[(kernel, name, q, t, n, payload, packed phase)] of the 1-NN
+    kernels at their paths' shapes."""
     import chip_smoke as cs
     from se3_icp_tpu_torch.models import fgr
     from se3_icp_tpu_torch.parallel import pairs
@@ -565,61 +575,70 @@ def nn_cases():
     q3, t3, n3 = cs.moved_sources(problems, dev)
     big = cs.golden_pairs(cs.SMALL_BATCH, n=15000)
     qb, tb, nb = cs.moved_sources(big, dev)
-    out = [("K9 4608, D=3", q3[:1].contiguous(), t3[:1].contiguous(),
-            n3[:1].contiguous(), None, None, (1, 2, 4, 8)),
-           ("K9 15360, D=12", cs.embedding12(qb[:1], 1),
-            cs.embedding12(tb[:1], 2), nb[:1].contiguous(), None, None,
-            (1, 2, 4, 8)),
-           ("K6 64 x 4608, D=3", q3, t3, n3, None, None, ())]
+    out = [("K9", "K9 4608, D=3", q3[:1].contiguous(), t3[:1].contiguous(),
+            n3[:1].contiguous(), None, None),
+           ("K9", "K9 15360, D=12", cs.embedding12(qb[:1], 1),
+            cs.embedding12(tb[:1], 2), nb[:1].contiguous(), None, None),
+           ("K6", "K6 64 x 4608, D=3", q3, t3, n3, None, None),
+           ("K6", "K6 8 x 15360, D=3", qb, tb, nb, None, None)]
     src, n_src, tgt, n_tgt = (torch.as_tensor(a, device=dev) for a in
                               pairs.pack_pairs([(p.source, p.target)
                                                 for p in problems]))
     cfg = fgr.FGRConfig()
     fs, ft = fgr.features(src, n_src, cfg), fgr.features(tgt, n_tgt, cfg)
-    out.append(("K6 64 x 4608, D=33 (FGR features)", fs, ft, n_tgt, None,
-                None, ()))
+    out.append(("K6", "K6 64 x 4608, D=33 (FGR features)", fs, ft, n_tgt,
+                None, None))
     ms, pre = cs.match_state(problems, GOLDEN, "se3_pt2pl")
     off = torch.zeros(cs.N_PAIRS, dtype=torch.bool, device=dev)
     near = cs.near_gt_pose(problems, pre, dev)
     W, _, _ = cs.loop_inputs(ms, GOLDEN, off, off, near)
     q12 = (ms.feat16 @ W)[..., :12].contiguous()
-    out.append(("K7 64 x 4608, D=12, P=9", q12,
+    out.append(("K7", "K7 64 x 4608, D=12, P=9", q12,
                 ms.targets.emb[:, 0].contiguous(), ms.targets.n,
-                ms.targets.payload, None, ()))
+                ms.targets.payload, None))
     switched = torch.arange(cs.N_PAIRS, device=dev) % 2 == 1
     W, phase, _ = cs.loop_inputs(ms, GOLDEN, switched, off, near)
     q12 = (ms.feat16 @ W)[..., :12].contiguous()
-    out.append(("K8 64 x 4608, mixed phases", q12, ms.targets, ms.targets.n,
-                ms.targets.payload, phase[:, 0].contiguous(), ()))
+    out.append(("K8", "K8 64 x 4608, mixed phases", q12, ms.targets,
+                ms.targets.n, ms.targets.payload, phase[:, 0].contiguous()))
     return out
 
 
-def nn_call(lib, own, q, t, n, payload, phase, split):
-    """One launch of the case's entry point in ``lib`` -> (run, outputs);
-    ``own``: the entry points take no split argument."""
+def nn_call(lib, route, q, t, n, payload, phase, split):
+    """One launch of the case's entry point in ``lib`` -> (run, outputs).
+    ``route``: "tiled" (K6/K7's entry points ``se3icp_nn_argmin_batched``
+    / ``se3icp_nn_match_batched``), "split" (``se3icp_nn_argmin`` /
+    ``se3icp_nn_match`` / ``se3icp_nn_match_packed`` with ``split``) or
+    "own" (the same without the split argument: an older source)."""
     from se3_icp_tpu_torch.ops import _build
     P, I = ctypes.c_void_p, ctypes.c_int
     bsz, nq, d = q.shape
-    extra = () if own else (split,)
+    extra = (split,) if route == "split" else ()
     idx = torch.empty((bsz, nq), dtype=torch.int32, device="cuda")
     d2 = torch.empty((bsz, nq), device="cuda")
     if payload is None:
-        fn = lib.se3icp_nn_argmin
-        fn.argtypes = [P] * 5 + [I] * (4 if own else 5) + [P]
+        if route == "tiled":
+            fn = lib.se3icp_nn_argmin_batched
+        else:
+            fn = lib.se3icp_nn_argmin
+        fn.argtypes = [P] * 5 + [I] * (4 + len(extra)) + [P]
         args = (q.data_ptr(), t.data_ptr(), n.data_ptr(), idx.data_ptr(),
                 d2.data_ptr(), bsz, nq, t.shape[1], d)
         return (lambda: _build.check(fn(*args, *extra, stream()), "nn")), \
             (idx, d2)
     m = torch.empty((bsz, nq, payload.shape[2]), device="cuda")
     if phase is None:
-        fn = lib.se3icp_nn_match
-        fn.argtypes = [P] * 7 + [I] * (5 if own else 6) + [P]
+        if route == "tiled":
+            fn = lib.se3icp_nn_match_batched
+        else:
+            fn = lib.se3icp_nn_match
+        fn.argtypes = [P] * 7 + [I] * (5 + len(extra)) + [P]
         args = (q.data_ptr(), t.data_ptr(), payload.data_ptr(), n.data_ptr(),
                 idx.data_ptr(), d2.data_ptr(), m.data_ptr(), bsz, nq,
                 t.shape[1], d, payload.shape[2])
     else:
         fn = lib.se3icp_nn_match_packed
-        fn.argtypes = [P] * 9 + [I] * (4 if own else 5) + [P]
+        fn.argtypes = [P] * 9 + [I] * (4 + len(extra)) + [P]
         args = (q.data_ptr(), t.emb.data_ptr(), t.tn.data_ptr(),
                 payload.data_ptr(), n.data_ptr(), phase.data_ptr(),
                 idx.data_ptr(), d2.data_ptr(), m.data_ptr(), bsz, nq,
@@ -628,45 +647,76 @@ def nn_call(lib, own, q, t, n, payload, phase, split):
         (idx, d2, m)
 
 
-def sweep_nn(reps, sass_dir, extras=()):
+def sweep_nn(tiles, reps, sass_dir, extras=()):
+    """K6/K7 (the tiled kernel) at the committed tiling and the ``tiles``
+    variants, with the one-query-a-thread search at S = 1 beside them;
+    K9 at S = 1, 2, 4, 8 and K8 at the wrapper's S; every extra source
+    through its own entry points.  The committed tiled kernel's bits are
+    the reference of K6/K7, the wrapper's S that of K8/K9."""
     from se3_icp_tpu_torch.ops import _build, cuda_nn
     text = (_build.CSRC / "nn_argmin.cu").read_text()
+    base = committed(text, NN_TILE_FACTORS)
+    tiles = [v for v in dict.fromkeys(tiles) if v != base]
     extras = extra_sources(extras, "nn")
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build_all([("nn", text)] + [(t, src) for t, _, src in extras],
-                         tmp, sass_dir)
-        rows = {"S=wrapper": dict(split="the wrapper's", ms={}, split_by={},
-                                  ptxas=resources(libs["nn"][1], "nn_kernel"))}
+        jobs = [("nn", text)] + [
+            (f"nn_tile{i}", variant_source(text, NN_TILE_FACTORS, v))
+            for i, v in enumerate(tiles)] + [(t, src) for t, _, src in extras]
+        libs = build_all(jobs, tmp, sass_dir)
+        rows = {"committed": dict(tile=dict(zip(NN_TILE_FACTORS, base)),
+                                  ms={}, split_by={},
+                                  ptxas=resources(libs["nn"][1], "nn_"))}
+        for i, v in enumerate(tiles):
+            rows[f"nn_tile{i}"] = dict(
+                tile=dict(zip(NN_TILE_FACTORS, v)), ms={},
+                ptxas=resources(libs[f"nn_tile{i}"][1], "nn_tiled_kernel"))
         for s in (1, 2, 4, 8):
             rows[f"S={s}"] = dict(split=s, ms={})
-        own = {}
+        route, has_tiled = {}, {}
         for t, label, src in extras:
-            own[t] = "int split" not in src
+            route[t] = "split" if "int split" in src else "own"
+            has_tiled[t] = "se3icp_nn_argmin_batched" in src
             rows[t] = dict(source=label, ms={}, same_bits={},
-                           own_signature=own[t],
-                           ptxas=resources(libs[t][1], "nn_kernel"))
-        for name, q, t, n, payload, phase, splits in nn_cases():
+                           own_signature=route[t] == "own",
+                           ptxas=resources(libs[t][1], "nn_"))
+        for kernel, name, q, t, n, payload, phase in nn_cases():
             chosen = cuda_nn.split_size(q.shape[0], q.shape[1], q.device)
+            tiled = kernel in ("K6", "K7")
             fns, outs = {}, {}
-            fns["S=wrapper"], outs["S=wrapper"] = nn_call(
-                libs["nn"][0], False, q, t, n, payload, phase, chosen)
-            for s in splits:
-                if s != chosen:
-                    fns[f"S={s}"], outs[f"S={s}"] = nn_call(
-                        libs["nn"][0], False, q, t, n, payload, phase, s)
+
+            def call(lib, r, s):
+                return nn_call(lib, r, q, t, n, payload, phase, s)
+            if tiled:
+                fns["committed"], outs["committed"] = call(
+                    libs["nn"][0], "tiled", 1)
+                for i in range(len(tiles)):
+                    tag = f"nn_tile{i}"
+                    fns[tag], outs[tag] = call(libs[tag][0], "tiled", 1)
+                if payload is None:
+                    fns["S=1"], outs["S=1"] = call(libs["nn"][0], "split",
+                                                   1)
+            else:
+                fns["committed"], outs["committed"] = call(
+                    libs["nn"][0], "split", chosen)
+                rows["committed"]["split_by"][name] = chosen
+                if kernel == "K9":
+                    for s in (1, 2, 4, 8):
+                        if s != chosen:
+                            fns[f"S={s}"], outs[f"S={s}"] = call(
+                                libs["nn"][0], "split", s)
             for tag, _, _ in extras:
-                fns[tag], outs[tag] = nn_call(libs[tag][0], own[tag], q, t,
-                                              n, payload, phase, chosen)
-            med = time_turns_device(fns, reps, "nn_kernel")
-            ref = outs["S=wrapper"]
-            rows["S=wrapper"]["split_by"][name] = chosen
+                r = "tiled" if tiled and has_tiled[tag] else route[tag]
+                fns[tag], outs[tag] = call(libs[tag][0], r, chosen)
+            # "nn_" names both kernels; a window holds one fn's launches
+            med = time_turns_device(fns, reps, "nn_")
+            ref = outs["committed"]
             for tag in fns:
                 same = all(torch.equal(a, b) for a, b in zip(outs[tag], ref))
                 if "same_bits" in rows[tag]:
                     rows[tag]["same_bits"][name] = same
                 elif not same:
-                    raise RuntimeError(f"1-NN {tag}: other bits than S = "
-                                       f"{chosen} on {name}")
+                    raise RuntimeError(f"1-NN {tag}: other bits than the "
+                                       f"committed kernel on {name}")
                 rows[tag]["ms"][name] = med[tag]
         return [r for r in rows.values() if r["ms"]]
 
@@ -680,6 +730,7 @@ def main() -> int:
     ap.add_argument("--k1", nargs="*", default=[])
     ap.add_argument("--moments", nargs="*", default=[])
     ap.add_argument("--k5", nargs="*", default=[])
+    ap.add_argument("--nn-tile", nargs="*", default=[])
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--sass", metavar="DIR")
     ap.add_argument("--extra-k4", nargs="*", default=[])
@@ -727,8 +778,9 @@ def sweep(args) -> int:
                   flush=True)
         if "nn" in args.only:
             print(json.dumps({"kernel": "K6-K9", "card": smi,
-                              "variants": sweep_nn(args.reps, args.sass,
-                                                   args.extra_nn)}),
+                              "variants": sweep_nn(
+                                  [parse(v) for v in args.nn_tile],
+                                  args.reps, args.sass, args.extra_nn)}),
                   flush=True)
     return 0
 

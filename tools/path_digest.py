@@ -13,12 +13,14 @@ the main path (``register_pairs``: 64 golden-shape pairs, ``se3_pt2pl``,
 (``register_pairs_multistart``: 8 pairs x 8 starts under
 ``FLIPPED_POSE``) and, as ``chip_smoke.py`` runs them, 8 pairs each of
 ``se3_gicp``, ``se3_gicp_with_cf`` (``LOUNGE``, noisy pairs),
-``se3_pt2pt`` and ``pt2pl`` (a small pose), and the metrics on the main
-path's 64 results as ``chip_smoke.py`` evaluates them (each pair's
-squared chamfer distance and GT correspondences, three K9 launches a
-pair): each once to warm up and then ``--reps`` times, all paths in
-turns.  It saves every pair's
-iteration count and transform (of the last call), the kept starts, the
+``se3_pt2pt`` and ``pt2pl`` (a small pose), FGR + FPFH on the main
+path's 64 pairs (``register_pairs(..., "fgr", FGRConfig())``, two K6
+launches at D = 33), and the metrics on the main path's 64 results as
+``chip_smoke.py`` evaluates them (each pair's squared chamfer distance
+and GT correspondences, three K9 launches a pair): each once to warm up
+and then ``--reps`` times, all paths in turns.  It saves every pair's
+iteration count and transform (of the last call), the kept starts,
+FGR's transforms and its reciprocal and kept correspondence counts, the
 chamfer distances and correspondence indices of the metrics, and
 the wall time of every timed call (host clock around work that ends in
 a synchronize), and prints one JSON line with the medians.  The second form prints whether two such files hold the
@@ -47,7 +49,7 @@ def run(root: str, out: str, reps: int) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("path_digest: no CUDA device")
     from se3_icp_tpu_torch.datasets import fixtures
-    from se3_icp_tpu_torch.models import multistart
+    from se3_icp_tpu_torch.models import fgr, multistart
     from se3_icp_tpu_torch.parallel import pairs
     from se3_icp_tpu_torch.utils import metrics
     from se3_icp_tpu_torch.utils.config import GOLDEN, LOUNGE
@@ -77,6 +79,12 @@ def run(root: str, out: str, reps: int) -> None:
         small_fns[alg] = functools.partial(
             pairs.register_pairs, [(p.source, p.target) for p in probs],
             alg, cfg)
+    fgr_cfg = fgr.FGRConfig()
+
+    def fgr_fn():
+        stats = {}
+        res = pairs.register_pairs(main_list, "fgr", fgr_cfg, stats=stats)
+        return res, stats
     evaluated = main_fn()
 
     def metrics_fn():
@@ -92,8 +100,9 @@ def run(root: str, out: str, reps: int) -> None:
     ms_fn()
     for fn in small_fns.values():
         fn()
+    fgr_fn()
     metrics_fn()
-    main_s, ms_s, metrics_s = [], [], []
+    main_s, ms_s, fgr_s, metrics_s = [], [], [], []
     small_s = {alg: [] for alg in small_fns}
     small_res = {}
     for _ in range(reps):          # in turns: the host clock drifts
@@ -104,6 +113,8 @@ def run(root: str, out: str, reps: int) -> None:
         for alg, fn in small_fns.items():
             small_res[alg], t = timed(fn)
             small_s[alg].append(t)
+        (fgr_res, fgr_stats), t = timed(fgr_fn)
+        fgr_s.append(t)
         (chamfer, corrs), t = timed(metrics_fn)
         metrics_s.append(t)
     small_npz = {}
@@ -122,6 +133,10 @@ def run(root: str, out: str, reps: int) -> None:
              ms_transforms=np.stack([r.best.transformation
                                      for r in ms_res]),
              main_seconds=np.asarray(main_s), ms_seconds=np.asarray(ms_s),
+             fgr_transforms=np.stack([r.transformation for r in fgr_res]),
+             fgr_reciprocal=np.asarray(fgr_stats["reciprocal"]),
+             fgr_kept=np.asarray(fgr_stats["kept_correspondences"]),
+             fgr_seconds=np.asarray(fgr_s),
              metrics_chamfer=chamfer, metrics_corrs=corrs,
              metrics_seconds=np.asarray(metrics_s), **small_npz)
     print(json.dumps({
@@ -136,6 +151,8 @@ def run(root: str, out: str, reps: int) -> None:
         "small_batch_seconds": small_s,
         "small_batch_median_seconds": {
             alg: statistics.median(t) for alg, t in small_s.items()},
+        "fgr_seconds": fgr_s,
+        "fgr_median_seconds": statistics.median(fgr_s),
         "metrics_seconds": metrics_s,
         "metrics_median_seconds": statistics.median(metrics_s)}),
         flush=True)
