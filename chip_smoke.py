@@ -8,7 +8,7 @@ for an H100, sm_90a) and the CUDA toolkit:
 
 It builds the CUDA kernels from ``se3_icp_tpu_torch/csrc`` (printing
 ptxas's registers, spills and shared memory of K4, K1, K2, K3 and the
-tiled 1-NN search of K6/K7 on a ``ptxas`` line), holds each kernel
+tiled 1-NN search of K6/K7/K8 on a ``ptxas`` line), holds each kernel
 against its plain PyTorch version on the card at the main path's shapes
 (64 pairs, 4608-point bucket): the setup kernels K1-K3 of the sort-free
 threshold route (K2 and K3 also bit for bit between the spatial query
@@ -28,9 +28,10 @@ Then the paths of the 1-NN kernels K6-K9: the multistart restart fleet
 ops, ``run fgr`` and ``run --multi-start`` of the CLI, and K6-K9 against
 their plain versions (K9 at 4608 points, D = 3, and 15360, D = 12, its
 targets split over several blocks a query tile and held bit for bit
-against the unsplit search; K6 and K7, the register-tiled search, held
-bit for bit against the one-query-a-thread search at S = 1 on the same
-batch).  K5's, K6's, K7's and K9's cases report the kernel alone
+against the unsplit search; K6, K7 and K8, the register-tiled search,
+held bit for bit against the one-query-a-thread search at S = 1 on the
+same batch, K8 on the engine's packed targets at 64 x 4608 and 8 x
+15360).  K5's and K6-K9's cases report the kernel alone
 (torch.profiler) beside the time through the wrapper.  It gates
 every result at 2 deg / 0.25, and shows
 from the wrappers' launch counts that each path went through its
@@ -203,23 +204,26 @@ def build_phase() -> None:
          sources=[os.path.relpath(s, ROOT) for s in _build.sources()],
          library=os.path.relpath(lib_path, ROOT))
     # K4, K1's instances by the number of counts T and K2's by the number
-    # of balls (template arguments), K3; the tiled 1-NN search (K6, K7)
-    # by width, with its dynamic shared memory a block
+    # of balls (template arguments), K3; the tiled 1-NN search (K6, K7,
+    # K8) by width, with its dynamic shared memory a block
+    import re
     res = ptxas_resources(log.getvalue())
     lib = _build.load()
 
-    def tiled(pay):
+    def tiled(pay, packed):
+        """nn_tiled_kernel<D, kPay, kPacked> by D."""
         out = {}
         for k, v in res.items():
-            if "nn_tiled_kernelILi" not in k or f"ELb{pay}E" not in k:
-                continue
-            d = int(k.split("nn_tiled_kernelILi")[1].split("E")[0])
-            out[f"D={d}"] = dict(v, dynamic_smem_bytes=(
-                lib.se3icp_nn_tiled_smem(d)))
+            m = re.search(r"nn_tiled_kernelILi(\d+)ELb(\d)ELb(\d)E", k)
+            if m and (int(m.group(2)), int(m.group(3))) == (pay, packed):
+                d = int(m.group(1))
+                out[f"D={d}"] = dict(v, dynamic_smem_bytes=(
+                    lib.se3icp_nn_tiled_smem(d, packed)))
         return out
     emit("ptxas", nn_match_affine={k: v for k, v in res.items()
                                    if "match_affine_kernel" in k},
-         nn_argmin_batched=tiled(0), nn_match_batched=tiled(1),
+         nn_argmin_batched=tiled(0, 0), nn_match_batched=tiled(1, 0),
+         nn_match_packed=tiled(1, 1),
          neighborhood_thresholds_batched={
              f"T={k.split('thresholds_kernelILi')[1][0]}": v
              for k, v in res.items() if "thresholds_kernelILi" in k},
@@ -1200,22 +1204,27 @@ def nn_match_case(name, q, t, payload, n):
 
 
 def nn_packed_case(name, q, targets, phase):
-    """K8 against its plain version on the main path's own packed
-    targets."""
+    """K8 (the tiled search on packed targets) against its plain version
+    on the engine's own packed targets and, bit for bit, against the
+    one-query-a-thread search on them at S = 1."""
     from se3_icp_tpu_torch.ops import cuda_nn
-    idx, d2, m = cuda_nn.nn_match_packed(q, targets, phase)
+    fn = lambda: cuda_nn.nn_match_packed(q, targets, phase)
+    idx, d2, m = fn()
     torch.cuda.synchronize()
     idx_p, d2_p, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
     ar = torch.arange(q.shape[0], device=q.device)
-    t_sel = targets.emb[ar, phase.long()]
+    t_sel = targets.emb[ar, (phase != 0).long()]
     case = nn_check(name, q, t_sel, targets.n, idx, d2, idx_p, d2_p)
+    check(same_bits((idx, d2, m), cuda_nn.untiled_match_packed(
+        q, targets, phase, split=1)),
+          f"{name}: the tiled search gives other bits than the untiled one")
     want = torch.gather(targets.payload, 1, idx.long()[..., None].expand(
         -1, -1, targets.payload.shape[2]))
     check(bool((m == want).all()), f"{name}: matched rows are not the "
           "payload rows of the returned indices")
     return dict(name=name, **case, payload_bit_equal=True,
-                ms=time_ms(lambda: cuda_nn.nn_match_packed(q, targets,
-                                                           phase)),
+                same_bits_as_untiled=True, ms=time_ms(fn),
+                kernel_alone_ms=alone_ms(fn, "nn_tiled_kernel"),
                 plain_ms=time_ms(lambda: cuda_nn.nn_match_packed_plain(
                     q, targets, phase), reps=3),
                 **nn_bound(q, t_sel, targets.n, targets.payload.shape[2],
@@ -1258,8 +1267,8 @@ def nn_kernels_phase(feats):
     """K6-K9 against their plain versions at the shapes of their paths:
     K6 at 64 x 4608 (D = 3: multistart scoring; D = 33: FGR's features
     ``feats``) and 8 x 15360; K9 at 4608 (D = 3) and 15360 (D = 12); K7
-    at 64 x 4608, D = 12, P = 9 on padded targets; K8 on the main path's
-    own packed targets with mixed phases."""
+    at 64 x 4608, D = 12, P = 9 on padded targets; K8 on the engine's
+    own packed targets with mixed phases at 64 x 4608 and 8 x 15360."""
     from se3_icp_tpu_torch.utils.config import GOLDEN
     dev = torch.device("cuda")
     problems = golden_pairs(N_PAIRS)
@@ -1293,7 +1302,24 @@ def nn_kernels_phase(feats):
     q12 = (ms.feat16 @ W)[..., :12].contiguous()
     k8 = [nn_packed_case("nn_match_packed", q12, ms.targets,
                          phase[:, 0].contiguous())]
+    del ms
+    k8.append(nn_packed_case("nn_match_packed[8 x 15360]",
+                             *packed_big(big, dev)))
     return k6, k7, k8, k9
+
+
+def packed_big(problems, dev):
+    """K8's inputs at 8 x 15360 as the engine packs them: queries near the
+    answer, every other pair in the R3 phase -> (q, targets, phase)."""
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    ms, pre = match_state(problems, GOLDEN, "se3_pt2pl")
+    bsz = len(problems)
+    switched = torch.arange(bsz, device=dev) % 2 == 1
+    W, phase, _ = loop_inputs(ms, GOLDEN, switched,
+                              torch.zeros_like(switched),
+                              near_gt_pose(problems, pre, dev))
+    q12 = (ms.feat16 @ W)[..., :12].contiguous()
+    return q12, ms.targets, phase[:, 0].contiguous()
 
 
 def only_launched(what, launches, want):

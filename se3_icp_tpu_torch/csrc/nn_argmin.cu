@@ -20,12 +20,15 @@
 // variant keeps the lowest index.
 //
 // The distance of a (query, target) is one FMA chain in one order in
-// every kernel here and in every pass of a kernel: |t|^2 = fmaf(t_k, t_k,
-// .) over k from 0, then d = fmaf(-2 q_k, t_k, d) for k = 0 .. D-1, and
-// d2 = d + |q|^2 (|q|^2 an fmaf chain from 0).  So K6 and K7 (the tiled
-// kernel) and K8 and K9 (`nn_kernel`) return the same idx and d2 bits on
-// the same inputs, and a recomputed distance equals the one the search
-// compared.
+// every kernel here and in every pass of a kernel: d = |t|^2, then d =
+// fmaf(-2 q_k, t_k, d) for k = 0 .. D-1, and d2 = d + |q|^2 (|q|^2 an
+// fmaf chain from 0).  |t|^2 is the chain fmaf(t_k, t_k, .) over k from
+// 0, except K8's: the packed targets carry it (`tn`, a torch sum in
+// ops/cuda_knn.py, whose bits are not the chain's), and every pass reads
+// it as given, never recomputes it.  So the tiled kernel (K6, K7, K8)
+// and `nn_kernel` (K9, and K8's bit reference) return the same idx and d2
+// bits on the same inputs, and a recomputed distance equals the one the
+// search compared.
 //
 // What bounds it on an H100: operations.  A call is B*Nq*Nt pairs, each
 // D FMAs on the shifted distance |t|^2 - 2 q.t plus a min:
@@ -33,7 +36,7 @@
 // (a few MB) are read once.  At 64 x 4608 x 4608 that is 0.16 ms for
 // D = 3 (multistart scoring) and 1.4 ms for D = 33 (FGR's FPFH features).
 //
-// K6 and K7: `nn_tiled_kernel`, the search as a CUDA-core SGEMM with a
+// K6, K7 and K8: `nn_tiled_kernel`, the search as a CUDA-core SGEMM with a
 // min epilogue.  Grid (query tiles, B).  A thread owns kTR queries x kTC
 // targets of accumulators; the kTCols threads that share a query sit in
 // one warp, each with its own targets.  The block stages its queries'
@@ -66,11 +69,23 @@
 // above, at most 168 registers) was chosen by measurement
 // (tools/kernel_tiling_sweep.py --nn-tile; PERF.md).
 //
-// K8 and K9: `nn_kernel`, one query a thread: -2q in registers, target
+// K8 is the instance on packed targets (kPacked, D = 12): a block serves
+// one pair, so it picks the pair's phase block once, by one scalar load
+// of phase[b], where the TPU kernel's index map chose it per grid step;
+// its rows emb[b, sel] and their given |t|^2 tn[b, sel] are staged with
+// the tile (the |t|^2 after the rows in the raw buffer, by the same
+// cp.async) and copied, not computed, into the tile's |t|^2 row, and the
+// epilogue's recompute starts each chain from tn[b, sel, j] too.  Its
+// block takes 2 x 256 floats more shared memory (53,248 B), still 3
+// blocks an SM; the payload rows are the phase-independent ones.
+//
+// K9: `nn_kernel`, one query a thread: -2q in registers, target
 // tiles staged as rows of D coordinates plus |t|^2 padded to whole
 // float4s, read by every thread of the block at the same address
 // (broadcasts); a running (min, first index) in registers; |t|^2 computed
-// once per tile, or read from the packed targets (K8).  A grid of fewer
+// once per tile, or read from the packed targets (its instance on K8's
+// targets, `se3icp_nn_match_packed`, is the bit reference of the tiled K8
+// in the card checks).  A grid of fewer
 // than two blocks an SM (one cloud: K9, 36 blocks at 4608 queries) splits
 // the valid targets into S contiguous slices of whole tiles (S <= 8,
 // chosen by the wrapper): the S blocks of a query tile form a
@@ -79,8 +94,7 @@
 // memory in slice order, taking a peer's only if it is strictly smaller
 // -- so the lowest index keeps a tie across slices and idx and d2 are the
 // unsplit search's bits.  A slice past the valid targets finds none and
-// loses every merge.  K8 on the tiled template, with a phase per pair, is
-// the next change; tensor cores (a 3xTF32 or bf16-limb split through
+// loses every merge.  Tensor cores (a 3xTF32 or bf16-limb split through
 // wgmma) would change the distance bits and are left out.
 
 #include <cooperative_groups.h>
@@ -96,7 +110,7 @@ constexpr int kTile = 128;      // targets per shared-memory tile
 constexpr float kBig = 3.4e38f; // distance of "no valid target"
 constexpr int kMaxSplit = 8;    // the portable cluster size
 
-// the tiled search (K6, K7)
+// the tiled search (K6, K7, K8)
 constexpr int kTR = 8;                // queries a thread
 constexpr int kTC = 8;                // targets a thread a step
 constexpr int kTCols = 4;             // threads that share a query
@@ -245,16 +259,18 @@ __host__ __device__ constexpr int tiled_tile() {   // targets a staged tile
 }
 
 // The tiled kernel's dynamic shared memory, in floats: -2q [D][queries],
-// |q|^2, the transposed tile [D][tile], |t|^2, and two raw tiles, whose
-// room the (min, step) records of the epilogue reuse.
-template <int D>
+// |q|^2, the transposed tile [D][tile], |t|^2, and two raw tiles (the
+// rows, then, packed, their given |t|^2), whose room the (min, step)
+// records of the epilogue reuse.
+template <int D, bool kPacked = false>
 struct TiledSmem {
   static constexpr int kSpan = tiled_tile<D>();   // targets a tile
   static constexpr int kQ = D * kTQueries;
   static constexpr int kQn = kTQueries;
   static constexpr int kT = D * kSpan;
   static constexpr int kTn = kSpan;
-  static constexpr int kRawTile = (kSpan * D + 3) / 4 * 4;
+  static constexpr int kRawRows = (kSpan * D + 3) / 4 * 4;
+  static constexpr int kRawTile = kRawRows + (kPacked ? kSpan : 0);
   static constexpr int kRec = 2 * kTQueries * kTCols;
   static constexpr int kRest = 2 * kRawTile > kRec ? 2 * kRawTile : kRec;
   static constexpr int kWords = kQ + kQn + kT + kTn + kRest;
@@ -262,21 +278,29 @@ struct TiledSmem {
 
 // Copy the valid rows of the tile at t0 (row-major, D floats each) into
 // `raw` with 4-byte cp.async: the rows carry no 16-byte alignment.
-template <int D>
+// Packed: their given |t|^2 (from tn_b) after the rows, the same way.
+template <int D, bool kPacked>
 __device__ __forceinline__ void stage_raw(float* raw, const float* t_b,
-                                          int t0, int n) {
+                                          const float* tn_b, int t0, int n) {
   constexpr int kSpan = tiled_tile<D>();
-  const int m = min(kSpan, n - t0) * D;
+  const int rows = min(kSpan, n - t0);
   const float* src = t_b + (size_t)t0 * D;
-  for (int e = threadIdx.x; e < m; e += kTThreads) {
+  for (int e = threadIdx.x; e < rows * D; e += kTThreads) {
     __pipeline_memcpy_async(&raw[e], &src[e], sizeof(float));
+  }
+  if constexpr (kPacked) {
+    float* raw_tn = raw + TiledSmem<D, true>::kRawRows;
+    for (int r = threadIdx.x; r < rows; r += kTThreads) {
+      __pipeline_memcpy_async(&raw_tn[r], &tn_b[t0 + r], sizeof(float));
+    }
   }
   __pipeline_commit();
 }
 
-// raw rows -> t_s [D][tile] and |t|^2, one thread a row; rows at or past
-// n: zeros and |t|^2 = +inf.
-template <int D>
+// raw rows -> t_s [D][tile] and |t|^2, one thread a row: computed, or
+// packed, the given one, never recomputed; rows at or past n: zeros and
+// |t|^2 = +inf.
+template <int D, bool kPacked>
 __device__ __forceinline__ void transpose_tile(const float* raw, float* t_s,
                                                float* tn_s, int t0, int n) {
   constexpr int kSpan = tiled_tile<D>();
@@ -287,9 +311,9 @@ __device__ __forceinline__ void transpose_tile(const float* raw, float* t_s,
       for (int k = 0; k < D; ++k) {
         const float v = raw[r * D + k];
         t_s[k * kSpan + r] = v;
-        s = fmaf(v, v, s);
+        if constexpr (!kPacked) s = fmaf(v, v, s);
       }
-      tn_s[r] = s;
+      tn_s[r] = kPacked ? raw[TiledSmem<D, true>::kRawRows + r] : s;
     } else {
 #pragma unroll
       for (int k = 0; k < D; ++k) t_s[k * kSpan + r] = 0.f;
@@ -402,17 +426,19 @@ __device__ __forceinline__ void scan_step(const float* __restrict__ q_s,
   }
 }
 
-template <int D, bool kPay>
+template <int D, bool kPay, bool kPacked>
 __global__ void __launch_bounds__(kTThreads, kTMinBlocks)
 nn_tiled_kernel(const float* __restrict__ q,        // [B,Nq,D]
-                const float* __restrict__ t,        // [B,Nt,D]
+                const float* __restrict__ t,        // [B,Nt,D]; packed [B,2,Nt,D]
+                const float* __restrict__ tn,       // packed only: [B,2,Nt] |t|^2
                 const float* __restrict__ payload,  // kPay: [B,Nt,P]
                 const int* __restrict__ n_tgt,      // [B]
+                const int* __restrict__ phase,      // packed only: [B]
                 int* __restrict__ idx_out,          // [B,Nq]
                 float* __restrict__ d2_out,         // [B,Nq]
                 float* __restrict__ matched,        // kPay: [B,Nq,P]
                 int nq, int nt, int p) {
-  using L = TiledSmem<D>;
+  using L = TiledSmem<D, kPacked>;
   constexpr int kSpan = L::kSpan;
   extern __shared__ float4 tiled_s4[];
   float* q_s = reinterpret_cast<float*>(tiled_s4);
@@ -424,7 +450,11 @@ nn_tiled_kernel(const float* __restrict__ q,        // [B,Nq,D]
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kTQueries;
   const int n = min(max(n_tgt[b], 0), nt);
-  const float* t_b = t + (size_t)b * nt * D;
+  // packed: the pair's phase block (one scalar load a block)
+  const int sel = kPacked ? (phase[b] != 0 ? 1 : 0) : 0;
+  const size_t t_row0 = ((size_t)b * (kPacked ? 2 : 1) + sel) * nt;
+  const float* t_b = t + t_row0 * D;
+  const float* tn_b = kPacked ? tn + t_row0 : nullptr;
   const int tx = threadIdx.x % kTCols;
   const int ty = threadIdx.x / kTCols;
 
@@ -465,17 +495,19 @@ nn_tiled_kernel(const float* __restrict__ q,        // [B,Nq,D]
     first[r] = -1;
   }
   const int n_tiles = (n + kSpan - 1) / kSpan;
-  if (n_tiles > 0) stage_raw<D>(raw_s, t_b, 0, n);
+  if (n_tiles > 0) stage_raw<D, kPacked>(raw_s, t_b, tn_b, 0, n);
   for (int k = 0; k < n_tiles; ++k) {
     const int t0 = k * kSpan;
     if (k + 1 < n_tiles) {
-      stage_raw<D>(raw_s + ((k + 1) & 1) * L::kRawTile, t_b, t0 + kSpan, n);
+      stage_raw<D, kPacked>(raw_s + ((k + 1) & 1) * L::kRawTile, t_b, tn_b,
+                            t0 + kSpan, n);
       __pipeline_wait_prior(1);     // this thread's copies of tile k landed
     } else {
       __pipeline_wait_prior(0);
     }
     __syncthreads();   // every thread's copies; the last tile consumed
-    transpose_tile<D>(raw_s + (k & 1) * L::kRawTile, t_s, tn_s, t0, n);
+    transpose_tile<D, kPacked>(raw_s + (k & 1) * L::kRawTile, t_s, tn_s,
+                               t0, n);
     __syncthreads();
 #pragma unroll 1
     for (int s0 = 0; s0 < kSpan; s0 += kTStep) {
@@ -511,8 +543,13 @@ nn_tiled_kernel(const float* __restrict__ q,        // [B,Nq,D]
           const int j = rf[c] + tiled_target(c, e);
           if (j >= n || j >= bi) break;   // targets ascend with e
           const float* tr = t_b + (size_t)j * D;
+          // the chain the scan compared: from the |t|^2 it staged
           float d = 0.f;
-          for (int kk = 0; kk < D; ++kk) d = fmaf(tr[kk], tr[kk], d);
+          if constexpr (kPacked) {
+            d = tn_b[j];
+          } else {
+            for (int kk = 0; kk < D; ++kk) d = fmaf(tr[kk], tr[kk], d);
+          }
           for (int kk = 0; kk < D; ++kk) {
             d = fmaf(q_s[kk * kTQueries + i], tr[kk], d);
           }
@@ -534,21 +571,23 @@ nn_tiled_kernel(const float* __restrict__ q,        // [B,Nq,D]
   }
 }
 
-template <int D, bool kPay>
-int launch_tiled(const void* q, const void* t, const void* payload,
-                 const void* n_tgt, void* idx, void* d2, void* matched,
-                 int bsz, int nq, int nt, int p, void* stream) {
+template <int D, bool kPay, bool kPacked>
+int launch_tiled(const void* q, const void* t, const void* tn,
+                 const void* payload, const void* n_tgt, const void* phase,
+                 void* idx, void* d2, void* matched, int bsz, int nq, int nt,
+                 int p, void* stream) {
   const dim3 grid((nq + kTQueries - 1) / kTQueries, bsz);
-  const size_t smem = sizeof(float) * TiledSmem<D>::kWords;
-  auto kern = nn_tiled_kernel<D, kPay>;
+  const size_t smem = sizeof(float) * TiledSmem<D, kPacked>::kWords;
+  auto kern = nn_tiled_kernel<D, kPay, kPacked>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<grid, kTThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)t, (const float*)payload,
-      (const int*)n_tgt, (int*)idx, (float*)d2, (float*)matched, nq, nt, p);
+      (const float*)q, (const float*)t, (const float*)tn,
+      (const float*)payload, (const int*)n_tgt, (const int*)phase, (int*)idx,
+      (float*)d2, (float*)matched, nq, nt, p);
   return (int)cudaGetLastError();
 }
 
@@ -562,17 +601,17 @@ int launch_tiled_width(const void* q, const void* t, const void* payload,
   }
   switch (d) {   // the widths of ops/cuda_nn.py WIDTHS
     case 3:
-      return launch_tiled<3, kPay>(q, t, payload, n_tgt, idx, d2, matched,
-                                   bsz, nq, nt, p, stream);
+      return launch_tiled<3, kPay, false>(q, t, nullptr, payload, n_tgt,
+          nullptr, idx, d2, matched, bsz, nq, nt, p, stream);
     case 12:
-      return launch_tiled<12, kPay>(q, t, payload, n_tgt, idx, d2, matched,
-                                    bsz, nq, nt, p, stream);
+      return launch_tiled<12, kPay, false>(q, t, nullptr, payload, n_tgt,
+          nullptr, idx, d2, matched, bsz, nq, nt, p, stream);
     case 33:
-      return launch_tiled<33, kPay>(q, t, payload, n_tgt, idx, d2, matched,
-                                    bsz, nq, nt, p, stream);
+      return launch_tiled<33, kPay, false>(q, t, nullptr, payload, n_tgt,
+          nullptr, idx, d2, matched, bsz, nq, nt, p, stream);
     case 64:
-      return launch_tiled<64, kPay>(q, t, payload, n_tgt, idx, d2, matched,
-                                    bsz, nq, nt, p, stream);
+      return launch_tiled<64, kPay, false>(q, t, nullptr, payload, n_tgt,
+          nullptr, idx, d2, matched, bsz, nq, nt, p, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -668,8 +707,12 @@ extern "C" int se3icp_nn_argmin_batched(const void* q, const void* t,
 }
 
 // Dynamic shared memory of a block of the tiled search at width d, in
-// bytes (-1 for a width it is not built for)
-extern "C" int se3icp_nn_tiled_smem(int d) {
+// bytes, on plain (packed = 0: K6, K7) or packed targets (packed = 1: K8,
+// d = 12 only); -1 for an instance it is not built for
+extern "C" int se3icp_nn_tiled_smem(int d, int packed) {
+  if (packed) {
+    return d == 12 ? (int)sizeof(float) * TiledSmem<12, true>::kWords : -1;
+  }
   switch (d) {
     case 3: return (int)sizeof(float) * TiledSmem<3>::kWords;
     case 12: return (int)sizeof(float) * TiledSmem<12>::kWords;
@@ -689,8 +732,21 @@ extern "C" int se3icp_nn_match_batched(const void* q, const void* t,
                                   nq, nt, d, p, stream);
 }
 
-// K8: K7 against dual-phase 12-D targets emb [B,2,Nt,12] with their
-// |t|^2 tn [B,2,Nt], phase [B] choosing the block per pair
+// K8, the tiled search: K7 against dual-phase 12-D targets emb
+// [B,2,Nt,12] with their given |t|^2 tn [B,2,Nt], phase [B] choosing the
+// block per pair (0: the first, any other value: the second)
+extern "C" int se3icp_nn_match_packed_batched(
+    const void* q, const void* emb, const void* tn, const void* payload,
+    const void* n_tgt, const void* phase, void* idx, void* d2, void* matched,
+    int bsz, int nq, int nt, int p, void* stream) {
+  if (bsz <= 0 || nq <= 0) return (int)cudaGetLastError();
+  if (bsz > 65535 || nt <= 0 || p <= 0) return (int)cudaErrorInvalidValue;
+  return launch_tiled<12, true, true>(q, emb, tn, payload, n_tgt, phase, idx,
+                                      d2, matched, bsz, nq, nt, p, stream);
+}
+
+// The same search by `nn_kernel` (one query a thread, `split` target
+// slices a query tile): the bit reference of the card checks
 extern "C" int se3icp_nn_match_packed(const void* q, const void* emb,
                                       const void* tn, const void* payload,
                                       const void* n_tgt, const void* phase,

@@ -60,8 +60,11 @@ SIGNATURES = {
     "se3icp_nn_argmin_batched": [_P] * 5 + [_I] * 4 + [_P],
     # q, t, payload, n_tgt, idx, d2, matched, B, Nq, Nt, D, P, stream
     "se3icp_nn_match_batched": [_P] * 7 + [_I] * 5 + [_P],
-    # D -> dynamic shared memory bytes of a tiled-search block
-    "se3icp_nn_tiled_smem": [_I],
+    # D, packed -> dynamic shared memory bytes of a tiled-search block
+    "se3icp_nn_tiled_smem": [_I] * 2,
+    # q, emb, tn, payload, n_tgt, phase, idx, d2, matched,
+    # B, Nq, Nt, P, stream
+    "se3icp_nn_match_packed_batched": [_P] * 9 + [_I] * 4 + [_P],
     # q, emb, tn, payload, n_tgt, phase, idx, d2, matched,
     # B, Nq, Nt, P, split, stream
     "se3icp_nn_match_packed": [_P] * 9 + [_I] * 5 + [_P],

@@ -25,13 +25,15 @@ with a full-float32 matrix product, so the two agree to a few ulps of
 than that.  The kernel takes the widths ``WIDTHS``; ``knn.nn_argmin``
 pads other widths (zero columns change no distance).
 
-K6 and K7 launch the register-tiled search (``nn_tiled_kernel``), K8
-and K9 the search of one query a thread (``nn_kernel``, its targets split
-over S blocks a query tile where the grid is small); both return the
-same bits on the same inputs (one FMA chain a distance, the lowest index
-on ties).  Each wrapper launches its CUDA kernel for tensors on the card
-and raises if it cannot; it takes the plain version only for CPU
-tensors.
+K6, K7 and K8 launch the register-tiled search (``nn_tiled_kernel``;
+K8's instance reads the pair's phase block and its given |t|^2), K9 the
+search of one query a thread (``nn_kernel``, its targets split over S
+blocks a query tile where the grid is small); both return the same bits
+on the same inputs (one FMA chain a distance, the lowest index on ties),
+and ``untiled_argmin`` / ``untiled_match_packed`` run ``nn_kernel`` on a
+batch as the card checks' bit reference.  Each wrapper launches its CUDA
+kernel for tensors on the card and raises if it cannot; it takes the
+plain version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -121,7 +123,7 @@ _QUERY_TILE = 128   # queries a block of nn_kernel (csrc/nn_argmin.cu kThreads)
 
 
 def split_size(bsz: int, nq: int, device) -> int:
-    """Target slices a query tile of ``nn_kernel`` (K8, K9): the
+    """Target slices a query tile of ``nn_kernel`` (K9): the
     smallest S in (1, 2, 4, 8) with
     S times the grid's ceil(Nq/128) * B blocks at least twice the SM
     count of ``device`` (8 if none); 1 for a grid that fills the card
@@ -250,14 +252,10 @@ def nn_match_batched(queries, targets, payload, n_targets):
     return idx, d2, matched
 
 
-def nn_match_packed(queries, targets: cuda_knn.MatchTargets, phase,
-                    split=None):
-    """K8: K7 against pre-packed dual-phase targets.  queries [B,Nq,12]
-    float32, ``targets`` from ``cuda_knn.pack_match_targets``, phase [B]
-    int32 (0 = first block, 1 = second) -> (idx, d2, matched
-    [B,Nq,P])."""
-    if not queries.is_cuda:
-        return nn_match_packed_plain(queries, targets, phase)
+def _packed_call(entry, what, queries, targets, phase, *extra):
+    """Checks K8's inputs and calls C entry point ``entry`` (the tiled
+    search, or ``nn_kernel`` with the ``extra`` split) -> (idx, d2,
+    matched)."""
     bsz, nq, _ = queries.shape
     nt, p = targets.payload.shape[1:]
     dev, f32 = queries.device, torch.float32
@@ -272,14 +270,40 @@ def nn_match_packed(queries, targets: cuda_knn.MatchTargets, phase,
     idx, d2 = _outputs(bsz, nq, dev)
     matched = torch.empty((bsz, nq, p), dtype=f32, device=dev)
     code = _build.launch(
-        _build.load().se3icp_nn_match_packed, dev, queries.data_ptr(),
+        getattr(_build.load(), entry), dev, queries.data_ptr(),
         targets.emb.data_ptr(), targets.tn.data_ptr(),
         targets.payload.data_ptr(), targets.n.data_ptr(), phase.data_ptr(),
         idx.data_ptr(), d2.data_ptr(), matched.data_ptr(), bsz, nq, nt, p,
-        _split_arg(split, bsz, nq, dev))
-    _build.check(code, "nn_match_packed")
-    nn_match_packed.launches += 1
+        *extra)
+    _build.check(code, what)
     return idx, d2, matched
+
+
+def untiled_match_packed(queries, targets: cuda_knn.MatchTargets, phase,
+                         split=None):
+    """K8's function by the search of one query a thread (``nn_kernel``
+    on the packed targets), on the card: the bit reference the card
+    checks hold the tiled K8 against.  ``split``: target slices a query
+    tile (default ``split_size``; every S gives the same bits).  Counts
+    no launch."""
+    bsz, nq, _ = queries.shape
+    return _packed_call("se3icp_nn_match_packed", "nn_match_packed (untiled)",
+                        queries, targets, phase,
+                        _split_arg(split, bsz, nq, queries.device))
+
+
+def nn_match_packed(queries, targets: cuda_knn.MatchTargets, phase):
+    """K8: K7 against pre-packed dual-phase targets.  queries [B,Nq,12]
+    float32, ``targets`` from ``cuda_knn.pack_match_targets`` (each
+    pair's |t|^2 is read from ``targets.tn`` as given), phase [B] int32
+    (0 = first block, any other value = second) -> (idx, d2, matched
+    [B,Nq,P])."""
+    if not queries.is_cuda:
+        return nn_match_packed_plain(queries, targets, phase)
+    out = _packed_call("se3icp_nn_match_packed_batched", "nn_match_packed",
+                       queries, targets, phase)
+    nn_match_packed.launches += 1
+    return out
 
 
 nn_argmin_batched.launches = 0

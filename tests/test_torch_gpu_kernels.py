@@ -328,7 +328,8 @@ def _nn_hold(q, t, n, idx, d2, idx_p, d2_p):
                                  (15360, 3), (15360, 12)])
 def test_nn_kernels_match_their_plain_versions(card, n, d):
     """K6, K9, K7 (and K8 at D = 12) at N = 1024 and at the KITTI bucket
-    N = 15360 (120 target tiles), targets padded in the second pair."""
+    N = 15360 (120 target tiles), targets padded in the second pair; K8
+    with the bits of the one-query-a-thread search at S = 1."""
     g = torch.Generator().manual_seed(n + d)
     q = torch.randn(2, n, d, generator=g).to(card)
     t = torch.randn(2, n, d, generator=g).to(card)
@@ -353,10 +354,14 @@ def test_nn_kernels_match_their_plain_versions(card, n, d):
         t_b[..., :9] = 0.0
         targets = cuda_knn.pack_match_targets(t, t_b, pay, nv)
         phase = torch.tensor([0, 1], dtype=torch.int32, device=card)
+        n0 = cuda_nn.nn_match_packed.launches
         idx, d2, m = cuda_nn.nn_match_packed(q, targets, phase)
+        assert cuda_nn.nn_match_packed.launches == n0 + 1
         ip, dp, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
         _nn_hold(q, torch.stack([t[0], t_b[1]]), nv, idx, d2, ip, dp)
         assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+        ref = cuda_nn.untiled_match_packed(q, targets, phase, split=1)
+        assert all(torch.equal(a, b) for a, b in zip((idx, d2, m), ref))
 
 
 def test_nn_kernels_refuse_what_they_do_not_take(card):
@@ -446,3 +451,24 @@ def test_tiled_search_gives_the_untiled_bits(card, d, one_point):
     idx_m, d2_m, m = cuda_nn.nn_match_batched(q, t, pay, n)
     assert torch.equal(idx_m, idx) and torch.equal(d2_m, d2)
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+
+
+@pytest.mark.parametrize("case", ["planted-ties", "one-point", "given-tn"])
+def test_tiled_packed_match_gives_the_untiled_bits(card, case):
+    """K8 (the tiled search on packed targets, a phase block per pair)
+    against the one-query-a-thread search at S = 1, bit for bit, on the
+    emulated tests' case: phases 0, 1, 1, 0, the wrong block one row
+    off, the planted answers (``given-tn``: a given |t|^2 one ulp lower
+    wins its tie), the pair with no valid target (row 0, 3.4e38 +
+    |q|^2)."""
+    q, targets, phase, answers = kcases.packed_case(
+        one_point=case == "one-point", nudge=case == "given-tn",
+        device=card)
+    out = cuda_nn.nn_match_packed(q, targets, phase)
+    ref = cuda_nn.untiled_match_packed(q, targets, phase, split=1)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    idx, d2, m = out
+    for (b, i), j in answers.items():
+        assert int(idx[b, i]) == j, (b, i)
+    assert bool((idx[1] == 0).all() and (d2[1] >= 3.4e38).all())
+    assert torch.equal(m, cuda_nn._gather_rows(targets.payload, idx))

@@ -57,6 +57,26 @@ _DYN_SMEM = re.compile(
     r"extern __shared__ (?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];")
 
 
+# extern "C" int se3icp_name(params) {  (an exported entry point)
+_C_ENTRY = re.compile(r'extern "C" int (se3icp_\w+)\((.*?)\)\s*\{', re.S)
+
+
+def test_signature_table_matches_the_c_entry_points():
+    """Every exported C entry point has its ctypes argument list in
+    ``_build.SIGNATURES``, pointer for pointer and int for int, and the
+    table names no other: a list one int short would pass garbage as the
+    stream, without an error."""
+    found = {}
+    for src in _build.sources():
+        for name, params in _C_ENTRY.findall(src.read_text()):
+            kinds = []
+            for a in params.split(","):
+                assert "*" in a or a.split()[0] == "int", (name, a)
+                kinds.append(ctypes.c_void_p if "*" in a else ctypes.c_int)
+            found[name] = kinds
+    assert found == _build.SIGNATURES
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -95,6 +115,7 @@ def emulated(tmp_path_factory):
     for name in ("se3icp_thresholds", "se3icp_moments", "se3icp_axis",
                  "se3icp_nn_argmin", "se3icp_nn_argmin_batched",
                  "se3icp_nn_match_batched", "se3icp_nn_match_packed",
+                 "se3icp_nn_match_packed_batched", "se3icp_nn_tiled_smem",
                  "se3icp_match_affine", "se3icp_loop_epilogue"):
         getattr(lib, name).argtypes = _build.SIGNATURES[name]
         getattr(lib, name).restype = ctypes.c_int
@@ -439,24 +460,88 @@ def test_emulated_tiled_search_returns_the_untiled_bits(emulated, d,
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
 
 
+def _k8(lib, q, targets, phase, split=None):
+    """The emulated K8: the tiled search, or with ``split`` the
+    one-query-a-thread search at that many target slices -> (code, idx,
+    d2, matched)."""
+    bsz, nq, _ = q.shape
+    nt, p = targets.payload.shape[1:]
+    idx = torch.full((bsz, nq), -1, dtype=torch.int32)
+    d2 = torch.full((bsz, nq), float("nan"))
+    m = torch.full((bsz, nq, p), float("nan"))
+    args = (q.data_ptr(), targets.emb.data_ptr(), targets.tn.data_ptr(),
+            targets.payload.data_ptr(), targets.n.data_ptr(),
+            phase.data_ptr(), idx.data_ptr(), d2.data_ptr(), m.data_ptr(),
+            bsz, nq, nt, p)
+    if split is None:
+        code = lib.se3icp_nn_match_packed_batched(*args, None)
+    else:
+        code = lib.se3icp_nn_match_packed(*args, split, None)
+    return code, idx, d2, m
+
+
+def _selected(targets, phase):
+    """Each pair's phase block of the packed targets [B,Nt,12]."""
+    return targets.emb[torch.arange(phase.shape[0]), (phase != 0).long()]
+
+
 def test_emulated_packed_match_kernel_matches_plain(emulated):
+    """K8 (the tiled search on packed targets) against its plain version,
+    and the one-query-a-thread search on the packed targets at S = 1 and
+    3 with the same bits."""
     q, t_a, n = _nn_inputs(12, 1)
     t_b = t_a.clone()
     t_b[..., :9] = 0.0
     pay = torch.randn(2, 333, 9)
     targets = cuda_knn.pack_match_targets(t_a, t_b, pay, n)
     phase = torch.tensor([1, 0], dtype=torch.int32)
-    idx = torch.full((2, 300), -1, dtype=torch.int32)
-    d2 = torch.full((2, 300), float("nan"))
-    m = torch.full((2, 300, 9), float("nan"))
-    assert emulated.se3icp_nn_match_packed(
-        q.data_ptr(), targets.emb.data_ptr(), targets.tn.data_ptr(),
-        targets.payload.data_ptr(), targets.n.data_ptr(), phase.data_ptr(),
-        idx.data_ptr(), d2.data_ptr(), m.data_ptr(), 2, 300, 333, 9, 1,
-        None) == 0
+    code, *out = _k8(emulated, q, targets, phase)
+    assert code == 0
+    idx, d2, m = out
     idx_p, d2_p, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
     _nn_hold(q, torch.stack([t_b[0], t_a[1]]), n, idx, d2, idx_p, d2_p)
     assert torch.equal(m, cuda_nn._gather_rows(pay, idx))
+    for split in (1, 3):
+        code, *ref = _k8(emulated, q, targets, phase, split)
+        assert code == 0
+        assert all(torch.equal(a, b) for a, b in zip(out, ref)), split
+
+
+@pytest.mark.parametrize("case", ["planted-ties", "one-point", "given-tn"])
+def test_emulated_tiled_packed_match_returns_the_untiled_bits(emulated,
+                                                              case):
+    """K8 (the tiled search on packed targets, a phase block per pair)
+    against the one-query-a-thread search at S = 1, bit for bit: the
+    tiled case (ragged tiles, counts of every row, none, 201 and 129,
+    planted ties or one point) packed with phases 0, 1, 1, 0 and the
+    wrong block one row off; the planted answers; the pair with no valid
+    target gives row 0 and 3.4e38 + |q|^2; matched rows are copies of the
+    payload rows; the plain version within the kernels' tolerance.
+    ``given-tn``: a tied row's given |t|^2 one ulp below the other's wins
+    the tie -- a search that recomputes |t|^2 in its scan or in its
+    epilogue does not return these bits."""
+    q, targets, phase, answers = kcases.packed_case(
+        one_point=case == "one-point", nudge=case == "given-tn")
+    code, *out = _k8(emulated, q, targets, phase)
+    assert code == 0
+    code, *ref = _k8(emulated, q, targets, phase, split=1)
+    assert code == 0
+    for (b, i), j in answers.items():
+        assert int(ref[0][b, i]) == j, (b, i)      # the reference's answer
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    idx, d2, m = out
+    for (b, i), j in answers.items():
+        assert int(idx[b, i]) == j, (b, i)
+    qn = torch.zeros(q.shape[:2])
+    for k in range(q.shape[2]):              # the kernel's |q|^2 chain
+        qn = torch.addcmul(qn, q[..., k], q[..., k])
+    assert bool((idx[1] == 0).all())
+    assert torch.equal(d2[1], torch.tensor(3.4e38) + qn[1])
+    assert torch.equal(m, cuda_nn._gather_rows(targets.payload, idx))
+    live, n = targets.n > 0, targets.n
+    idx_p, d2_p, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
+    _nn_hold(q[live], _selected(targets, phase)[live], n[live], idx[live],
+             d2[live], idx_p[live], d2_p[live])
 
 
 @pytest.mark.parametrize("d", [3, 12])

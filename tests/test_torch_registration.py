@@ -211,5 +211,6 @@ def test_kernel_wrappers_count_launches_only_on_the_card():
         "se3icp_match_affine", "se3icp_loop_epilogue", "se3icp_thresholds",
         "se3icp_moments", "se3icp_axis", "se3icp_nn_argmin",
         "se3icp_nn_argmin_batched", "se3icp_nn_match_batched",
-        "se3icp_nn_tiled_smem", "se3icp_nn_match_packed"}
+        "se3icp_nn_tiled_smem", "se3icp_nn_match_packed",
+        "se3icp_nn_match_packed_batched"}
     assert [h.name for h in _build.headers()] == ["dist.cuh"]

@@ -302,3 +302,50 @@ def tiled_answers(one_point=False):
             if tie[0] < n:
                 out[(b, i)] = tie[0]
     return out
+
+
+# ------------------------------------------------ K8 on packed targets
+
+# each pair's phase in packed_case: mixed, the pair with no valid target
+# in the second block
+PACKED_PHASES = (0, 1, 1, 0)
+# rows of packed_case(nudge=True) whose given |t|^2 lies one ulp below
+# the torch sum: the later row of the ties (13, 17) and (10, 74) and the
+# middle one of (20, 148, 276) then wins where it is valid
+NUDGED_ROWS = (17, 74, 148)
+
+
+def packed_case(one_point=False, nudge=False, seed=0, device="cpu"):
+    """``tiled_case(12, one_point)`` packed into two phase blocks as
+    ``cuda_knn.pack_match_targets`` packs them (|t|^2 a torch sum): pair
+    b's rows in block ``PACKED_PHASES[b]``, the other block the same rows
+    one place on (a search of the wrong block moves every planted answer
+    by one), a payload of 9 columns.  ``nudge``: the given |t|^2 of
+    ``NUDGED_ROWS`` in each pair's block one ulp lower.  Returns (q
+    [4,300,12], targets, phase [4] int32, {(pair, query): index} of the
+    planted answers)."""
+    q, t, n = tiled_case(12, one_point, seed)
+    phase = torch.tensor(PACKED_PHASES, dtype=torch.int32)
+    other = torch.roll(t, 1, dims=1)
+    sel = phase.bool()[:, None, None]
+    pay = torch.as_tensor(np.random.default_rng(seed + 1).normal(
+        size=(4, t.shape[1], 9)).astype(np.float32))
+    targets = cuda_knn.pack_match_targets(torch.where(sel, other, t),
+                                          torch.where(sel, t, other), pay, n)
+    answers = tiled_answers(one_point)
+    if nudge:
+        rows = list(NUDGED_ROWS)
+        ar = torch.arange(4)[:, None]
+        blk = phase.long()[:, None]
+        targets.tn[ar, blk, rows] = torch.nextafter(
+            targets.tn[ar, blk, rows], torch.tensor(-float("inf")))
+        for b, cnt in enumerate(TILED_COUNTS):
+            for i, tie in enumerate(TILED_TIES):
+                won = [j for j in tie if j in NUDGED_ROWS and j < cnt]
+                if (b, i) in answers and won:
+                    answers[(b, i)] = won[0]
+    to = lambda x: x.to(device)
+    targets = cuda_knn.MatchTargets(emb=to(targets.emb), tn=to(targets.tn),
+                                    payload=to(targets.payload),
+                                    n=to(targets.n))
+    return to(q), targets, to(phase), answers

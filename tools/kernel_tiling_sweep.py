@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Tiling factors of K4 (``csrc/match_affine.cu``), K1
 (``csrc/thresholds.cu``), K2, K3 (``csrc/moments.cu``) and the tiled 1-NN
-search of K6/K7 (``csrc/nn_argmin.cu``), and the cluster and split sizes
-of K5 (``csrc/loop_epilogue.cu``) and of the one-query-a-thread search of
-K8/K9, measured side by side on one card.
+search of K6/K7/K8 (``csrc/nn_argmin.cu``), and the cluster and split
+sizes of K5 (``csrc/loop_epilogue.cu``) and of the one-query-a-thread
+search of K9, measured side by side on one card.
 
     python3 tools/kernel_tiling_sweep.py [--only k4 k1 moments k5 nn]
                                          [--k4 THREADS,R,MINBLOCKS,U,U3 ...]
@@ -44,10 +44,11 @@ answer with mixed phases at 64 x 4608 (whole and trimmed to 0.75) and at
 8 x 15360 (each phase, whole and trimmed), gicp whole and gicp with
 confidences trimmed.  The 1-NN kernels' are the tiled search's
 tilings on K6 (64 x 4608 at D = 3, FGR's features at D = 33, and 8 x
-15360 at D = 3) and K7 (the main path's targets, D = 12, P = 9), with
-the one-query-a-thread search at S = 1 beside K6 (the tiled search must
-return its bits); its target splits S = 1, 2, 4, 8 on one cloud (K9:
-4608 points at D = 3, 15360 at D = 12); K8 at the wrapper's S.
+15360 at D = 3), K7 (the main path's targets, D = 12, P = 9) and K8
+(the engine's packed targets with mixed phases at 64 x 4608 and 8 x
+15360), with the one-query-a-thread search at S = 1 beside K6 and K8
+(the tiled search must return its bits); its target splits S = 1, 2, 4,
+8 on one cloud (K9: 4608 points at D = 3, 15360 at D = 12).
 ``--extra-k4`` / ``--extra-k1`` / ``--extra-moments`` / ``--extra-k5`` /
 ``--extra-nn`` add other sources with the same C entry points (an
 earlier version of the kernel, say) to the same turns; for them the bits
@@ -57,7 +58,10 @@ with its own arguments: it runs the queries in index order; so are a
 ``loop_epilogue.cu`` without the cluster argument and an ``nn_argmin.cu``
 without the split argument (one block a pair, the unsplit search), and
 an ``nn_argmin.cu`` without the tiled entry points runs K6 and K7 through
-``se3icp_nn_argmin`` / ``se3icp_nn_match`` at the S that K9's rule picks.
+``se3icp_nn_argmin`` / ``se3icp_nn_match``, and one without the tiled K8
+(``se3icp_nn_match_packed_batched``) runs K8 through
+``se3icp_nn_match_packed``, at the S that K9's rule (``split_size``)
+picks.
 The committed sources are not changed.
 ``--sass DIR`` also writes each variant's machine code (``cuobjdump
 -sass``) into DIR.  Needs a CUDA device and nvcc; prints one JSON line
@@ -601,13 +605,17 @@ def nn_cases():
     q12 = (ms.feat16 @ W)[..., :12].contiguous()
     out.append(("K8", "K8 64 x 4608, mixed phases", q12, ms.targets,
                 ms.targets.n, ms.targets.payload, phase[:, 0].contiguous()))
+    q12, targets, phase = cs.packed_big(big, dev)
+    out.append(("K8", "K8 8 x 15360, mixed phases", q12, targets, targets.n,
+                targets.payload, phase))
     return out
 
 
 def nn_call(lib, route, q, t, n, payload, phase, split):
     """One launch of the case's entry point in ``lib`` -> (run, outputs).
-    ``route``: "tiled" (K6/K7's entry points ``se3icp_nn_argmin_batched``
-    / ``se3icp_nn_match_batched``), "split" (``se3icp_nn_argmin`` /
+    ``route``: "tiled" (the tiled search's entry points
+    ``se3icp_nn_argmin_batched`` / ``se3icp_nn_match_batched`` /
+    ``se3icp_nn_match_packed_batched``), "split" (``se3icp_nn_argmin`` /
     ``se3icp_nn_match`` / ``se3icp_nn_match_packed`` with ``split``) or
     "own" (the same without the split argument: an older source)."""
     from se3_icp_tpu_torch.ops import _build
@@ -637,7 +645,10 @@ def nn_call(lib, route, q, t, n, payload, phase, split):
                 idx.data_ptr(), d2.data_ptr(), m.data_ptr(), bsz, nq,
                 t.shape[1], d, payload.shape[2])
     else:
-        fn = lib.se3icp_nn_match_packed
+        if route == "tiled":
+            fn = lib.se3icp_nn_match_packed_batched
+        else:
+            fn = lib.se3icp_nn_match_packed
         fn.argtypes = [P] * 9 + [I] * (4 + len(extra)) + [P]
         args = (q.data_ptr(), t.emb.data_ptr(), t.tn.data_ptr(),
                 payload.data_ptr(), n.data_ptr(), phase.data_ptr(),
@@ -647,12 +658,27 @@ def nn_call(lib, route, q, t, n, payload, phase, split):
         (idx, d2, m)
 
 
+def nn_instances(log: str) -> dict:
+    """ptxas resources of the 1-NN kernels by readable instance name."""
+    import chip_smoke
+    out = {}
+    for k, v in chip_smoke.ptxas_resources(log).items():
+        m = re.search(r"(nn_tiled_kernel|nn_kernel)ILi(\d+)ELb(\d)ELb(\d)E",
+                      k)
+        if m:
+            out[f"{m.group(1)}<{m.group(2)}, {m.group(3)}, {m.group(4)}>"] = v
+    return out
+
+
 def sweep_nn(tiles, reps, sass_dir, extras=()):
-    """K6/K7 (the tiled kernel) at the committed tiling and the ``tiles``
-    variants, with the one-query-a-thread search at S = 1 beside them;
-    K9 at S = 1, 2, 4, 8 and K8 at the wrapper's S; every extra source
-    through its own entry points.  The committed tiled kernel's bits are
-    the reference of K6/K7, the wrapper's S that of K8/K9."""
+    """K6/K7/K8 (the tiled kernel) at the committed tiling and the
+    ``tiles`` variants, with the one-query-a-thread search at S = 1
+    beside K6 and K8; K9 at S = 1, 2, 4, 8; every extra source through
+    its own entry points (an older K8 at ``split_size``'s S).  The
+    committed tiled kernel's bits are the reference of K6/K7/K8, the
+    wrapper's S that of K9.  ``ptxas`` by instance:
+    ``nn_tiled_kernel<D, payload, packed>``, ``nn_kernel<D, payload,
+    packed>``."""
     from se3_icp_tpu_torch.ops import _build, cuda_nn
     text = (_build.CSRC / "nn_argmin.cu").read_text()
     base = committed(text, NN_TILE_FACTORS)
@@ -665,23 +691,26 @@ def sweep_nn(tiles, reps, sass_dir, extras=()):
         libs = build_all(jobs, tmp, sass_dir)
         rows = {"committed": dict(tile=dict(zip(NN_TILE_FACTORS, base)),
                                   ms={}, split_by={},
-                                  ptxas=resources(libs["nn"][1], "nn_"))}
+                                  ptxas=nn_instances(libs["nn"][1]))}
         for i, v in enumerate(tiles):
             rows[f"nn_tile{i}"] = dict(
                 tile=dict(zip(NN_TILE_FACTORS, v)), ms={},
-                ptxas=resources(libs[f"nn_tile{i}"][1], "nn_tiled_kernel"))
+                ptxas=nn_instances(libs[f"nn_tile{i}"][1]))
         for s in (1, 2, 4, 8):
             rows[f"S={s}"] = dict(split=s, ms={})
         route, has_tiled = {}, {}
         for t, label, src in extras:
             route[t] = "split" if "int split" in src else "own"
-            has_tiled[t] = "se3icp_nn_argmin_batched" in src
+            has_tiled[t] = {
+                "K6": "se3icp_nn_argmin_batched" in src,
+                "K7": "se3icp_nn_match_batched" in src,
+                "K8": "se3icp_nn_match_packed_batched" in src}
             rows[t] = dict(source=label, ms={}, same_bits={},
                            own_signature=route[t] == "own",
-                           ptxas=resources(libs[t][1], "nn_"))
+                           ptxas=nn_instances(libs[t][1]))
         for kernel, name, q, t, n, payload, phase in nn_cases():
             chosen = cuda_nn.split_size(q.shape[0], q.shape[1], q.device)
-            tiled = kernel in ("K6", "K7")
+            tiled = kernel in ("K6", "K7", "K8")
             fns, outs = {}, {}
 
             def call(lib, r, s):
@@ -692,7 +721,7 @@ def sweep_nn(tiles, reps, sass_dir, extras=()):
                 for i in range(len(tiles)):
                     tag = f"nn_tile{i}"
                     fns[tag], outs[tag] = call(libs[tag][0], "tiled", 1)
-                if payload is None:
+                if payload is None or phase is not None:
                     fns["S=1"], outs["S=1"] = call(libs["nn"][0], "split",
                                                    1)
             else:
@@ -705,7 +734,8 @@ def sweep_nn(tiles, reps, sass_dir, extras=()):
                             fns[f"S={s}"], outs[f"S={s}"] = call(
                                 libs["nn"][0], "split", s)
             for tag, _, _ in extras:
-                r = "tiled" if tiled and has_tiled[tag] else route[tag]
+                r = "tiled" if tiled and has_tiled[tag][kernel] else \
+                    route[tag]
                 fns[tag], outs[tag] = call(libs[tag][0], r, chosen)
             # "nn_" names both kernels; a window holds one fn's launches
             med = time_turns_device(fns, reps, "nn_")
