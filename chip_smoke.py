@@ -35,12 +35,23 @@ same batch, K8 on the engine's packed targets at 64 x 4608 and 8 x
 (torch.profiler) beside the time through the wrapper.  It gates
 every result at 2 deg / 0.25, and shows
 from the wrappers' launch counts that each path went through its
-kernels.  Every phase
+kernels.  The counts are kept on the card, each added to beside its
+kernel's launch (``ops/_build.count_launch``), so on the captured CUDA
+graph the engine runs as (``models/program.py``) a replay counts the
+launches it ran, the loop kernels once a step that ran; one replayed
+main-path call is also profiled and the profiler must see the launches
+the counters saw.  Every path on the
+captured program is run again on the eager polled loop and must give
+its bits (``program`` line, with the cost of a skipped group of steps);
+a ``serving`` phase sends 4 scan-to-model batches of 64 pairs through
+``register_pairs_async`` with one in flight and holds them against
+``register_pairs`` one batch at a time.  Every phase
 prints one JSON line; any failed phase raises, so the exit code is
 non-zero and the final ``{"ok": true, ...}`` line is not printed.
 Without a CUDA device it exits with code 2 and prints no result.
-``--profile`` adds a line each with the device time by kernel name of
-one main-path call and of one multistart call.
+The ``profile`` line (device time by kernel name, the device's idle
+share) of one main-path call is always printed; ``--profile`` adds one
+multistart call's.
 """
 
 from __future__ import annotations
@@ -240,6 +251,13 @@ def golden_pairs(n_pairs, **kw):
             for s in range(1, n_pairs + 1)]
 
 
+def hyper_on(cfg):
+    """The traced hyperparameters of ``cfg`` as the engine reads them:
+    views of one float32 vector on the card."""
+    from se3_icp_tpu_torch.models import registration as reg
+    return reg.hyper(reg.split_cfg(cfg, torch.float32, "cuda")[0])
+
+
 def match_state(problems, cfg, algorithm):
     """Setup on the card, as the main path runs it."""
     from se3_icp_tpu_torch.models import registration as reg
@@ -251,7 +269,7 @@ def match_state(problems, cfg, algorithm):
     t = lambda a: torch.as_tensor(a, device="cuda")
     with torch.no_grad():
         ms, pre = reg.setup(t(src), t(n_src), t(tgt), t(n_tgt), cfg, mode,
-                            variant)
+                            variant, hyper_on(cfg))
     return ms, pre
 
 
@@ -259,7 +277,8 @@ def loop_inputs(ms, cfg, switched, done, T):
     """W, phase and pf of one iteration at pose T, as the loop makes
     them."""
     from se3_icp_tpu_torch.models import registration as reg
-    W, phase, pf = reg.iteration_inputs(ms, cfg, T, switched, done)
+    W, phase, pf = reg.iteration_inputs(ms, cfg, T, switched, done,
+                                        hyper_on(cfg))
     return W.contiguous(), phase.contiguous(), pf.contiguous()
 
 
@@ -445,7 +464,8 @@ def setup_clouds(problems):
     src, n_src, tgt, n_tgt = (torch.as_tensor(a, device="cuda")
                               for a in pairs.pack_pairs(
                                   [(p.source, p.target) for p in problems]))
-    src_c, tgt_c, _ = reg.preprocess(src, n_src, tgt, n_tgt, GOLDEN, True)
+    src_c, tgt_c, _ = reg.preprocess(src, n_src, tgt, n_tgt, GOLDEN, True,
+                                     hyper_on(GOLDEN))
     return (src_c, n_src), (tgt_c, n_tgt)
 
 
@@ -780,9 +800,6 @@ class SetupSplit:
                 torch.cuda.synchronize()
                 self.seconds[_name] += time.perf_counter() - t0
                 return out
-            # a wrapper counts its launches through its module name,
-            # which is this stand-in while the block runs
-            timed.launches = 0
             setattr(cm, name, timed)
         return self
 
@@ -810,28 +827,67 @@ def phases_line(problems):
         return out, time.perf_counter() - t0
 
     pair_list = [(p.source, p.target) for p in problems]
-    packed, pack_s = timed(lambda: pairs.pack_pairs(pair_list))
+    packed, _ = timed(lambda: pairs.pack_pairs(pair_list))
     dev, upload_s = timed(lambda: [torch.as_tensor(a, device="cuda")
                                    for a in packed])
     src, n_src, tgt, n_tgt = dev
+    # the engine's own arguments: the traced floats as a card vector
+    # and the static config
+    h, cfg = hyper_on(GOLDEN), reg.static_cfg(GOLDEN)
     with torch.no_grad():
         (ms, pre), setup_s = timed(lambda: reg.setup(
-            src, n_src, tgt, n_tgt, GOLDEN, "se3", "pt2pl"))
+            src, n_src, tgt, n_tgt, cfg, "se3", "pt2pl", h))
         with SetupSplit() as split:
             _, split_s = timed(lambda: reg.setup(
-                src, n_src, tgt, n_tgt, GOLDEN, "se3", "pt2pl"))
+                src, n_src, tgt, n_tgt, cfg, "se3", "pt2pl", h))
         _, exact_s = timed(lambda: reg.setup(
-            src, n_src, tgt, n_tgt, GOLDEN, "se3", "pt2pl", exact_knn=True))
-        src_c, tgt_c, _ = reg.preprocess(src, n_src, tgt, n_tgt, GOLDEN,
-                                         True)
+            src, n_src, tgt, n_tgt, cfg, "se3", "pt2pl", h, exact_knn=True))
+        src_c, tgt_c, _ = reg.preprocess(src, n_src, tgt, n_tgt, cfg, True,
+                                         h)
         _, knn_s = timed(lambda: (knn.knn_self(src_c, 91, n_src),
                                   knn.knn_self(tgt_c, 91, n_tgt)))
         stats = {}
-        _, loop_s = timed(lambda: reg.run_loop(ms, pre.scaling, GOLDEN,
-                                               "se3", stats=stats))
+        _, loop_s = timed(lambda: reg.run_loop(ms, pre.scaling, cfg, "se3",
+                                               h, stats=stats))
     sec = split.seconds
     kernels_s = sum(sec.values())
+    # the captured route, as register_pairs runs it (medians of 7): both
+    # sides packed max-padded into pinned buffers and uploaded, memo off
+    # (host time, then to the end of the copies); the dispatch (copies
+    # into the program's buffers, the replay, the output clones: host
+    # time, then to the end of the replay on the card); the one fetch
+    def median_split(fn):
+        host, done = [], []
+        for _ in range(7):
+            pairs._cloud_cache.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            done.append(time.perf_counter() - t0)
+        return out, statistics.median(host), statistics.median(done)
+
+    sides = ([s for s, _ in pair_list], [t for _, t in pair_list])
+    (s_dev, t_dev), up_host, up_done = median_split(lambda: [
+        pairs._device_clouds(side, np.float32, "cuda") for side in sides])
+    dispatched = []
+    _, disp_host, disp_done = median_split(lambda: dispatched.append(
+        pairs._dispatch_batch(*s_dev, *t_dev, GOLDEN, "se3_pt2pl")))
+    for d in dispatched:
+        d.settle()
+    _, fetch_s, _ = median_split(lambda: pairs.PendingBatch(
+        pairs._dispatch_batch(*s_dev, *t_dev, GOLDEN, "se3_pt2pl"),
+        N_PAIRS).result())
+    pack_s = statistics.median(
+        timed(lambda: pairs.pack_pairs(pair_list))[1] for _ in range(7))
+    program_split = dict(pack_upload_host_seconds=up_host,
+                         pack_upload_seconds=up_done,
+                         dispatch_host_seconds=disp_host,
+                         dispatch_to_done_seconds=disp_done,
+                         dispatch_and_fetch_seconds=fetch_s)
     emit("phases", pairs=len(problems), host_pack_seconds=pack_s,
+         program_split=program_split,
          upload_seconds=upload_s, setup_seconds=setup_s,
          setup_split=dict(
              seconds=split_s,
@@ -844,9 +900,25 @@ def phases_line(problems):
          loop_ms_per_step=1e3 * loop_s / stats["loop_steps"])
 
 
-def profile_line(call, phase="profile"):
-    """``--profile``: device time of one ``call()`` by kernel name
-    (torch.profiler), the ten largest, and the call's wall time."""
+def device_busy_ms(prof) -> float:
+    """The union of the device kernels' intervals in a profile, ms."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def profile_line(call, phase="profile", emit_line=True):
+    """Device time of one ``call()`` by kernel name (torch.profiler),
+    the ten largest, the call's wall time and the device's idle share
+    of it (1 - the union of the kernels' intervals over the wall time,
+    both under the profiler); returns the line's fields."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -865,37 +937,84 @@ def profile_line(call, phase="profile"):
                      calls=sum(r[1] for r in rows if tag in r[2]))
            for tag in ("thresholds_kernel", "moments_kernel", "axis_kernel",
                        "match_affine_kernel", "epilogue_kernel", "nn_kernel",
-                       "nn_tiled_kernel")}
-    emit(phase, device_ms_total=total / 1e3, wall_ms_profiled=1e3 * wall,
-         device_kernel_launches=sum(r[1] for r in rows),
-         hand_written=own,
-         top=[dict(ms=r[0] / 1e3, calls=r[1], name=r[2][:80])
-              for r in rows[:10]])
+                       "nn_tiled_kernel", "set_if_kernel")}
+    busy = device_busy_ms(prof)
+    line = dict(device_ms_total=total / 1e3, device_busy_ms=busy,
+                wall_ms_profiled=1e3 * wall,
+                idle_share=1.0 - busy / (1e3 * wall),
+                device_kernel_launches=sum(r[1] for r in rows),
+                hand_written=own,
+                top=[dict(ms=r[0] / 1e3, calls=r[1], name=r[2][:80])
+                     for r in rows[:10]])
+    if emit_line:
+        emit(phase, **line)
+    return line
 
 
-def wrappers():
-    """name -> the launch-counting wrapper of every ported kernel."""
-    from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, cuda_moments, cuda_nn
-    return dict(
-        neighborhood_thresholds_batched=(
-            cuda_moments.neighborhood_thresholds_batched),
-        moments_batched=cuda_moments.moments_batched,
-        axis_sums_batched=cuda_moments.axis_sums_batched,
-        nn_match_affine=cuda_knn.nn_match_affine,
-        loop_epilogue_batched=cuda_loop.loop_epilogue_batched,
-        nn_argmin_batched=cuda_nn.nn_argmin_batched,
-        nn_argmin_unbatched=cuda_nn.nn_argmin_unbatched,
-        nn_match_batched=cuda_nn.nn_match_batched,
-        nn_match_packed=cuda_nn.nn_match_packed)
+class EagerLoop:
+    """Within the block every registration takes the eager polled loop
+    (``registration.loop_route`` answers "eager"): the captured
+    program's reference, bit for bit."""
+
+    def __enter__(self):
+        from se3_icp_tpu_torch.models import registration as reg
+        self.reg, self.orig = reg, reg.loop_route
+        reg.loop_route = lambda *a, **kw: "eager"
+        return self
+
+    def __exit__(self, *exc):
+        self.reg.loop_route = self.orig
+
+
+def same_results(a, b) -> bool:
+    """Two RegistrationResult lists: the same iteration counts and the
+    same transform bits, pair by pair."""
+    return len(a) == len(b) and all(
+        x.num_iterations == y.num_iterations
+        and x.num_pure_se3_iterations == y.num_pure_se3_iterations
+        and np.array_equal(x.transformation, y.transformation)
+        for x, y in zip(a, b))
+
+
+# what each path's captured run showed: filled by the phases, printed
+# by ``program_phase``
+PROGRAM_HOLDS = []
+
+
+def hold_against_eager(path, call, results, stats, route="graph"):
+    """``call()`` again under ``EagerLoop``: its results must be the
+    captured run's ``results`` bit for bit (any difference fails)."""
+    eager_stats = {}
+    with EagerLoop():
+        ref = call(eager_stats)
+    torch.cuda.synchronize()
+    same = same_results(results, ref)
+    check(same, f"{path}: the captured program's results differ from the "
+          "eager loop's")
+    if route == "graph":
+        check(stats["loop_steps"] == eager_stats["loop_steps"]
+              and stats["host_syncs"] == 0,
+              f"{path}: {stats} on the captured program, "
+              f"{eager_stats} eager")
+    PROGRAM_HOLDS.append(dict(
+        path=path, route=route, same_bits=same,
+        loop_steps=stats["loop_steps"], host_syncs=stats["host_syncs"],
+        eager_loop_steps=eager_stats["loop_steps"],
+        eager_host_syncs=eager_stats["host_syncs"]))
 
 
 def zero_launches() -> None:
-    for fn in wrappers().values():
-        fn.launches = 0
+    """Every wrapper's launch count on the card set to 0 (in stream
+    order: after the work queued so far)."""
+    from se3_icp_tpu_torch.ops import _build
+    _build.zero_launches()
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """The wrappers' launch counts, read back from the card: each is
+    added to beside its kernel's launch, inside a captured graph too."""
+    from se3_icp_tpu_torch.ops import _build
+    return _build.launches()
 
 
 def check_launches(what, launches, loop_steps, setup):
@@ -954,34 +1073,44 @@ ALGORITHM_SETUP_LAUNCHES = {
 }
 
 
-def main_path_phase(with_profile: bool = False):
+def main_path_phase():
     """The port's main path through its public entry points, on the
     threshold route (the default) and on the exact route."""
     from se3_icp_tpu_torch.datasets.fixtures import NOISY, SMALL_POSE
     from se3_icp_tpu_torch.parallel import pairs
-    from se3_icp_tpu_torch.utils.config import GOLDEN, LOUNGE
+    from se3_icp_tpu_torch.utils.config import GOLDEN, LOUNGE, parse_algorithm
 
     problems = golden_pairs(N_PAIRS)
     pair_list = [(p.source, p.target) for p in problems]
     check(all(len(p.source) == 4167 for p in problems), "cloud size")
-    # warm-up calls (allocator, cuBLAS/cuSOLVER handles), not counted
+    # warm-up calls at the counted calls' shapes, not counted: the
+    # libraries' handles and each route's captured program
+    from se3_icp_tpu_torch.models import program
     t0 = time.perf_counter()
     for exact in (False, True):
-        pairs.register_pairs(pair_list[:SMALL_BATCH], "se3_pt2pl", GOLDEN,
+        pairs.register_pairs(pair_list, "se3_pt2pl", GOLDEN,
                              exact_knn=exact)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    capture_s = program.info()["capture_seconds"]
 
     line, launches, results = main_path_run(pair_list, problems,
                                             exact_knn=False)
-    emit("main_path", warmup_seconds=warm_s, **line)
-    line, _, _ = main_path_run(pair_list, problems, exact_knn=True)
+    emit("main_path", warmup_seconds=warm_s,
+         captures_seconds_in_warmup=capture_s, **line)
+    hold_against_eager(
+        "main path", lambda st: pairs.register_pairs(
+            pair_list, "se3_pt2pl", GOLDEN, stats=st), results, line)
+    line, _, exact_results = main_path_run(pair_list, problems,
+                                           exact_knn=True)
     emit("main_path_exact", **line)
+    hold_against_eager(
+        "main path (exact_knn)", lambda st: pairs.register_pairs(
+            pair_list, "se3_pt2pl", GOLDEN, stats=st, exact_knn=True),
+        exact_results, line)
 
     phases_line(problems)
-    if with_profile:
-        profile_line(lambda: pairs.register_pairs(pair_list, "se3_pt2pl",
-                                                  GOLDEN))
+    replayed_launches_line(pair_list)
 
     # the card and the CPU route agree on a small input
     small = golden_pairs(2, n=600)
@@ -1008,27 +1137,202 @@ def main_path_phase(with_profile: bool = False):
             ("se3_pt2pt", GOLDEN, "GOLDEN", {}),
             ("pt2pl", GOLDEN, "GOLDEN", SMALL_POSE)):
         probs = golden_pairs(SMALL_BATCH, **kw)
+        plist = [(p.source, p.target) for p in probs]
         walls = []
         for _ in range(2):      # the first call pays one-off library set-up
-            st = {}
+            st = {}             # and the capture of its program
             zero_launches()
             t0 = time.perf_counter()
-            res = pairs.register_pairs(
-                [(p.source, p.target) for p in probs], alg, cfg, stats=st)
+            res = pairs.register_pairs(plist, alg, cfg, stats=st)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         alg_launches = read_launches()
+        from se3_icp_tpu_torch.models import registration as reg
+        route = reg.loop_route("cuda", *parse_algorithm(alg))
+        hold_against_eager(
+            alg, lambda st, _a=alg, _c=cfg, _l=plist: pairs.register_pairs(
+                _l, _a, _c, stats=st), res, st, route)
         rot, tra = gate(probs, res, alg)
         iters = [r.num_iterations for r in res]
         check(st["loop_steps"] >= max(iters), f"{alg}: loop steps")
         check_launches(alg, alg_launches, st["loop_steps"],
                        ALGORITHM_SETUP_LAUNCHES[alg])
         emit("algorithm_run", algorithm=alg, config=cfg_name, pairs=SMALL_BATCH,
-             first_call_seconds=walls[0], seconds=walls[1],
+             loop_route=route, first_call_seconds=walls[0], seconds=walls[1],
              mean_iterations=float(np.mean(iters)), max_iterations=max(iters),
              loop_steps=st["loop_steps"], host_syncs=st["host_syncs"],
              launches=alg_launches, worst_rot_deg=rot, worst_trans=tra)
     return launches, results
+
+
+PROGRAM_PROFILE = {}
+
+
+def replayed_launches_line(pair_list):
+    """One replayed main-path call under the profiler: device time, the
+    device's idle share, and its launches counted twice -- on the card
+    by the wrappers' counters (K4 and K5 once a device-counted loop
+    step, K1-K3 twice each) and by the profiler in the same run, which
+    must see the same launches and the conditional node's predicate
+    kernel once a group of steps the loop may run.  The counters must
+    agree on every try; the profiler drops a record now and then, so a
+    try whose profile saw fewer launches (never more) is made again, at
+    most three in all."""
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    groups = -(-(max(GOLDEN.max_num_iterations,
+                     GOLDEN.max_num_se3_iterations) + 1) // reg._POLL_EVERY)
+    tag = dict(match_affine_kernel="nn_match_affine",
+               epilogue_kernel="loop_epilogue_batched",
+               thresholds_kernel="neighborhood_thresholds_batched",
+               moments_kernel="moments_batched",
+               axis_kernel="axis_sums_batched")
+    tries = []
+    for _ in range(3):
+        st = {}
+        zero_launches()
+        line = profile_line(lambda: pairs.register_pairs(
+            pair_list, "se3_pt2pl", GOLDEN, stats=st), emit_line=False)
+        counted = read_launches()
+        check_launches("profiled main path", counted, st["loop_steps"],
+                       (2, 2, 2))
+        own = line["hand_written"]
+        got = {k: own[k]["calls"] for k in (*tag, "set_if_kernel")}
+        want = {k: counted[name] for k, name in tag.items()}
+        want["set_if_kernel"] = groups
+        tries.append(dict(profiled=got, counted=want))
+        if got == want:
+            break
+        check(all(got[k] <= want[k] for k in want),
+              f"the profiler saw launches {got} that the counters "
+              f"{want} did not")
+    check(got == want, f"profiled launches of a replayed call {tries} "
+          "differ from the device-counted ones")
+    PROGRAM_PROFILE.update(tries=tries, device_loop_steps=st["loop_steps"],
+                           host_syncs=st["host_syncs"])
+    emit("profile", route="graph", device_loop_steps=st["loop_steps"],
+         host_syncs=st["host_syncs"], launches=counted, launches_agree=True,
+         profiled_tries=len(tries), **line)
+
+
+def serving_phase():
+    """Scan-to-model serving: 4 consecutive 64-pair batches whose target
+    side is one list of arrays (3 memo hits a run) and whose sources are
+    fresh arrays each batch (the golden sources with 1e-3 of noise),
+    through ``register_pairs_async`` with one batch in flight, held bit
+    for bit against ``register_pairs`` one batch at a time; wall times
+    of both, and the device's idle share of each under the profiler."""
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    problems = golden_pairs(N_PAIRS)
+    targets = [p.target for p in problems]
+    rng = np.random.default_rng(9)
+
+    def fresh_sources():
+        return [[p.source + rng.normal(scale=1e-3, size=p.source.shape)
+                 for p in problems] for _ in range(4)]
+
+    def sequential(srcs):
+        return [pairs.register_pairs(list(zip(s, targets)), "se3_pt2pl",
+                                     GOLDEN) for s in srcs]
+
+    def pipelined(srcs):
+        out, pending = [], None
+        for s in srcs:
+            nxt = pairs.register_pairs_async(list(zip(s, targets)),
+                                             "se3_pt2pl", GOLDEN)
+            if pending is not None:
+                out.append(pending.result())
+            pending = nxt
+        out.append(pending.result())
+        return out
+
+    def run(fn, srcs):
+        pairs._cloud_cache.clear()
+        before = dict(pairs.cloud_cache_counts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(srcs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        memo = {k: pairs.cloud_cache_counts[k] - before[k] for k in before}
+        return res, wall, memo
+
+    srcs = fresh_sources()
+    seq, seq_s, seq_memo = run(sequential, srcs)
+    pip, pip_s, pip_memo = run(pipelined, srcs)
+    same = all(same_results(a, b) for a, b in zip(pip, seq))
+    check(same, "serving: pipelined batches differ from sequential ones")
+    check(pip_memo == {"hits": 3, "uploads": 5} == seq_memo,
+          f"serving: memo {pip_memo} pipelined, {seq_memo} sequential; "
+          "want 3 hits and 5 uploads (1 target side, 4 source sides)")
+    check(all(np.isfinite(r.transformation).all() for b in pip for r in b),
+          "serving: a transform is not finite")
+    idle = {}
+    for name, fn in (("sequential", sequential), ("pipelined", pipelined)):
+        line = profile_line(lambda _f=fn: run(_f, fresh_sources()),
+                            emit_line=False)
+        idle[name] = dict(idle_share=line["idle_share"],
+                          device_busy_ms=line["device_busy_ms"],
+                          wall_ms_profiled=line["wall_ms_profiled"])
+    emit("serving", batches=4, pairs_per_batch=N_PAIRS, in_flight=1,
+         algorithm="se3_pt2pl", config="GOLDEN",
+         sequential_seconds=seq_s, pipelined_seconds=pip_s,
+         sequential_pairs_per_s=4 * N_PAIRS / seq_s,
+         pipelined_pairs_per_s=4 * N_PAIRS / pip_s,
+         memo_pipelined=pip_memo, memo_sequential=seq_memo,
+         same_bits_as_sequential=same, profiled=idle)
+
+
+def skipped_tail():
+    """What a skipped group of loop steps costs: the main path's 64
+    pairs with every pair done after its second step (mse and the
+    switch threshold 1e9), once with the GOLDEN caps (151 steps: one
+    group runs, 37 are skipped) and once with caps of 3 (4 steps: the
+    one group, none skipped); CUDA events around each call (after a
+    warm-up that captures its program), medians of 15."""
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    problems = golden_pairs(N_PAIRS)
+    arrs = [torch.as_tensor(a, device="cuda") for a in pairs.pack_pairs(
+        [(p.source, p.target) for p in problems])]
+    quick = GOLDEN.replace(mse=1e9, mse_switch_error=1e9)
+    out = {}
+    for name, cfg in (("caps_150", quick),
+                      ("caps_3", quick.replace(max_num_iterations=3,
+                                               max_num_se3_iterations=3))):
+        st = {}
+        ms = time_ms(lambda _c=cfg: reg.register_arrays(
+            *arrs, _c, "se3", "pt2pl", stats=st), reps=15)
+        groups = -(-(max(cfg.max_num_iterations,
+                         cfg.max_num_se3_iterations) + 1) // reg._POLL_EVERY)
+        out[name] = dict(ms=ms, groups=groups,
+                         loop_steps_a_call=st["loop_steps"] // 16)
+    skipped = out["caps_150"]["groups"] - out["caps_3"]["groups"]
+    check(out["caps_150"]["loop_steps_a_call"] == reg._POLL_EVERY
+          == out["caps_3"]["loop_steps_a_call"], f"skipped tail: {out}")
+    return dict(out, skipped_groups=skipped,
+                ms_per_skipped_group=(out["caps_150"]["ms"]
+                                      - out["caps_3"]["ms"]) / skipped)
+
+
+def program_phase():
+    """The captured program's line: the cache (the bytes of its shared
+    pools, each entry with what its capture added to them, before the
+    skipped tail's two programs join it), the captures, the form built,
+    every path's hold against the eager loop, and the cost of the
+    skipped tail."""
+    from se3_icp_tpu_torch.models import program
+    check(PROGRAM_HOLDS and all(h["same_bits"] for h in PROGRAM_HOLDS),
+          "a path's captured results differ from the eager loop's")
+    cache = program.info()
+    tail = skipped_tail()
+    emit("program", **cache, holds=PROGRAM_HOLDS,
+         replayed_launches=PROGRAM_PROFILE, skipped_tail=tail,
+         memory_reserved_gb=torch.cuda.memory_reserved() / 1e9,
+         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def cli_phase():
@@ -1355,6 +1659,19 @@ def multistart_phase(with_profile: bool = False):
     wall = time.perf_counter() - t0
     launches = read_launches()
     rot, tra = gate(problems, [r.best for r in res], "multistart kept start")
+
+    def eager_fleet(st):
+        got = multistart.register_pairs_multistart(
+            pair_list, "se3_pt2pl", GOLDEN, n_starts=MS_STARTS,
+            pair_chunk=MS_PAIRS, stats=st)
+        same = all(a.start_index == b.start_index
+                   and np.array_equal(a.scores, b.scores)
+                   for a, b in zip(got, res))
+        check(same, "multistart: the captured program's kept starts or "
+              "scores differ from the eager loop's")
+        return [r.best for r in got]
+    hold_against_eager("multistart", eager_fleet, [r.best for r in res],
+                       stats)
     if with_profile:
         profile_line(lambda: multistart.register_pairs_multistart(
             pair_list, "se3_pt2pl", GOLDEN, n_starts=MS_STARTS,
@@ -1630,11 +1947,12 @@ def smoke() -> int:
     build_phase()
     k1_cases, k2_cases, k3_cases = setup_kernels_phase()
     k4_cases, k5_cases = kernels_phase()
-    launches, results = main_path_phase(
-        with_profile="--profile" in sys.argv[1:])
+    launches, results = main_path_phase()
+    serving_phase()
     cli_phase()
     # the paths of the 1-NN kernels, each with its own launch counts
     ms_launches = multistart_phase(with_profile="--profile" in sys.argv[1:])
+    program_phase()
     fgr_launches, feats = fgr_phase()
     metrics_launches = metrics_phase(results)
     ops_launches = ops_phase()

@@ -28,8 +28,8 @@ def __getattr__(name):
                 "sanitize_cloud"):
         from se3_icp_tpu_torch.models import registration
         return getattr(registration, name)
-    if name in ("register_pairs", "register_batch", "pack_pairs",
-                "pack_clouds"):
+    if name in ("register_pairs", "register_pairs_async", "PendingBatch",
+                "register_batch", "pack_pairs", "pack_clouds"):
         from se3_icp_tpu_torch.parallel import pairs
         return getattr(pairs, name)
     if name in ("register_pair_multistart", "register_pairs_multistart"):
@@ -48,7 +48,8 @@ __all__ = [
     "RegistrationConfig", "GOLDEN",
     "RegistrationResult", "register_pair", "register_arrays",
     "sanitize_cloud",
-    "register_pairs", "register_batch", "pack_pairs", "pack_clouds",
+    "register_pairs", "register_pairs_async", "PendingBatch",
+    "register_batch", "pack_pairs", "pack_clouds",
     "register_pair_multistart", "register_pairs_multistart",
     "fgr_register",
     "read_ply", "write_ply",

@@ -25,9 +25,19 @@ Mechanics:
   * each iteration is two hand-written kernels -- the fused match
     (``ops/cuda_knn.py``) and the fused epilogue (``ops/cuda_loop.py``)
     -- plus a 6x6 solve or 3x3 SVD;
-  * every state update is masked by a per-pair ``done`` flag, and the
-    host reads ``done.all()`` back only every ``_POLL_EVERY`` steps:
-    the extra steps after the last pair converged are no-ops.
+  * every state update is masked by a per-pair ``done`` flag, so a step
+    after a pair converged is a no-op for it.  On the card the whole
+    registration -- setup, loop, back to original coordinates -- runs
+    as one captured CUDA graph (``models/program.py``) whose groups of
+    ``_POLL_EVERY`` steps sit in conditional nodes that stop on the
+    device once every pair is done: no host sync between upload and
+    download.  The eager loop (``run_loop``: the same ``loop_step``,
+    with the host reading ``done.all()`` every ``_POLL_EVERY`` steps) is
+    the CPU route, the route of the pt2pt variants on the card (see
+    ``loop_route``) and the captured program's reference
+    (``register_arrays_eager``);
+  * float hyperparameters travel as one device vector (``split_cfg``,
+    ``Hyper``), so one captured program serves every value of a sweep.
 
 Behavioural parity notes, all reproduced:
   * the 12-D match uses alpha/beta-weighted frames, but trimming/MSE use
@@ -56,6 +66,53 @@ from se3_icp_tpu_torch.utils.config import (RegistrationConfig,
 
 _BIG = 1e7  # the reference initializes its mse trackers to 1e7
 _POLL_EVERY = 4
+
+# Float hyperparameters read as ONE vector (the JAX package's
+# ``split_cfg``), so a sweep over them (the alpha grid) reuses one
+# captured program.  Fields that shape the work -- the k's, the caps,
+# whether overlap trims, GICP's epsilon -- stay in the static config.
+_TRACED_FIELDS = ("alpha_rot", "beta_transl", "scale_preprocessing", "mse",
+                  "mse_switch_error", "estimated_overlap")
+
+
+@dataclass
+class Hyper:
+    """The traced hyperparameters: 0-dim views of one vector on the
+    batch's device, in its dtype.  A ``Hyper`` of the same values as
+    Python floats gives the same bits (the tests hold it so)."""
+
+    alpha_rot: torch.Tensor
+    beta_transl: torch.Tensor
+    scale_preprocessing: torch.Tensor
+    mse: torch.Tensor
+    mse_switch_error: torch.Tensor
+    estimated_overlap: torch.Tensor
+
+
+def split_cfg(cfg: RegistrationConfig, dtype, device):
+    """(float vector [6] of ``_TRACED_FIELDS`` on ``device``, static
+    config): the static config has those fields zeroed, but for
+    ``estimated_overlap``, which keeps only whether it trims (0.0 if it
+    does, 1.0 if not)."""
+    floats = torch.tensor(traced_values(cfg), dtype=dtype)
+    if torch.device(device).type == "cuda":     # no pageable, synced copy
+        floats = floats.pin_memory().to(device, non_blocking=True)
+    return floats, static_cfg(cfg)
+
+
+def traced_values(cfg: RegistrationConfig) -> list:
+    return [float(getattr(cfg, f)) for f in _TRACED_FIELDS]
+
+
+def static_cfg(cfg: RegistrationConfig) -> RegistrationConfig:
+    """``cfg`` without its traced values (see ``split_cfg``)."""
+    zero = {f: 0.0 for f in _TRACED_FIELDS}
+    zero["estimated_overlap"] = 0.0 if cfg.estimated_overlap < 1.0 else 1.0
+    return cfg.replace(**zero)
+
+
+def hyper(floats: torch.Tensor) -> Hyper:
+    return Hyper(*floats.unbind(0))
 
 
 @dataclass
@@ -138,7 +195,8 @@ def _embed12(rot, trans):
     return torch.cat([cols, trans], dim=-1)
 
 
-def preprocess(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, is_se3):
+def preprocess(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, is_se3,
+               h: Hyper):
     """Centre each cloud at its own centroid and scale both by
     s = scale_preprocessing / max_radius; padded rows go to 0."""
     dtype = src.dtype
@@ -150,8 +208,10 @@ def preprocess(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, is_se3):
         cen_t = _masked_centroid(tgt, tgt_valid, n_tgt)
         r_s = _largest_radius(src, cen_s, src_valid)
         r_t = _largest_radius(tgt, cen_t, tgt_valid)
-        scaling = cfg.scale_preprocessing / torch.maximum(
-            r_s, r_t).clamp_min(1e-30)
+        # a Python float over a tensor is its reciprocal times the float
+        # in torch; the vector's scale takes the same steps
+        scaling = torch.maximum(r_s, r_t).clamp_min(
+            1e-30).reciprocal() * h.scale_preprocessing
         src_c = (src - cen_s[:, None]) * scaling[:, None, None]
         tgt_c = (tgt - cen_t[:, None]) * scaling[:, None, None]
     else:
@@ -165,7 +225,7 @@ def preprocess(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, is_se3):
 
 
 def pack_match_state(src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, *,
-                     rot_src=None, rot_tgt=None, tgt_normals=None,
+                     h: Hyper, rot_src=None, rot_tgt=None, tgt_normals=None,
                      cov_src6=None, cov_tgt6=None, conf_src=None,
                      conf_tgt=None) -> MatchState:
     """Pack the setup products into the loop's layouts: the dual-phase
@@ -199,10 +259,10 @@ def pack_match_state(src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, *,
         # rotation block alpha-weighted; translation rows are
         # beta-weighted points for run_se3_icp / run_se3_pure but the
         # RAW centred+scaled points for with_cf (reference quirk)
-        tgt_tr_A = tgt_c if use_cf else tgt_c * cfg.beta_transl
-        tgt_embed_A = _embed12(rot_tgt * cfg.alpha_rot, tgt_tr_A)
+        tgt_tr_A = tgt_c if use_cf else tgt_c * h.beta_transl
+        tgt_embed_A = _embed12(rot_tgt * h.alpha_rot, tgt_tr_A)
         # beta-weighted target translations: phase-A trim distance
-        pay_add("tr_beta", tgt_c * cfg.beta_transl, 3)
+        pay_add("tr_beta", tgt_c * h.beta_transl, 3)
         feat9 = rot_src.mT.flatten(2)
     else:
         tgt_embed_A = tgt_embed_B
@@ -244,12 +304,21 @@ def _count_sets(cfg: RegistrationConfig, is_se3: bool, need_tgt_nrm: bool,
     return src, tgt
 
 
+def _const(values, dtype, device) -> torch.Tensor:
+    """A small constant vector made on ``device`` by fills: no copy from
+    the host, which a graph capture could not hold."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out.narrow(0, i, 1).fill_(v)
+    return out
+
+
 def _thresholds(points, n_valid, counts):
     """(SetupCloud, {count: thr [B,N]}) of one cloud, or (None, {})."""
     if not counts:
         return None, {}
     cloud = cuda_moments.setup_cloud(points, n_valid)
-    cc = torch.tensor(counts, dtype=torch.int64, device=points.device)
+    cc = _const(counts, torch.int64, points.device)
     thr = cuda_moments.neighborhood_thresholds_batched(
         points, n_valid, cc.expand(points.shape[0], -1), cloud=cloud)
     return cloud, {c: thr[:, i] for i, c in enumerate(counts)}
@@ -329,14 +398,15 @@ def _setup_exact(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
 
 
 def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
-          variant: str, exact_knn: bool = False):
+          variant: str, h: Hyper, exact_knn: bool = False):
     """Everything before the loop: confidences, preprocessing, the
     neighbourhood setup (frames, normals, covariances) and the packing.
 
     The neighbourhoods come from the sort-free threshold setup (K1-K3,
     the route the JAX package takes on its accelerator) unless
     ``exact_knn``, which takes the exact sorted kNN instead (the JAX
-    package's ``SE3_ICP_TPU_EXACT_KNN=1``).  Returns (MatchState,
+    package's ``SE3_ICP_TPU_EXACT_KNN=1``).  ``h``: the traced
+    hyperparameters (``split_cfg``, ``hyper``).  Returns (MatchState,
     Preprocess)."""
     is_se3 = mode != "icp"
     use_cf = mode == "se3_cf"
@@ -349,13 +419,13 @@ def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
     if use_cf:  # on ORIGINAL coordinates
         conf_src = lounge_point_confidence(src)
         conf_tgt = lounge_point_confidence(tgt)
-    src_c, tgt_c, pre = preprocess(src, n_src, tgt, n_tgt, cfg, is_se3)
+    src_c, tgt_c, pre = preprocess(src, n_src, tgt, n_tgt, cfg, is_se3, h)
     route = _setup_exact if exact_knn else _setup_thr
     prod = route(src_c, n_src, tgt_c, n_tgt, cfg, is_se3,
                  eff_variant == "pt2pl", eff_variant == "gicp")
     state = pack_match_state(
         src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, conf_src=conf_src,
-        conf_tgt=conf_tgt, **prod)
+        conf_tgt=conf_tgt, h=h, **prod)
     return state, pre
 
 
@@ -370,7 +440,7 @@ def epilogue_options(ms: MatchState, cfg: RegistrationConfig) -> dict:
 
 
 def iteration_inputs(ms: MatchState, cfg: RegistrationConfig, T, switched,
-                     done):
+                     done, h: Hyper):
     """Per-iteration operands of the two kernels at pose T [B,4,4]:
 
       W [B,16,16]  the affine that turns ``feat16`` into the 12-D query:
@@ -388,8 +458,8 @@ def iteration_inputs(ms: MatchState, cfg: RegistrationConfig, T, switched,
     swf = switched.to(dtype)
     W = torch.zeros((bsz, 16, 16), dtype=dtype, device=dev)
     if ms.is_se3:
-        blk = ((1.0 - swf) * cfg.alpha_rot)[:, None, None] * Rt
-        c_s = swf + (1.0 - swf) * cfg.beta_transl
+        blk = ((1.0 - swf) * h.alpha_rot)[:, None, None] * Rt
+        c_s = swf + (1.0 - swf) * h.beta_transl
         W[:, 0:3, 0:3] = blk
         W[:, 3:6, 3:6] = blk
         W[:, 6:9, 6:9] = blk
@@ -399,11 +469,11 @@ def iteration_inputs(ms: MatchState, cfg: RegistrationConfig, T, switched,
     W[:, 12, 9:12] = tvec
     ph2 = torch.stack([switched, done], 1).to(torch.int32)
     n_src_f = ms.n_src.to(dtype)
-    cnt_f = (torch.floor(cfg.estimated_overlap * n_src_f)
+    cnt_f = (torch.floor(h.estimated_overlap * n_src_f)
              if cfg.estimated_overlap < 1.0 else n_src_f)
     pf = torch.zeros((bsz, cuda_loop.PF_WIDTH), dtype=dtype, device=dev)
     pf[:, cuda_loop.PF_T:cuda_loop.PF_T + 3] = tvec
-    pf[:, cuda_loop.PF_BETA] = cfg.beta_transl
+    pf[:, cuda_loop.PF_BETA] = h.beta_transl
     pf[:, cuda_loop.PF_SWITCHED] = swf
     pf[:, cuda_loop.PF_NSRC] = n_src_f
     pf[:, cuda_loop.PF_COUNT] = cnt_f
@@ -411,102 +481,157 @@ def iteration_inputs(ms: MatchState, cfg: RegistrationConfig, T, switched,
     return W, ph2, pf
 
 
-def run_loop(ms: MatchState, scaling: torch.Tensor,
-             cfg: RegistrationConfig, mode: str, T_init=None,
-             record_history: bool = False, stats: dict | None = None):
-    """The iteration loop in the preprocessed frame.
+@dataclass
+class LoopState:
+    """What one loop step reads and writes, per pair."""
 
-    Returns (T [B,4,4], it [B], pure_it [B], hist [B,H,4,4] | None).
-    ``stats`` (optional dict) receives ``loop_steps`` and ``host_syncs``.
-    """
+    T: torch.Tensor               # [B,4,4] pose, preprocessed frame
+    it: torch.Tensor              # [B] int32 iterations
+    pure_it: torch.Tensor         # [B] int32 iterations before the switch
+    mse_prev: torch.Tensor        # [B]
+    mse_cur: torch.Tensor         # [B]
+    switched: torch.Tensor        # [B] bool: in the R3 phase
+    done: torch.Tensor            # [B] bool
+    hist: torch.Tensor | None     # [B,H,4,4] per-iteration poses
+
+    def tensors(self) -> list:
+        return [t for t in (self.T, self.it, self.pure_it, self.mse_prev,
+                            self.mse_cur, self.switched, self.done,
+                            self.hist) if t is not None]
+
+
+@dataclass
+class LoopConsts:
+    """What every step of one loop reads and never writes."""
+
+    cfg: RegistrationConfig
+    h: Hyper
+    max_iters: int
+    hybrid: bool
+    hist_len: int                 # steps at most
+    stop_thresh: torch.Tensor     # [B] (or [] for icp)
+    ep_kw: dict                   # ``epilogue_options``
+    ar: torch.Tensor              # [B] pair indices
+
+
+def init_loop(ms: MatchState, scaling: torch.Tensor,
+              cfg: RegistrationConfig, mode: str, h: Hyper, T_init=None,
+              record_history: bool = False):
+    """(LoopState before the first step, LoopConsts) of the loop in the
+    preprocessed frame."""
     dtype, dev = ms.feat16.dtype, ms.feat16.device
     bsz = ms.feat16.shape[0]
-
     # --- loop limits per mode
     if mode == "icp":
         start_switched = True       # R3 NN from the start, no SE3 phase
         max_iters = cfg.max_num_iterations
-        stop_thresh = torch.full((bsz,), cfg.mse, dtype=dtype, device=dev)
+        stop_thresh = h.mse
     else:
         start_switched = False
         max_iters = (cfg.max_num_se3_iterations if mode == "se3_pure"
                      else cfg.max_num_iterations)
-        stop_thresh = cfg.mse * scaling     # uses scaling * mse
-    hybrid = mode in ("se3", "se3_cf")
-
+        stop_thresh = h.mse * scaling     # uses scaling * mse
     T = (torch.eye(4, dtype=dtype, device=dev).repeat(bsz, 1, 1)
          if T_init is None else T_init.clone())
     it = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    pure_it = torch.zeros_like(it)
     mse_cur = torch.full((bsz,), _BIG, dtype=dtype, device=dev)
-    mse_prev = mse_cur.clone()
-    switched = torch.full((bsz,), start_switched, dtype=torch.bool,
-                          device=dev)
-    done = torch.zeros(bsz, dtype=torch.bool, device=dev)
     # +1: in hybrid mode the loop can run max(caps)+1 iterations (the
     # done test uses the pre-switch 'switched')
     hist_len = max(cfg.max_num_iterations, cfg.max_num_se3_iterations) + 1
-    hist = (torch.zeros((bsz, hist_len, 4, 4), dtype=dtype, device=dev)
-            if record_history else None)
+    state = LoopState(
+        T=T, it=it, pure_it=torch.zeros_like(it), mse_prev=mse_cur.clone(),
+        mse_cur=mse_cur,
+        switched=torch.full((bsz,), start_switched, dtype=torch.bool,
+                            device=dev),
+        done=torch.zeros(bsz, dtype=torch.bool, device=dev),
+        hist=(torch.zeros((bsz, hist_len, 4, 4), dtype=dtype, device=dev)
+              if record_history else None))
+    consts = LoopConsts(
+        cfg=cfg, h=h, max_iters=max_iters, hybrid=mode in ("se3", "se3_cf"),
+        hist_len=hist_len, stop_thresh=stop_thresh,
+        ep_kw=epilogue_options(ms, cfg),
+        ar=torch.arange(bsz, device=dev))
+    return state, consts
 
-    ar = torch.arange(bsz, device=dev)
-    ep_kw = epilogue_options(ms, cfg)
+
+def loop_step(s: LoopState, ms: MatchState, c: LoopConsts) -> LoopState:
+    """One iteration for every pair: match, epilogue, solve, the phase
+    switch and stop tests, and the done-masked update.  A pure function
+    of tensors that reads nothing back to the host, so a step after every
+    pair is done changes nothing and any number of steps can be
+    captured."""
+    cfg = c.cfg
+    it1 = s.it + 1
+
+    # --- correspondence search + fused epilogue (trim, MSE, the
+    #     estimator's reduction)
+    W, ph2, pf = iteration_inputs(ms, cfg, s.T, s.switched, s.done, c.h)
+    _, matched_T = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets, ph2)
+    A66, b8, st = cuda_loop.loop_epilogue_batched(
+        ms.src_cT, matched_T, pf, ms.cov_src6, ms.conf_src, **c.ep_kw)
+    mse_val, wsum = st[:, 0], st[:, 1]
+    if ms.variant == "pt2pt":
+        T_i = solve.solve_pt2pt_from_moments(
+            A66[:, :3, :3], b8[:, 0:3], b8[:, 3:6], wsum)
+    else:
+        T_i = solve.solve_from_normal(A66, b8[:, :6], wsum)
+
+    mse_rel = (mse_val - s.mse_cur).abs()
+    T_new = T_i @ s.T
+    t_change = torch.linalg.norm((s.T - T_new).flatten(1), dim=1)
+
+    # --- phase switch / stopping
+    stop = (it1 >= c.max_iters) | (mse_rel < c.stop_thresh)
+    if c.hybrid:
+        hit_switch = ((it1 >= cfg.max_num_se3_iterations)
+                      | (t_change < c.h.mse_switch_error))
+        new_switched = s.switched | hit_switch
+        new_done = s.switched & stop
+    else:
+        new_switched = s.switched
+        new_done = stop
+
+    # --- done-masked state update
+    active = ~s.done
+    T = torch.where(active[:, None, None], T_new, s.T)
+    hist = s.hist
+    if hist is not None:
+        # per-iteration accumulated transform; finished pairs write
+        # their final T past their own num_iterations
+        hist = hist.index_put(
+            (c.ar, (it1 - 1).clamp(max=c.hist_len - 1).to(torch.int64)), T)
+    return LoopState(
+        T=T, it=torch.where(active, it1, s.it),
+        pure_it=torch.where(active & ~s.switched, s.pure_it + 1, s.pure_it),
+        mse_prev=torch.where(active, s.mse_cur, s.mse_prev),
+        mse_cur=torch.where(active, mse_val, s.mse_cur),
+        switched=torch.where(active, new_switched, s.switched),
+        done=s.done | new_done, hist=hist)
+
+
+def run_loop(ms: MatchState, scaling: torch.Tensor,
+             cfg: RegistrationConfig, mode: str, h: Hyper, T_init=None,
+             record_history: bool = False, stats: dict | None = None):
+    """The eager iteration loop in the preprocessed frame: ``loop_step``
+    until every pair is done, the host reading ``done.all()`` every
+    ``_POLL_EVERY`` steps (the extra steps are no-ops).
+
+    Returns (T [B,4,4], it [B], pure_it [B], hist [B,H,4,4] | None).
+    ``stats`` (optional dict) receives ``loop_steps`` and ``host_syncs``.
+    """
+    s, c = init_loop(ms, scaling, cfg, mode, h, T_init, record_history)
     steps = syncs = 0
-    while steps < hist_len:
-        it1 = it + 1
-
-        # --- correspondence search + fused epilogue (trim, MSE, the
-        #     estimator's reduction)
-        W, ph2, pf = iteration_inputs(ms, cfg, T, switched, done)
-        _, matched_T = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets,
-                                                ph2)
-        A66, b8, st = cuda_loop.loop_epilogue_batched(
-            ms.src_cT, matched_T, pf, ms.cov_src6, ms.conf_src, **ep_kw)
-        mse_val, wsum = st[:, 0], st[:, 1]
-        if ms.variant == "pt2pt":
-            T_i = solve.solve_pt2pt_from_moments(
-                A66[:, :3, :3], b8[:, 0:3], b8[:, 3:6], wsum)
-        else:
-            T_i = solve.solve_from_normal(A66, b8[:, :6], wsum)
-
-        mse_rel = (mse_val - mse_cur).abs()
-        T_new = T_i @ T
-        t_change = torch.linalg.norm((T - T_new).flatten(1), dim=1)
-
-        # --- phase switch / stopping
-        stop = (it1 >= max_iters) | (mse_rel < stop_thresh)
-        if hybrid:
-            hit_switch = ((it1 >= cfg.max_num_se3_iterations)
-                          | (t_change < cfg.mse_switch_error))
-            new_switched = switched | hit_switch
-            new_done = switched & stop
-        else:
-            new_switched = switched
-            new_done = stop
-
-        # --- done-masked state update
-        active = ~done
-        T = torch.where(active[:, None, None], T_new, T)
-        it = torch.where(active, it1, it)
-        pure_it = torch.where(active & ~switched, pure_it + 1, pure_it)
-        mse_prev = torch.where(active, mse_cur, mse_prev)
-        mse_cur = torch.where(active, mse_val, mse_cur)
-        switched = torch.where(active, new_switched, switched)
-        done = done | new_done
-        if record_history:
-            # per-iteration accumulated transform; finished pairs write
-            # their final T past their own num_iterations
-            hist[ar, (it1 - 1).clamp(max=hist_len - 1).to(torch.int64)] = T
-
+    while steps < c.hist_len:
+        s = loop_step(s, ms, c)
         steps += 1
-        if steps % _POLL_EVERY == 0 and steps < hist_len:
+        if steps % _POLL_EVERY == 0 and steps < c.hist_len:
             syncs += 1
-            if bool(done.all()):        # the loop's only host sync
+            if bool(s.done.all()):      # the loop's only host sync
                 break
     if stats is not None:
         stats["loop_steps"] = stats.get("loop_steps", 0) + steps
         stats["host_syncs"] = stats.get("host_syncs", 0) + syncs
-    return T, it, pure_it, hist
+    return s.T, s.it, s.pure_it, s.hist
 
 
 def to_original(T, pre: Preprocess, is_se3: bool):
@@ -537,6 +662,97 @@ def check_supported(cfg: RegistrationConfig) -> None:
             "the port (it needs se3_exp/se3_log)")
 
 
+def loop_route(device, mode: str, variant: str) -> str:
+    """Which loop a registration takes: ``"graph"`` -- the captured
+    program of ``models/program.py``, setup and loop as one CUDA graph
+    that stops on the device -- on the card, ``"eager"`` (``run_loop``,
+    polled) on the CPU.  The pt2pt variants (``pt2pt``, ``se3_pt2pt``,
+    ``se3_pure_pt2pt``) stay eager on the card: their step's 3x3 SVD
+    (``torch.linalg.svd``) checks its input on the host, a sync that a
+    capture cannot hold."""
+    eff_variant = "gicp" if mode == "se3_cf" else variant
+    if torch.device(device).type != "cuda" or eff_variant == "pt2pt":
+        return "eager"
+    return "graph"
+
+
+def warm_start(initial_T, pre: Preprocess, dtype):
+    """``initial_T`` [B,4,4] of original coordinates in the loop's
+    preprocessed frame: the inverse of ``to_original``."""
+    T0 = initial_T.to(dtype)
+    R0 = T0[:, :3, :3]
+    tp0 = (T0[:, :3, 3] + (R0 @ pre.cen_s[..., None])[..., 0]
+           - pre.cen_t) * pre.scaling[:, None]
+    T_init = torch.zeros_like(T0)
+    T_init[:, :3, :3] = R0
+    T_init[:, :3, 3] = tp0
+    T_init[:, 3, 3] = 1.0
+    return T_init
+
+
+class Dispatched:
+    """A registration's results while the device may still compute them:
+    ``out`` = (T, it, pure_it[, hist]) on the device.  A captured
+    program also leaves ``steps``, its device count of the loop steps it
+    ran; ``settle`` reads it (or takes the value a caller fetched with
+    the results), adds it to ``stats`` with no host sync, and returns
+    ``out``."""
+
+    def __init__(self, out: tuple, steps=None, stats: dict | None = None):
+        self.out, self.steps, self._stats = out, steps, stats
+
+    def settle(self, steps: int | None = None) -> tuple:
+        if self.steps is not None and self._stats is not None:
+            n = int(self.steps) if steps is None else int(steps)
+            self._stats["loop_steps"] = self._stats.get("loop_steps", 0) + n
+            self._stats["host_syncs"] = self._stats.get("host_syncs", 0)
+            self._stats = None
+        return self.out
+
+
+def register_arrays_eager(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
+                          mode: str, variant: str,
+                          record_history: bool = False, initial_T=None,
+                          stats: dict | None = None,
+                          exact_knn: bool = False):
+    """``register_arrays`` on the eager route on any device: setup, then
+    ``run_loop`` polling every ``_POLL_EVERY`` steps.  The CPU's route and
+    the pt2pt variants' on the card; on the card also the reference the
+    captured program is held against, bit for bit."""
+    check_supported(cfg)
+    is_se3 = mode != "icp"
+    with torch.no_grad(), knn.full_precision():
+        floats, scfg = split_cfg(cfg, src.dtype, src.device)
+        h = hyper(floats)
+        ms, pre = setup(src, n_src, tgt, n_tgt, scfg, mode, variant, h,
+                        exact_knn)
+        T_init = (None if initial_T is None
+                  else warm_start(initial_T, pre, src.dtype))
+        T, it, pure_it, hist = run_loop(ms, pre.scaling, scfg, mode, h,
+                                        T_init, record_history, stats)
+        T = to_original(T, pre, is_se3)
+        if record_history:
+            return T, it, pure_it, to_original(hist, pre, is_se3)
+    return T, it, pure_it
+
+
+def dispatch_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
+                    mode: str, variant: str, record_history: bool = False,
+                    initial_T=None, stats: dict | None = None,
+                    exact_knn: bool = False) -> Dispatched:
+    """``register_arrays`` without waiting for the card: the route of
+    ``loop_route``; the captured program reads nothing back."""
+    if loop_route(src.device, mode, variant) == "eager":
+        return Dispatched(register_arrays_eager(
+            src, n_src, tgt, n_tgt, cfg, mode, variant, record_history,
+            initial_T, stats, exact_knn))
+    check_supported(cfg)
+    from se3_icp_tpu_torch.models import program
+    return program.run(src, n_src, tgt, n_tgt, cfg, mode, variant,
+                       exact_knn=exact_knn, initial_T=initial_T,
+                       record_history=record_history, stats=stats)
+
+
 def register_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
                     mode: str, variant: str, record_history: bool = False,
                     initial_T=None, stats: dict | None = None,
@@ -547,34 +763,17 @@ def register_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
     valid counts.  ``initial_T`` [B,4,4]: optional warm start in
     ORIGINAL coordinates (the reference always starts at identity).
     ``exact_knn``: the exact sorted-kNN setup instead of the threshold
-    route (see ``setup``).  Returns (T [B,4,4] in original coordinates, num_iterations [B],
-    num_pure_se3_iterations [B]), plus the per-iteration history
-    [B,H,4,4] when ``record_history`` (entries at index >=
-    num_iterations are undefined).
+    route (see ``setup``).  Returns (T [B,4,4] in original coordinates,
+    num_iterations [B], num_pure_se3_iterations [B]), plus the
+    per-iteration history [B,H,4,4] when ``record_history`` (entries at
+    index >= num_iterations are undefined).  ``stats`` (optional dict)
+    receives ``loop_steps`` and ``host_syncs``.  On the card this runs
+    the captured program (``loop_route``) and reads its step count back
+    once, with the results.
     """
-    check_supported(cfg)
-    is_se3 = mode != "icp"
-    with torch.no_grad(), knn.full_precision():
-        ms, pre = setup(src, n_src, tgt, n_tgt, cfg, mode, variant,
-                        exact_knn)
-        T_init = None
-        if initial_T is not None:
-            # the loop runs in the preprocessed frame: map T0 through
-            # the inverse of to_original
-            T0 = initial_T.to(src.dtype)
-            R0 = T0[:, :3, :3]
-            tp0 = (T0[:, :3, 3] + (R0 @ pre.cen_s[..., None])[..., 0]
-                   - pre.cen_t) * pre.scaling[:, None]
-            T_init = torch.zeros_like(T0)
-            T_init[:, :3, :3] = R0
-            T_init[:, :3, 3] = tp0
-            T_init[:, 3, 3] = 1.0
-        T, it, pure_it, hist = run_loop(ms, pre.scaling, cfg, mode, T_init,
-                                        record_history, stats)
-        T = to_original(T, pre, is_se3)
-        if record_history:
-            return T, it, pure_it, to_original(hist, pre, is_se3)
-    return T, it, pure_it
+    return dispatch_arrays(src, n_src, tgt, n_tgt, cfg, mode, variant,
+                           record_history, initial_T, stats,
+                           exact_knn).settle()
 
 
 def _bucket(n: int, quantum: int = 512) -> int:

@@ -17,6 +17,14 @@ stream it is handed, allocates nothing and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an
 exception.  ``se3icp_nn_tiled_smem`` launches nothing: it returns the
 tiled 1-NN search's shared memory a block, for the card checks' report.
+
+Launch counts live on the card: each kernel wrapper calls
+``count_launch`` right beside its launch, which adds one to the
+wrapper's slot of a small int64 vector on the launching stream.  A
+captured CUDA graph holds that addition next to the launch, so every
+replay counts what it ran, and a conditional body counts only when it
+runs.  ``launches`` reads the counts back, ``zero_launches`` clears
+them.
 """
 
 from __future__ import annotations
@@ -68,6 +76,10 @@ SIGNATURES = {
     # q, emb, tn, payload, n_tgt, phase, idx, d2, matched,
     # B, Nq, Nt, P, split, stream
     "se3icp_nn_match_packed": [_P] * 9 + [_I] * 5 + [_P],
+    # parent stream, child stream, pred: an "if" node (csrc/graph_cond.cu)
+    "se3icp_cond_begin": [_P] * 3,
+    # child stream
+    "se3icp_cond_end": [_P],
 }
 
 
@@ -162,6 +174,53 @@ def load() -> ctypes.CDLL:
 def check(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
+
+
+# the wrappers whose launches are counted, in their slots' order
+COUNTED = ("neighborhood_thresholds_batched", "moments_batched",
+           "axis_sums_batched", "nn_match_affine", "loop_epilogue_batched",
+           "nn_argmin_batched", "nn_argmin_unbatched", "nn_match_batched",
+           "nn_match_packed")
+_counts: dict = {}      # device index -> int64 [len(COUNTED)] on the card
+_slots: dict = {}       # device index -> {name: 0-dim view of its slot}
+
+
+def launch_counters(device) -> dict:
+    """{name: 0-dim int64 count} on CUDA ``device``, made on first use.
+    A capture must not make them (they would live in its graph's pool),
+    so ``models/program.py`` asks for them before it captures."""
+    import torch
+    if device.index not in _slots:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("launch counters must exist before a "
+                               "graph capture")
+        buf = torch.zeros(len(COUNTED), dtype=torch.int64, device=device)
+        _counts[device.index] = buf
+        _slots[device.index] = dict(zip(COUNTED, buf.unbind(0)))
+    return _slots[device.index]
+
+
+def count_launch(name: str, device) -> None:
+    """Add one to ``name``'s launch count on ``device``, on its current
+    stream: the stream the wrapper just launched its kernel on."""
+    launch_counters(device)[name].add_(1)
+
+
+def launches() -> dict:
+    """{name: launches} summed over the devices, read back after every
+    device has finished its work."""
+    import torch
+    total = dict.fromkeys(COUNTED, 0)
+    for index, buf in _counts.items():
+        torch.cuda.synchronize(index)
+        for name, n in zip(COUNTED, buf.tolist()):
+            total[name] += n
+    return total
+
+
+def zero_launches() -> None:
+    for buf in _counts.values():
+        buf.zero_()
 
 
 def launch(fn, device, *args) -> int:

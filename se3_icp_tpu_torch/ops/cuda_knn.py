@@ -137,8 +137,7 @@ def nn_match_affine(feat, w, targets: MatchTargets, phase):
             matched_t.data_ptr(), bsz, nq, nt, p,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "nn_match_affine")
-    nn_match_affine.launches += 1
+    _build.count_launch("nn_match_affine", dev)
     return d2, matched_t
 
 
-nn_match_affine.launches = 0

@@ -242,7 +242,7 @@ def loop_epilogue_batched(srcT, matchedT, pf, cov6=None, conf=None, *,
             off_tr, off_nrm, off_cov, off_conf, index_steps(n), cluster)
     code = _build.launch(_build.load().se3icp_loop_epilogue, dev, *args)
     _build.check(code, "loop_epilogue_batched")
-    loop_epilogue_batched.launches += 1
+    _build.count_launch("loop_epilogue_batched", dev)
     return A, b, st
 
 
@@ -257,4 +257,3 @@ def cluster_size(bsz: int, device, do_trim: bool) -> int:
     return min(c, 2) if do_trim else c
 
 
-loop_epilogue_batched.launches = 0

@@ -286,11 +286,10 @@ def neighborhood_thresholds_batched(points, n_valid, counts, cloud=None):
             cc.data_ptr(), hib.data_ptr(), out.data_ptr(), bsz, n, t_n,
             _stream(dev))
     _build.check(code, "neighborhood_thresholds_batched")
-    neighborhood_thresholds_batched.launches += 1
+    _build.count_launch("neighborhood_thresholds_batched", dev)
     return _unpermute(out, order)
 
 
-neighborhood_thresholds_batched.launches = 0
 
 
 # ---------------------------------------------------------------- K2
@@ -377,7 +376,7 @@ def moments_batched(points, n_valid, thr_cen, thr_cov, thr_all,
 def moments_one_ball(points, n_valid, thr, cloud=None):
     """``moments_batched(points, n_valid, thr, thr, thr, cloud)`` with
     the one ball summed once (K2's one-ball instance): the same dict,
-    the same bits.  Its launches count in ``moments_batched.launches``.
+    the same bits.  Its launches count as ``moments_batched``'s.
     """
     return _moments(points, n_valid, (thr,), cloud)
 
@@ -399,11 +398,10 @@ def _moments(points, n_valid, thrs, cloud):
             cloud.order.data_ptr(), thr_s.data_ptr(), raw.data_ptr(), bsz,
             n, balls, _stream(dev))
     _build.check(code, "moments_batched")
-    moments_batched.launches += 1
+    _build.count_launch("moments_batched", dev)
     return _moments_dict(raw, points)
 
 
-moments_batched.launches = 0
 
 
 # ---------------------------------------------------------------- K3
@@ -474,8 +472,7 @@ def axis_sums_batched(points, n_valid, normal_t, ndotq, radius, thr_all,
             cloud.order.data_ptr(), nrm.data_ptr(), aux.data_ptr(),
             out.data_ptr(), bsz, n, _stream(dev))
     _build.check(code, "axis_sums_batched")
-    axis_sums_batched.launches += 1
+    _build.count_launch("axis_sums_batched", dev)
     return out[:, :3], out[:, 3]
 
 
-axis_sums_batched.launches = 0

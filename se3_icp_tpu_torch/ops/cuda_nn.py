@@ -196,7 +196,7 @@ def nn_argmin_batched(queries, targets, n_targets):
         targets.data_ptr(), n_targets.data_ptr(), idx.data_ptr(),
         d2.data_ptr(), bsz, nq, nt, d)
     _build.check(code, "nn_argmin_batched")
-    nn_argmin_batched.launches += 1
+    _build.count_launch("nn_argmin_batched", dev)
     return idx, d2
 
 
@@ -225,7 +225,7 @@ def nn_argmin_unbatched(queries, targets, n_targets, split=None):
     else:
         n = _count_on(dev, int(n_targets))
     idx, d2 = untiled_argmin(queries[None], targets[None], n, split)
-    nn_argmin_unbatched.launches += 1
+    _build.count_launch("nn_argmin_unbatched", dev)
     return idx[0], d2[0]
 
 
@@ -248,7 +248,7 @@ def nn_match_batched(queries, targets, payload, n_targets):
         idx.data_ptr(), d2.data_ptr(), matched.data_ptr(), bsz, nq, nt, d,
         p)
     _build.check(code, "nn_match_batched")
-    nn_match_batched.launches += 1
+    _build.count_launch("nn_match_batched", dev)
     return idx, d2, matched
 
 
@@ -302,11 +302,7 @@ def nn_match_packed(queries, targets: cuda_knn.MatchTargets, phase):
         return nn_match_packed_plain(queries, targets, phase)
     out = _packed_call("se3icp_nn_match_packed_batched", "nn_match_packed",
                        queries, targets, phase)
-    nn_match_packed.launches += 1
+    _build.count_launch("nn_match_packed", queries.device)
     return out
 
 
-nn_argmin_batched.launches = 0
-nn_argmin_unbatched.launches = 0
-nn_match_batched.launches = 0
-nn_match_packed.launches = 0

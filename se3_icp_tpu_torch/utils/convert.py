@@ -18,8 +18,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from se3_icp_tpu_torch.models.registration import (MatchState,
-                                                   pack_match_state)
+from se3_icp_tpu_torch.models.registration import (MatchState, hyper,
+                                                   pack_match_state,
+                                                   split_cfg)
 from se3_icp_tpu_torch.utils.config import RegistrationConfig
 
 
@@ -54,6 +55,7 @@ def match_state_from_numpy(src_c, tgt_c, n_src, n_tgt,
 
     return pack_match_state(
         t(src_c), t(tgt_c), t(n_src, torch.int32), t(n_tgt, torch.int32),
-        cfg, mode, variant, rot_src=t(rot_src), rot_tgt=t(rot_tgt),
+        cfg, mode, variant, h=hyper(split_cfg(cfg, dtype, device)[0]),
+        rot_src=t(rot_src), rot_tgt=t(rot_tgt),
         tgt_normals=t(tgt_normals), cov_src6=t(cov_src6),
         cov_tgt6=t(cov_tgt6), conf_src=t(conf_src), conf_tgt=t(conf_tgt))

@@ -28,7 +28,8 @@ import torch_kernel_cases as kcases
 
 from se3_icp_tpu_torch.datasets import fixtures
 from se3_icp_tpu_torch.models import registration as reg
-from se3_icp_tpu_torch.ops import cuda_knn, cuda_loop, cuda_moments, cuda_nn
+from se3_icp_tpu_torch.ops import (_build, cuda_knn, cuda_loop, cuda_moments,
+                                   cuda_nn)
 from se3_icp_tpu_torch.parallel import pairs
 from se3_icp_tpu_torch.utils import metrics_host
 from se3_icp_tpu_torch.utils.config import GOLDEN, parse_algorithm
@@ -54,12 +55,13 @@ def _state(card, alg, cfg):
         [(p.source, p.target) for p in probs])
     t = lambda a: torch.as_tensor(a, device=card)
     mode, variant = parse_algorithm(alg)
+    h = reg.hyper(reg.split_cfg(cfg, torch.float32, card)[0])
     ms, _ = reg.setup(t(src), t(n_src), t(tgt), t(n_tgt), cfg, mode,
-                      variant)
+                      variant, h)
     eye = torch.eye(4, device=card).repeat(len(probs), 1, 1)
     switched = torch.tensor([False, True, False], device=card)
     W, phase, pf = reg.iteration_inputs(ms, cfg, eye, switched,
-                                        torch.zeros_like(switched))
+                                        torch.zeros_like(switched), h)
     return ms, W, phase, pf
 
 
@@ -70,9 +72,9 @@ def _state(card, alg, cfg):
 def test_kernels_match_their_plain_versions(card, alg, overlap):
     cfg = GOLDEN.replace(estimated_overlap=overlap)
     ms, W, phase, pf = _state(card, alg, cfg)
-    n0 = cuda_knn.nn_match_affine.launches
+    n0 = _build.launches()["nn_match_affine"]
     d2, mt = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets, phase)
-    assert cuda_knn.nn_match_affine.launches == n0 + 1
+    assert _build.launches()["nn_match_affine"] == n0 + 1
     d2p, mtp = cuda_knn.nn_match_affine_plain(ms.feat16, W, ms.targets,
                                               phase)
     assert float((d2 - d2p).abs().max()) <= 1e-4
@@ -244,10 +246,10 @@ def test_setup_kernels_match_their_plain_versions(card, n, n_valid, counts):
     pts_d, nv = t(pts), t(np.asarray(n_valid, np.int32))
     cc = t(np.asarray([counts] * len(probs), np.int32))
     cloud = cuda_moments.setup_cloud(pts_d, nv)
-    n0 = cuda_moments.neighborhood_thresholds_batched.launches
+    n0 = _build.launches()["neighborhood_thresholds_batched"]
     thr = cuda_moments.neighborhood_thresholds_batched(pts_d, nv, cc,
                                                        cloud=cloud)
-    assert cuda_moments.neighborhood_thresholds_batched.launches == n0 + 1
+    assert _build.launches()["neighborhood_thresholds_batched"] == n0 + 1
     thr_p = cuda_moments.neighborhood_thresholds_plain(pts_d, nv, cc,
                                                        cloud=cloud)
     assert bool((thr == thr_p).all())
@@ -334,13 +336,13 @@ def test_nn_kernels_match_their_plain_versions(card, n, d):
     q = torch.randn(2, n, d, generator=g).to(card)
     t = torch.randn(2, n, d, generator=g).to(card)
     nv = torch.tensor([n, n - 77], dtype=torch.int32, device=card)
-    n0 = cuda_nn.nn_argmin_batched.launches
+    n0 = _build.launches()["nn_argmin_batched"]
     out = cuda_nn.nn_argmin_batched(q, t, nv)
-    assert cuda_nn.nn_argmin_batched.launches == n0 + 1
+    assert _build.launches()["nn_argmin_batched"] == n0 + 1
     _nn_hold(q, t, nv, *out, *cuda_nn.nn_argmin_batched_plain(q, t, nv))
-    n0 = cuda_nn.nn_argmin_unbatched.launches
+    n0 = _build.launches()["nn_argmin_unbatched"]
     i1, d1 = cuda_nn.nn_argmin_unbatched(q[1], t[1], nv[1])
-    assert cuda_nn.nn_argmin_unbatched.launches == n0 + 1
+    assert _build.launches()["nn_argmin_unbatched"] == n0 + 1
     _nn_hold(q[1:], t[1:], nv[1:], i1[None], d1[None],
              *(x[None] for x in cuda_nn.nn_argmin_unbatched_plain(
                  q[1], t[1], nv[1])))
@@ -354,9 +356,9 @@ def test_nn_kernels_match_their_plain_versions(card, n, d):
         t_b[..., :9] = 0.0
         targets = cuda_knn.pack_match_targets(t, t_b, pay, nv)
         phase = torch.tensor([0, 1], dtype=torch.int32, device=card)
-        n0 = cuda_nn.nn_match_packed.launches
+        n0 = _build.launches()["nn_match_packed"]
         idx, d2, m = cuda_nn.nn_match_packed(q, targets, phase)
-        assert cuda_nn.nn_match_packed.launches == n0 + 1
+        assert _build.launches()["nn_match_packed"] == n0 + 1
         ip, dp, _ = cuda_nn.nn_match_packed_plain(q, targets, phase)
         _nn_hold(q, torch.stack([t[0], t_b[1]]), nv, idx, d2, ip, dp)
         assert torch.equal(m, cuda_nn._gather_rows(pay, idx))

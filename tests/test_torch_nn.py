@@ -29,7 +29,7 @@ from se3_icp_tpu.ops import pallas_knn as pk
 
 from se3_icp_tpu_torch.datasets import fixtures
 from se3_icp_tpu_torch.models import fgr
-from se3_icp_tpu_torch.ops import cuda_knn, cuda_nn, knn
+from se3_icp_tpu_torch.ops import _build, cuda_knn, cuda_nn, knn
 
 # the suite runs several worker processes side by side: keep each
 # one's torch thread pool small
@@ -224,7 +224,8 @@ def test_wrappers_launch_nothing_on_the_cpu():
     counts stay as they were."""
     wrappers = (cuda_nn.nn_argmin_batched, cuda_nn.nn_argmin_unbatched,
                 cuda_nn.nn_match_batched, cuda_nn.nn_match_packed)
-    before = [w.launches for w in wrappers]
+    assert {w.__name__ for w in wrappers} <= set(_build.COUNTED)
+    before = _build.launches()
     q, t, n = _clouds(3, seed=6)
     knn.nn_argmin(_t(q), _t(t), _t(n))
     knn.nn_argmin(_t(q[0]), _t(t[0]))
@@ -234,4 +235,4 @@ def test_wrappers_launch_nothing_on_the_cpu():
         _t(np.zeros((2, NT, 12), np.float32)), _t(t), _t(n))
     knn.nn_match_packed(_t(np.zeros((2, 8, 12), np.float32)), targets,
                         torch.tensor([0, 1], dtype=torch.int32))
-    assert [w.launches for w in wrappers] == before
+    assert _build.launches() == before

@@ -193,16 +193,17 @@ def test_kernel_wrappers_count_launches_only_on_the_card():
                 cuda_moments.moments_batched, cuda_moments.axis_sums_batched,
                 cuda_nn.nn_argmin_batched, cuda_nn.nn_argmin_unbatched,
                 cuda_nn.nn_match_batched, cuda_nn.nn_match_packed)
-    before = [w.launches for w in wrappers]
+    assert sorted(w.__name__ for w in wrappers) == sorted(_build.COUNTED)
+    before = _build.launches()
     # icp pt2pl reaches K1, K2, K4, K5; se3_pt2pl all five
     p = fixtures.golden_shape_problem(seed=1, n=200, **cases.SMALL_POSE)
     reg.register_pair(p.source, p.target, "pt2pl", GOLDEN, device="cpu")
     p = fixtures.golden_shape_problem(seed=1, n=200)
     reg.register_pair(p.source, p.target, "se3_pt2pl", GOLDEN, device="cpu")
-    assert [w.launches for w in wrappers] == before
+    assert _build.launches() == before
     names = [s.name for s in _build.sources()]
-    assert names == ["loop_epilogue.cu", "match_affine.cu", "moments.cu",
-                     "nn_argmin.cu", "thresholds.cu"]
+    assert names == ["graph_cond.cu", "loop_epilogue.cu", "match_affine.cu",
+                     "moments.cu", "nn_argmin.cu", "thresholds.cu"]
     for s in _build.sources():
         text = s.read_text()
         assert "torch/extension.h" not in text
@@ -212,5 +213,6 @@ def test_kernel_wrappers_count_launches_only_on_the_card():
         "se3icp_moments", "se3icp_axis", "se3icp_nn_argmin",
         "se3icp_nn_argmin_batched", "se3icp_nn_match_batched",
         "se3icp_nn_tiled_smem", "se3icp_nn_match_packed",
-        "se3icp_nn_match_packed_batched"}
+        "se3icp_nn_match_packed_batched", "se3icp_cond_begin",
+        "se3icp_cond_end"}
     assert [h.name for h in _build.headers()] == ["dist.cuh"]

@@ -97,8 +97,9 @@ def test_loop_on_jax_setup_products_matches_jax(alg, ckw):
     mode, variant = ("se3_cf", "gicp") if "cf" in alg else ("se3", "pt2pl")
     src, n_src, tgt, n_tgt = pairs.pack_pairs(pair_list, np.float64)
     t = torch.as_tensor
+    h = reg.hyper(reg.split_cfg(cfg, torch.float64, "cpu")[0])
     src_c, tgt_c, pre = reg.preprocess(t(src), t(n_src), t(tgt), t(n_tgt),
-                                       cfg, True)
+                                       cfg, True, h)
     k = cfg.number_of_nn_for_lrf
     prod = {"rot_src": [], "rot_tgt": [], "nrm": [], "cs": [], "ct": []}
     for b in range(len(probs)):
@@ -132,7 +133,7 @@ def test_loop_on_jax_setup_products_matches_jax(alg, ckw):
         dtype=torch.float64)
     assert ms.feat16.shape == (2, 512, 16)
     assert ms.targets.payload.shape[-1] == (13 if use_cf else 9)
-    T, it, pure, _ = reg.run_loop(ms, pre.scaling, cfg, mode)
+    T, it, pure, _ = reg.run_loop(ms, pre.scaling, cfg, mode, h)
     T = reg.to_original(T, pre, True).numpy()
     j_res = j_pairs.register_pairs(pair_list, alg, jcfg, mesh=None,
                                    dtype=np.float64)

@@ -9,7 +9,9 @@ two checkouts against each other on one card.
 The first form imports ``se3_icp_tpu_torch`` from ``--root`` (default:
 the checkout this script lies in) and runs, as ``chip_smoke.py`` does,
 the main path (``register_pairs``: 64 golden-shape pairs, ``se3_pt2pl``,
-``GOLDEN``, threshold route) and the multistart fleet
+``GOLDEN``, threshold route; the same arrays every call, and again as
+fresh copies, whose uploads a checkout that memoises them cannot reuse)
+and the multistart fleet
 (``register_pairs_multistart``: 8 pairs x 8 starts under
 ``FLIPPED_POSE``) and, as ``chip_smoke.py`` runs them, 8 pairs each of
 ``se3_gicp``, ``se3_gicp_with_cf`` (``LOUNGE``, noisy pairs),
@@ -102,12 +104,22 @@ def run(root: str, out: str, reps: int) -> None:
         fn()
     fgr_fn()
     metrics_fn()
-    main_s, ms_s, fgr_s, metrics_s = [], [], [], []
+    main_s, fresh_s, ms_s, fgr_s, metrics_s = [], [], [], [], []
     small_s = {alg: [] for alg in small_fns}
     small_res = {}
     for _ in range(reps):          # in turns: the host clock drifts
         main_res, t = timed(main_fn)
         main_s.append(t)
+        # the same pairs as fresh arrays: no side's upload is memoised
+        fresh = [(s.copy(), t.copy()) for s, t in main_list]
+        fresh_res, t = timed(lambda: pairs.register_pairs(
+            fresh, "se3_pt2pl", GOLDEN))
+        fresh_s.append(t)
+        if [r.num_iterations for r in fresh_res] != [
+                r.num_iterations for r in main_res] or not all(
+                np.array_equal(a.transformation, b.transformation)
+                for a, b in zip(fresh_res, main_res)):
+            raise SystemExit("path_digest: fresh arrays changed the results")
         ms_res, t = timed(ms_fn)
         ms_s.append(t)
         for alg, fn in small_fns.items():
@@ -132,7 +144,9 @@ def run(root: str, out: str, reps: int) -> None:
                                        for r in ms_res]),
              ms_transforms=np.stack([r.best.transformation
                                      for r in ms_res]),
-             main_seconds=np.asarray(main_s), ms_seconds=np.asarray(ms_s),
+             main_seconds=np.asarray(main_s),
+             main_fresh_seconds=np.asarray(fresh_s),
+             ms_seconds=np.asarray(ms_s),
              fgr_transforms=np.stack([r.transformation for r in fgr_res]),
              fgr_reciprocal=np.asarray(fgr_stats["reciprocal"]),
              fgr_kept=np.asarray(fgr_stats["kept_correspondences"]),
@@ -145,6 +159,8 @@ def run(root: str, out: str, reps: int) -> None:
         "main_path_seconds": main_s,
         "main_path_median_seconds": statistics.median(main_s),
         "main_path_pairs_per_s": 64 / statistics.median(main_s),
+        "main_path_fresh_seconds": fresh_s,
+        "main_path_fresh_median_seconds": statistics.median(fresh_s),
         "multistart_seconds": ms_s,
         "multistart_median_seconds": statistics.median(ms_s),
         "multistart_pairs_per_s": 8 / statistics.median(ms_s),
