@@ -61,26 +61,31 @@ def pack_match_targets(targets_a: torch.Tensor, targets_b: torch.Tensor,
 
 def nn_match_affine_plain(feat, w, targets: MatchTargets, phase):
     """Plain PyTorch version of ``nn_match_affine`` (any float dtype,
-    any device).  Done pairs are computed like the others."""
+    any device).  Done pairs are skipped, as by the kernel: their
+    outputs are zeros."""
     bsz, nq, _ = feat.shape
-    nt = targets.emb.shape[2]
-    sel = phase[:, 0].to(torch.int64)
-    ar = torch.arange(bsz, device=feat.device)
-    emb = targets.emb[ar, sel]                               # [B,Nt,12]
-    tn = targets.tn[ar, sel]                                 # [B,Nt]
-    q2 = -2.0 * (feat @ w)[..., :EMB_DIM]                    # [B,Nq,12]
-    n64 = targets.n.to(torch.int64)
-    chunk = knn._query_chunk(bsz, nq, nt, feat.element_size())
-    d2_out, pay_out = [], []
-    for s in range(0, nq, chunk):
-        d2 = knn._mask_cols(q2[:, s:s + chunk] @ emb.mT + tn[:, None, :],
-                            n64)
-        best = d2.amin(-1)
-        tie = (d2 <= best[..., None]).to(feat.dtype)         # multi-hot
-        pay = (tie @ targets.payload) / tie.sum(-1, keepdim=True)
-        d2_out.append(best)
-        pay_out.append(pay)
-    return torch.cat(d2_out, 1), torch.cat(pay_out, 1).mT.contiguous()
+    nt, p = targets.payload.shape[1:]
+    d2_out = feat.new_zeros((bsz, nq))
+    pay_out = feat.new_zeros((bsz, nq, p))
+    live = torch.nonzero(phase[:, 1] == 0)[:, 0]
+    if len(live):
+        sel = phase[live, 0].to(torch.int64)
+        emb = targets.emb[live, sel]                         # [L,Nt,12]
+        tn = targets.tn[live, sel]                           # [L,Nt]
+        q2 = -2.0 * (feat[live] @ w[live])[..., :EMB_DIM]    # [L,Nq,12]
+        pay = targets.payload[live]                          # [L,Nt,P]
+        n64 = targets.n[live].to(torch.int64)
+        chunk = knn._query_chunk(len(live), nq, nt, feat.element_size(),
+                                 feat.device)
+        for s in range(0, nq, chunk):
+            d2 = knn._mask_cols(q2[:, s:s + chunk] @ emb.mT
+                                + tn[:, None, :], n64)
+            best = d2.amin(-1)
+            tie = (d2 <= best[..., None]).to(feat.dtype)     # multi-hot
+            d2_out[live, s:s + chunk] = best
+            pay_out[live, s:s + chunk] = (tie @ pay) / tie.sum(
+                -1, keepdim=True)
+    return d2_out, pay_out.mT.contiguous()
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:

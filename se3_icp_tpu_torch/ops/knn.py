@@ -76,9 +76,14 @@ def _mask_cols(d2: torch.Tensor, n_targets: torch.Tensor) -> torch.Tensor:
                                   device=d2.device))
 
 
-def _query_chunk(bsz: int, nq: int, nt: int, itemsize: int) -> int:
+def _query_chunk(bsz: int, nq: int, nt: int, itemsize: int,
+                 device=None) -> int:
     """Equal lane-aligned query chunks whose [B, chunk, Nt] block fits
-    the budget (same rule as the JAX package's ``_knn_topk_batched``)."""
+    the budget (same rule as the JAX package's ``_knn_topk_batched``).
+    On the CPU (``device``) 128 rows, which keeps the block in the
+    caches; a row's arithmetic is the same at any chunk."""
+    if device is not None and device.type == "cpu":
+        return 128
     chunk = max(128, _TOPK_BATCH_BUDGET // max(bsz * nt * itemsize, 1))
     steps = max(1, -(-nq // chunk))
     return -(-(-(-nq // steps)) // 128) * 128
@@ -97,7 +102,8 @@ def knn_topk(queries: torch.Tensor, targets: torch.Tensor, k: int,
     nt = targets.shape[1]
     if k > nt:
         raise ValueError(f"k={k} exceeds the padded target count {nt}")
-    chunk = _query_chunk(bsz, nq, nt, queries.element_size())
+    chunk = _query_chunk(bsz, nq, nt, queries.element_size(),
+                         queries.device)
     idx_out, d2_out = [], []
     for s in range(0, nq, chunk):
         d2 = _mask_cols(_pairwise_d2(queries[:, s:s + chunk], targets),

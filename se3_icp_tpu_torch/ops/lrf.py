@@ -41,7 +41,12 @@ from se3_icp_tpu_torch.utils.se3 import skew
 _CHUNK_BYTES = 400_000_000    # one [B, chunk, N] block of the reductions
 
 
-def _chunk_rows(bsz: int, n: int, itemsize: int) -> int:
+def _chunk_rows(bsz: int, n: int, itemsize: int, device) -> int:
+    """Query rows a block of the dense reductions: within the budget,
+    or 256 on the CPU, which keeps the block in the caches (a row's
+    arithmetic is the same at any chunk)."""
+    if device.type == "cpu":
+        return 256
     return max(8, _CHUNK_BYTES // max(bsz * n * itemsize, 1))
 
 
@@ -84,7 +89,7 @@ def toldi_frames_dense(points: torch.Tensor, d2sorted: torch.Tensor,
     # (radius - d)^2 would overflow -- clamp to the last VALID neighbour
     last = torch.clamp(n_valid - 1, min=1).clamp(max=k - 1)   # [B]
     out = []
-    chunk = _chunk_rows(bsz, n, points.element_size())
+    chunk = _chunk_rows(bsz, n, points.element_size(), points.device)
     for s in range(0, n, chunk):
         q = points[:, s:s + chunk]                            # [B,C,3]
         d2row = d2sorted[:, s:s + chunk]
@@ -145,7 +150,7 @@ def normals_dense(points: torch.Tensor, d2sorted: torch.Tensor,
     kinv = 1.0 / k_use
     thr = 0.5 * (d2sorted[..., k_use - 1] + d2sorted[..., k_use])
     out = []
-    chunk = _chunk_rows(bsz, n, points.element_size())
+    chunk = _chunk_rows(bsz, n, points.element_size(), points.device)
     for s in range(0, n, chunk):
         D2 = knn._pairwise_d2(points[:, s:s + chunk], points)
         M = ((D2 <= thr[:, s:s + chunk, None])

@@ -201,7 +201,7 @@ def write_ply(path: str | os.PathLike, cloud: PointCloud | np.ndarray,
         nrm = np.asarray(cloud.normals)
         arrays += [nrm[:, 0], nrm[:, 1], nrm[:, 2]]
     header = ["ply", "format binary_little_endian 1.0",
-              "comment Created by se3-icp-tpu-torch",
+              "comment Created by se3-icp-tpu",
               f"element vertex {n}"]
     header += [f"property {tname} {p}" for p in props]
     header += ["end_header"]
@@ -226,3 +226,92 @@ def read_transform_txt(path: str | os.PathLike) -> np.ndarray:
     if vals.shape[0] == 3:
         T[3] = (0.0, 0.0, 0.0, 1.0)
     return T
+
+
+def read_trajectory_12col(path: str | os.PathLike) -> np.ndarray:
+    """Read rows of 12 numbers into [N,4,4] matrices (ref:cc:145-175).
+
+    This is also the KITTI pose format (examples/benchmark_kitti.cpp:79-98).
+    """
+    rows = np.loadtxt(path, dtype=np.float64)
+    rows = np.atleast_2d(rows)[:, :12]
+    n = rows.shape[0]
+    out = np.tile(np.eye(4, dtype=np.float64), (n, 1, 1))
+    out[:, :3, :4] = rows.reshape(n, 3, 4)
+    return out
+
+
+def write_trajectory_12col(path: str | os.PathLike, mats: np.ndarray) -> None:
+    mats = np.asarray(mats, dtype=np.float64)
+    np.savetxt(path, mats[:, :3, :4].reshape(mats.shape[0], 12), fmt="%.10g")
+
+
+def read_velodyne_bin(path: str | os.PathLike) -> np.ndarray:
+    """Read a raw KITTI velodyne scan: little-endian float32 rows of
+    (x, y, z, reflectance); returns [N,3] float64 points (reflectance
+    dropped).  The on-disk format of the official odometry bundle's
+    ``sequences/NN/velodyne/%06d.bin`` files, from which the reference's
+    Downsampled-PLY bundle was derived (examples/benchmark_kitti.cpp:
+    101-107)."""
+    raw = np.fromfile(os.fspath(path), dtype="<f4")
+    if raw.size % 4:
+        raise ValueError(f"{path}: velodyne .bin length {raw.size} is "
+                         "not a multiple of 4 floats")
+    return raw.reshape(-1, 4)[:, :3].astype(np.float64)
+
+
+def voxel_downsample(points: np.ndarray, voxel: float) -> np.ndarray:
+    """Open3D ``VoxelDownSample`` semantics: bucket points into a
+    ``voxel``-sized grid anchored at the cloud minimum and return one
+    CENTROID per occupied voxel.  Brings raw velodyne scans (~120k
+    points) to the reference bundle's downsampled density."""
+    pts = np.asarray(points, np.float64).reshape(-1, 3)
+    if voxel <= 0 or len(pts) == 0:
+        return pts
+    keys = np.floor((pts - pts.min(axis=0)) / voxel).astype(np.int64)
+    if keys.max(initial=0) >= 2 ** 21:
+        # 21 bits an axis in the packed key: more bins would alias
+        # distinct voxels (a voxel this small for sensor data is a
+        # mis-scaled argument)
+        raise ValueError(
+            f"voxel {voxel} too small for cloud extent: "
+            f"{keys.max()} bins on one axis (max {2 ** 21 - 1})")
+    kid = (keys[:, 0] << 42) | (keys[:, 1] << 21) | keys[:, 2]
+    order = np.argsort(kid, kind="stable")
+    kid_s = kid[order]
+    start = np.flatnonzero(np.r_[True, kid_s[1:] != kid_s[:-1]])
+    sums = np.add.reduceat(pts[order], start, axis=0)
+    counts = np.diff(np.r_[start, len(kid_s)])[:, None]
+    return sums / counts
+
+
+def read_redwood_log(path: str | os.PathLike):
+    """Read a redwood-format trajectory ``.log`` file.
+
+    Returns (ids [N,3] int, transforms [N,4,4]).  Mirrors
+    ``RGBDTrajectory::LoadFromFile`` (examples/benchmark_lounge.cpp:103-127).
+    """
+    ids, mats = [], []
+    with open(path) as f:
+        lines = [ln for ln in f if ln.strip() and not ln.startswith("#")]
+    i = 0
+    while i + 4 < len(lines) + 1 and i < len(lines):
+        head = lines[i].split()
+        ids.append([int(head[0]), int(head[1]), int(head[2])])
+        rows = [list(map(float, lines[i + r + 1].split()[:4]))
+                for r in range(4)]
+        mats.append(rows)
+        i += 5
+    return (np.asarray(ids, dtype=np.int64),
+            np.asarray(mats, dtype=np.float64))
+
+
+def write_redwood_log(path: str | os.PathLike, ids: np.ndarray,
+                      mats: np.ndarray) -> None:
+    """Mirrors ``RGBDTrajectory::SaveToFile``
+    (benchmark_lounge.cpp:128-139)."""
+    with open(path, "w") as f:
+        for (a, b, c), T in zip(np.asarray(ids), np.asarray(mats)):
+            f.write(f"{a}\t{b}\t{c}\n")
+            for r in range(4):
+                f.write(" ".join(f"{T[r, k]:.8f}" for k in range(4)) + "\n")
