@@ -58,7 +58,18 @@ against the eager loop; the KITTI gates of the JAX package's own tests
 on its tests' fixtures; the analyses; two-alpha sweeps that must
 capture nothing for their second alpha; ``lrf-quality``, ``eval-traj``,
 ``test-se3-pure``), each run's ``protocol`` line with its captures,
-program keys, reserved memory and launches.  Every phase
+program keys, reserved memory and launches.  A ``bunny`` phase writes
+the seed-made bunny stand-in (``fixtures.write_bunny_standin``, named by
+``SE3_ICP_TPU_BUNNY``) and runs the bunny protocols: ``create-problem``,
+``example`` and ``example-fgr`` of the CLI in a subprocess;
+``bench-synthetic`` (30 cases each of easy and moderate at the 4608
+bucket, every case held against the JAX package's survey
+``tests/data/bunny_survey.json``; one ``--multi-start 8`` run; a
+two-alpha sweep); ``bench-extreme-noise`` (11 levels of 30 runs, level
+0.0 gated run by run); ``bench-scaling --per-device 64``.  Then SHOT
+frames (64 x 4608 exact, 8 pairs capped) and Anderson acceleration
+(``anderson_m`` 0, 3, 5 at 64 x 4608) on the captured program, each
+held bit for bit against the eager loop with no host sync.  Every phase
 prints one JSON line; any failed phase raises, so the exit code is
 non-zero and the final ``{"ok": true, ...}`` line is not printed.
 Without a CUDA device it exits with code 2 and prints no result.
@@ -2242,8 +2253,8 @@ def alpha_sweep(module, name, sweep, alg, folder, **kw):
     check(len(reps) == 2 and per_alpha[1]["captures"] == 0,
           f"{name}: the second alpha captured a program: {per_alpha}")
     return dict(algorithm=alg, per_alpha=per_alpha,
-                reports=[{k: r[k] for k in r if "error" in k or "rel" in k}
-                         for r in reps], **line)
+                reports=[{k: r[k] for k in r if "error" in k or "rel" in k
+                          or "success" in k} for r in reps], **line)
 
 
 def kitti_pairs(d, max_index):
@@ -2569,6 +2580,383 @@ def protocols_phase():
     return total, cases
 
 
+# --------------------------------------------------------------------
+# The bunny protocols on the seed-made bunny stand-in; SHOT frames and
+# Anderson acceleration on the captured program.
+
+BUNNY_SURVEY = os.path.join(ROOT, "tests", "data", "bunny_survey.json")
+SYNTH_SETS = ("easy", "moderate")       # 30 cases each, as the survey's
+
+
+def survey_pairs() -> dict:
+    """{(protocol, route): {case: row}} of the JAX package's surveys on
+    the stand-in (``tests/data/bunny_survey.json``)."""
+    with open(BUNNY_SURVEY) as f:
+        return {(s["protocol"], s["route"]): s["pairs"]
+                for s in json.load(f)["surveys"]}
+
+
+def survey_gate(what, passed: dict, protocol: str) -> dict:
+    """The card against the JAX package's survey, case by case: every
+    case the JAX package passes on its exact route passes on the card,
+    but for a miss its threshold route (the card's route) shows too.
+    ``passed``: {case index: bool}."""
+    surveys = survey_pairs()
+    exact = surveys[(protocol, "exact")]
+    thr = surveys.get((protocol, "thr"))
+    must = [i for i in passed if exact[str(i)]["gate"]]
+    missed = [i for i in must if not passed[i]]
+    shared = [i for i in missed
+              if thr is not None and not thr[str(i)]["gate"]]
+    check(missed == shared,
+          f"{what}: cases {sorted(set(missed) - set(shared))} miss the "
+          "gate on the card where the JAX package passes them")
+    return dict(card_passes=sum(passed.values()), cases=len(passed),
+                jax_exact_passes=len(must),
+                jax_thr_passes=(None if thr is None else sum(
+                    r["gate"] for r in thr.values())),
+                missed_as_jax_thr=shared,
+                card_passes_jax_exact_misses=[
+                    i for i in passed if passed[i] and i not in must])
+
+
+def walls_line(outcomes) -> dict:
+    walls = [o.wall_ms for o in outcomes.values()]
+    return dict(median_time_ms=statistics.median(walls),
+                mean_time_ms=float(np.mean(walls)),
+                mean_iterations=float(np.mean(
+                    [o.num_iterations for o in outcomes.values()])))
+
+
+def bunny_cli_run(tmp):
+    """``create-problem``, ``example`` and ``example-fgr`` of the CLI in
+    one subprocess (the bunny read through ``SE3_ICP_TPU_BUNNY``), the
+    problem written held against ``synthetic.golden_like_problem`` and
+    each example gated where the JAX package passes it in every survey
+    run (its float32 FGR on the demo lands on either side of 2 deg,
+    with JAX's 64-bit mode on or off: ROADMAP section 3)."""
+    from se3_icp_tpu_torch.datasets import synthetic
+    from se3_icp_tpu_torch.utils import ply
+    out_dir, aligned = (os.path.join(tmp, d) for d in ("problem", "aligned"))
+    calls = [["create-problem", "--out", out_dir],
+             ["example", "--json"],
+             ["example-fgr", "--json", "--save-aligned", aligned]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, sys\n"
+         "from se3_icp_tpu_torch import cli\n"
+         "for argv in json.loads(sys.argv[1]):\n"
+         "    cli.main(argv)\n", json.dumps(calls)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"bunny CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    ref = synthetic.golden_like_problem(seed=1)
+    got = ply.read_ply(os.path.join(out_dir, "source.ply")).points
+    check(np.array_equal(got, ref.source)
+          and np.allclose(np.loadtxt(os.path.join(
+              out_dir, "transformation_gt.txt")), ref.T_gt, atol=1e-6),
+          "create-problem: the written problem is not golden_like_problem")
+    reps = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith("{")]
+    check(len(reps) == 2, f"bunny CLI: {len(reps)} JSON lines")
+    surveys = survey_pairs()
+    out = dict(seconds=wall)
+    for name, rep in zip(("example", "example-fgr"), reps):
+        ok = rep["so3_error_deg"] < 2.0 and rep["translation_error"] < 0.25
+        jax = {r: surveys[(name, r)]["0"] for r in ("exact", "exact-x64")
+               if (name, r) in surveys}
+        if all(v["gate"] for v in jax.values()):
+            check(ok, f"{name}: {rep['so3_error_deg']:.4f} deg, "
+                  f"{rep['translation_error']:.4f} off the demo's GT")
+        out[name] = dict(rot_deg=rep["so3_error_deg"],
+                         trans=rep["translation_error"], gate=ok,
+                         iterations=rep["num_iterations"], jax_package=jax)
+    check(sorted(os.listdir(aligned)) == ["source.ply", "source_aligned.ply",
+                                          "target.ply"],
+          "example-fgr --save-aligned: files")
+    emit("bunny_cli", cli="create-problem, example, example-fgr", **out)
+
+
+def synthetic_runs(tmp, total):
+    """``bench-synthetic --generate`` and the benchmark through the CLI,
+    30 cases each of easy and moderate at the 4608 bucket, every case
+    gated against the JAX package's survey; one ``--multi-start 8``
+    run on the moderate set; a two-alpha sweep."""
+    from se3_icp_tpu_torch import cli
+    from se3_icp_tpu_torch.bench import common, synthetic_bench
+    from se3_icp_tpu_torch.datasets import synthetic
+    from se3_icp_tpu_torch.utils import metrics_host as mh
+    folders = {}
+    for diff in SYNTH_SETS:
+        folder = folders[diff] = os.path.join(tmp, diff)
+        quiet(cli.main, ["bench-synthetic", "se3_pt2pl", folder,
+                         "--generate", "--difficulty", diff])
+        probs = synthetic.load_problem_folder(folder)
+        ck = os.path.join(tmp, f"{diff}.jsonl")
+        _, line, launches, printed = protocol_run(
+            f"synthetic {diff}", cli.main,
+            ["bench-synthetic", "se3_pt2pl", folder, "--json",
+             "--checkpoint", ck])
+        rep = json.loads(printed.strip().splitlines()[-1])
+        check_registration_launches(f"synthetic {diff}", launches)
+        sum_launches(total, launches)
+        outcomes = common.Checkpoint(ck).done
+        check(rep["num_problems"] == len(probs) == 30
+              and all(np.isfinite(o.T_est).all() for o in outcomes.values()),
+              f"synthetic {diff}: {rep}")
+        passed = {i: mh.success(p.T_gt, outcomes[i].T_est)
+                  for i, p in enumerate(probs)}
+        emit("protocol", protocol="synthetic", difficulty=diff,
+             algorithm="se3_pt2pl", config="GOLDEN", cases=30,
+             points=sorted({len(p.source) for p in probs}),
+             success_rate=rep["success_rate"], **walls_line(outcomes),
+             survey=survey_gate(f"synthetic {diff}", passed,
+                                f"synthetic_{diff}"), **line)
+    rep, line, launches, _ = protocol_run(
+        "synthetic moderate multi-start", synthetic_bench
+        .benchmark_on_saved_data, "se3_pt2pl", folders["moderate"],
+        multi_start=MS_STARTS)
+    check(launches["nn_argmin_batched"] > 0
+          and launches["nn_match_affine"] == launches[
+              "loop_epilogue_batched"] > 0,
+          f"synthetic multi-start: launches {launches}")
+    sum_launches(total, launches)
+    emit("protocol", protocol="synthetic", difficulty="moderate",
+         algorithm="se3_pt2pl", multi_start=MS_STARTS,
+         success_rate=rep["success_rate"], num_fails=rep["num_fails"],
+         avg_time_ms=rep["avg_time_ms"], **line)
+    sweep = alpha_sweep(synthetic_bench, "benchmark_on_saved_data",
+                        synthetic_bench.alpha_sweep, "se3_pt2pl",
+                        folders["easy"])
+    emit("protocol", protocol="synthetic", difficulty="easy",
+         alpha_sweep=sweep)
+
+
+def extreme_noise_runs(tmp, total):
+    """``bench-extreme-noise --generate`` and the benchmark through the
+    CLI, all 11 levels of 30 runs: level 0.0 gated run by run where the
+    JAX package passes, every level's error beside the survey's."""
+    from se3_icp_tpu_torch import cli
+    from se3_icp_tpu_torch.bench import extreme_noise_bench as en
+    from se3_icp_tpu_torch.utils import metrics_host as mh
+    folder = os.path.join(tmp, "noise")
+    quiet(cli.main, ["bench-extreme-noise", "se3_pt2pl", folder,
+                     "--generate"])
+    seen = {}
+    run_pairs = en.common.run_pairs
+
+    def kept(pairs_, *a, **kw):
+        seen[len(seen)] = (pairs_, run_pairs(pairs_, *a, **kw))
+        return seen[len(seen) - 1][1]
+
+    en.common.run_pairs = kept
+    try:
+        _, line, launches, printed = protocol_run(
+            "extreme noise", cli.main,
+            ["bench-extreme-noise", "se3_pt2pl", folder, "--json"])
+    finally:
+        en.common.run_pairs = run_pairs
+    errors = json.loads(printed.strip().splitlines()[-1])["errors"]
+    check_registration_launches("extreme noise", launches)
+    sum_launches(total, launches)
+    check(len(errors) == len(en.LEVELS) == len(seen) == 11
+          and np.isfinite(errors).all(), f"extreme noise: {errors}")
+    surveys = survey_pairs()
+    levels = []
+    for k, (sub, level, err) in enumerate(zip(en.LEVEL_FOLDERS, en.LEVELS,
+                                              errors)):
+        pairs_, outcomes = seen[k]
+        T_gt = en.read_gt(os.path.join(folder, sub))
+        passed = {i: mh.success(T_gt, outcomes[i].T_est)
+                  for i in range(en.RUNS)}
+        row = dict(level=level, error_x1000=err,
+                   card_passes=sum(passed.values()), **walls_line(outcomes))
+        jax = surveys.get((f"extreme_noise_{sub}", "exact"))
+        if jax is not None:
+            row["jax_error_x1000"] = float(np.mean(
+                [r["error_x1000"] for r in jax.values()]))
+            row["jax_passes"] = sum(r["gate"] for r in jax.values())
+        if level == 0.0:
+            row["survey"] = survey_gate("extreme noise 0.0", passed,
+                                        f"extreme_noise_{sub}")
+        levels.append(row)
+    emit("protocol", protocol="extreme_noise", algorithm="se3_pt2pl",
+         config="EXTREME_NOISE", runs=en.RUNS, levels=levels, **line)
+
+
+def scaling_run(total):
+    """``bench-scaling --per-device 64`` through the CLI: 64 golden-like
+    pairs a repetition, one batch in flight, fresh arrays each."""
+    from se3_icp_tpu_torch import cli
+    _, line, launches, printed = protocol_run(
+        "bench-scaling", cli.main,
+        ["bench-scaling", "--per-device", str(N_PAIRS), "--json"])
+    rep = json.loads(printed.strip().splitlines()[-1])
+    check_registration_launches("bench-scaling", launches)
+    sum_launches(total, launches)
+    check(rep["device_counts"] == [1] and rep["pairs_per_s"][0] > 0
+          and rep["platform"] == "gpu", f"bench-scaling: {rep}")
+    emit("protocol", protocol="scaling", **rep, **line)
+
+
+def engine_option_run(what, pair_list, problems, cfg, survey_name, total,
+                      setup_route):
+    """One option of the engine on the captured program: a call that
+    captures, then a counted call, held bit for bit against the eager
+    loop with no host sync, every pair gated (against the JAX package's
+    survey ``survey_name``, or each within 2 deg / 0.25 where it is
+    None); its setup timed eagerly on the card, one replay profiled.
+    Returns (results, the line's fields)."""
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils import metrics_host as mh
+    from se3_icp_tpu_torch.utils.config import parse_algorithm
+    check(reg.loop_route("cuda", *parse_algorithm("se3_pt2pl")) == "graph",
+          f"{what}: not on the captured program")
+    with ProgramKeys() as keys:
+        t0 = time.perf_counter()
+        pairs.register_pairs(pair_list, "se3_pt2pl", cfg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        st = {}
+        t0 = time.perf_counter()
+        res = pairs.register_pairs(pair_list, "se3_pt2pl", cfg, stats=st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hold_against_eager(what, lambda s: pairs.register_pairs(
+        pair_list, "se3_pt2pl", cfg, stats=s), res, st)
+    vs_eager = {k: PROGRAM_HOLDS[-1][k] for k in (
+        "same_bits", "eager_loop_steps", "eager_host_syncs")}
+    prof = profile_line(lambda: pairs.register_pairs(pair_list, "se3_pt2pl",
+                                                     cfg), emit_line=False)
+    prof = {k: prof[k] for k in ("device_ms_total", "idle_share",
+                                 "device_kernel_launches", "top")}
+    prof["top"] = prof["top"][:6]
+    check(launches["nn_match_affine"] == launches["loop_epilogue_batched"]
+          == st["loop_steps"] > 0, f"{what}: loop launches {launches}")
+    if setup_route == "exact":
+        check(all(launches[k] == 0 for k in (
+            "neighborhood_thresholds_batched", "moments_batched",
+            "axis_sums_batched")), f"{what}: threshold setup ran {launches}")
+    else:
+        check(launches["neighborhood_thresholds_batched"] > 0,
+              f"{what}: setup launches {launches}")
+    sum_launches(total, launches)
+    if survey_name is None:
+        rot, tra = gate(problems, res, what)
+        verdict = dict(card_passes=len(res), worst_rot_deg=rot,
+                       worst_trans=tra)
+    else:
+        verdict = survey_gate(what, {
+            i: mh.success(p.T_gt, r.transformation)
+            for i, (p, r) in enumerate(zip(problems, res))}, survey_name)
+    # the setup alone, eagerly on the card (CUDA events, median of 3)
+    src, n_src, tgt, n_tgt = (torch.as_tensor(a, device="cuda") for a in
+                              pairs.pack_pairs(pair_list))
+    with torch.no_grad():
+        floats, scfg = reg.split_cfg(cfg, torch.float32, "cuda")
+        h = reg.hyper(floats)
+        torch.cuda.reset_peak_memory_stats()
+        setup_ms = time_ms(lambda: reg.setup(src, n_src, tgt, n_tgt, scfg,
+                                             "se3", "pt2pl", h), reps=3)
+        setup_peak = torch.cuda.max_memory_allocated() / 1e9
+    return res, dict(
+        pairs=len(pair_list), bucket=4608, first_call_seconds=first,
+        seconds=wall, ms_a_pair=wall * 1e3 / len(pair_list),
+        iterations=[r.num_iterations for r in res],
+        mean_iterations=float(np.mean([r.num_iterations for r in res])),
+        loop_steps=st["loop_steps"], host_syncs=st["host_syncs"],
+        eager_setup_ms=setup_ms, eager_setup_peak_gb=setup_peak,
+        peak_mem_gb=peak, memory_reserved_gb=torch.cuda.memory_reserved()
+        / 1e9, launches=launches, survey=verdict, vs_eager=vs_eager,
+        profile=prof, **keys.line())
+
+
+def shot_runs(total):
+    """SHOT frames through ``register_pairs`` on the captured program:
+    the main path's 64 pairs at 4608 with exact radius neighbourhoods,
+    and 8 pairs with the capped route (``shot_exact=False``)."""
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    problems = golden_pairs(N_PAIRS)
+    for exact, n in ((True, N_PAIRS), (False, SMALL_BATCH)):
+        cfg = GOLDEN.replace(lrf_method="shot", shot_exact=exact)
+        probs = problems[:n]
+        _, line = engine_option_run(
+            f"shot (shot_exact={exact})",
+            [(p.source, p.target) for p in probs], probs, cfg,
+            "golden_shot", total, "exact")
+        emit("shot", algorithm="se3_pt2pl", config="GOLDEN",
+             lrf_radius=cfg.lrf_radius, shot_exact=exact,
+             shot_max_k=None if exact else cfg.shot_max_k, **line)
+
+
+def anderson_runs(total):
+    """Anderson acceleration through ``register_pairs`` on the captured
+    program, ``anderson_m`` 3 and 5 beside the same call without it, at
+    64 x 4608: the main path's pairs (GOLDEN, whose R3 phase is a step
+    or two) and their noisy resampled versions with ``mse`` 1e-9 (a
+    long R3 phase, where the accelerated step is taken)."""
+    from se3_icp_tpu_torch.datasets.fixtures import NOISY
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    for tag, kw, base_cfg, name in (
+            ("golden", {}, GOLDEN, "GOLDEN"),
+            ("noisy", NOISY, GOLDEN.replace(mse=1e-9),
+             "GOLDEN, mse 1e-9, NOISY problems")):
+        problems = golden_pairs(N_PAIRS, **kw)
+        pair_list = [(p.source, p.target) for p in problems]
+        base = None
+        for m in (0, 3, 5):
+            survey = (f"{tag}_anderson_{m}"
+                      if m or tag == "noisy" else None)
+            _, line = engine_option_run(
+                f"anderson {tag} m={m}", pair_list, problems,
+                base_cfg.replace(anderson_m=m), survey, total, "threshold")
+            if m == 0:
+                base = line["iterations"]
+            emit("anderson", problems=tag, algorithm="se3_pt2pl",
+                 config=name, anderson_m=m,
+                 pairs_with_other_iterations_than_m0=sum(
+                     a != b for a, b in zip(line["iterations"], base)),
+                 mean_iterations_m0=float(np.mean(base)), **line)
+
+
+def bunny_phase():
+    """The bunny protocols through their entry points and the CLI on
+    the stand-in written here, then SHOT and Anderson on the captured
+    program; returns their launches by path."""
+    from se3_icp_tpu_torch.datasets import fixtures, synthetic
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bunny = os.path.join(tmp, "bunny.ply")
+        t0 = time.perf_counter()
+        fixtures.write_bunny_standin(bunny)
+        saved = os.environ.get(synthetic.BUNNY_ENV)
+        os.environ[synthetic.BUNNY_ENV] = bunny
+        try:
+            emit("bunny_fixture", seconds=time.perf_counter() - t0,
+                 points=fixtures.BUNNY_POINTS)
+            total = out["bunny_protocols"] = {}
+            bunny_cli_run(tmp)
+            synthetic_runs(tmp, total)
+            extreme_noise_runs(tmp, total)
+            scaling_run(total)
+        finally:
+            if saved is None:
+                os.environ.pop(synthetic.BUNNY_ENV)
+            else:
+                os.environ[synthetic.BUNNY_ENV] = saved
+    shot_runs(out.setdefault("shot", {}))
+    anderson_runs(out.setdefault("anderson", {}))
+    emit("bunny", launches=out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2598,6 +2986,7 @@ def smoke() -> int:
     ops_launches = ops_phase()
     cli_slice3_phase()
     proto_launches, proto_cases = protocols_phase()
+    bunny_launches = bunny_phase()
     for cases, key in ((k1_cases, "k1"), (k2_cases, "k2"), (k3_cases, "k3"),
                        (k4_cases, "k4"), (k5_cases, "k5")):
         cases.extend(proto_cases[key])
@@ -2608,7 +2997,7 @@ def smoke() -> int:
         """``counts``: {path: launch counts} of the paths that run this
         kernel (default: the main path and the bench protocols)."""
         counts = counts or {"main_path": launches,
-                            "protocols": proto_launches}
+                            "protocols": proto_launches, **bunny_launches}
         head = dict(cases[0])
         head.update(route="cuda", source=source, replaces=replaces,
                     launches=sum(c[key] for c in counts.values()),
@@ -2635,7 +3024,8 @@ def smoke() -> int:
         entry(k6_cases, "nn_argmin_batched",
               "se3_icp_tpu_torch/csrc/nn_argmin.cu",
               "se3_icp_tpu/ops/pallas_knn.py:152",
-              {"multistart": ms_launches, "fgr": fgr_launches}),
+              {"multistart": ms_launches, "fgr": fgr_launches,
+               "bunny_protocols": bunny_launches["bunny_protocols"]}),
         entry(k7_cases, "nn_match_batched",
               "se3_icp_tpu_torch/csrc/nn_argmin.cu",
               "se3_icp_tpu/ops/pallas_knn.py:349", {"ops": ops_launches}),

@@ -1,26 +1,36 @@
 """Command-line surface of the PyTorch/CUDA port, mirroring the
-reference's example binaries as sub-commands:
+reference's example binaries as sub-commands (the JAX package's twelve):
 
-  run            <- run_registration_method: register two PLY files
-  bench-lounge   <- benchmark_lounge (``bench/lounge_bench.py``)
-  bench-kitti    <- benchmark_kitti (``bench/kitti_bench.py``)
-  test-se3-pure  <- test_se3_pure: alpha sweep of se3_pure_* on lounge
-  eval-traj      <- cc::evaluate_trajectory_quality on two 12-column
-                    trajectory files
-  lrf-quality    <- cc::evaluate_LRF_quality on two PLY files and a GT
+  run                 <- run_registration_method: register two PLY files
+  example             <- registration_example: the bunny demo problem
+  example-fgr         <- registration_example_fgr: FGR on the same
+  create-problem      <- create_and_save_reg_problem
+  bench-synthetic     <- benchmark_synthetic (``bench/synthetic_bench.py``)
+  bench-lounge        <- benchmark_lounge (``bench/lounge_bench.py``)
+  bench-kitti         <- benchmark_kitti (``bench/kitti_bench.py``)
+  bench-extreme-noise <- benchmark_extreme_noise_bunny
+                         (``bench/extreme_noise_bench.py``)
+  bench-scaling       <- pairs/s over a ladder of cards
+                         (``bench/scaling_bench.py``)
+  test-se3-pure       <- test_se3_pure: alpha sweep of se3_pure_* on lounge
+  eval-traj           <- cc::evaluate_trajectory_quality on two 12-column
+                         trajectory files
+  lrf-quality         <- cc::evaluate_LRF_quality on two PLY files and a GT
 
 Usage: ``python -m se3_icp_tpu_torch <sub-command> ... [--device cpu]``.
 ``run <algorithm> source.ply target.ply [--multi-start N]``:
 ``<algorithm>`` one of the ICP names or ``fgr``; ``--multi-start N``
 registers from N rotation starts in one batch and keeps the best.  The
 bench commands take a dataset folder in the reference's layout;
-``--generate`` writes a seed-made stand-in there
-(``datasets/fixtures.py``).  Every command runs on the CUDA device
-unless ``--device cpu`` is given, and says so before any work when
-there is none.  The bunny examples and protocols (``example``,
-``example-fgr``, ``bench-synthetic``, ``bench-extreme-noise``,
-``create-problem``) and ``bench-scaling`` of the JAX package's CLI are
-later slices of the port.
+``--generate`` writes one there: a seed-made stand-in for lounge and
+KITTI (``datasets/fixtures.py``), the protocol's problems drawn from the
+bunny for ``bench-synthetic`` and ``bench-extreme-noise``
+(``datasets/synthetic.py``).  The bunny commands (``example``,
+``example-fgr``, ``create-problem``, ``bench-scaling``, the bunny
+benches' ``--generate``) read the bunny PLY that ``SE3_ICP_TPU_BUNNY``
+names (``fixtures.write_bunny_standin`` writes a stand-in).  Every
+command that registers runs on the CUDA device unless ``--device cpu``
+is given, and says so before any work when there is none.
 """
 
 from __future__ import annotations
@@ -78,6 +88,139 @@ def cmd_run(args):
     if args.json:
         print(json.dumps({"T": res.transformation.tolist(),
                           "num_iterations": res.num_iterations}))
+
+
+def _bunny_demo():
+    """The demo problem of ``example`` / ``example-fgr``: the bunny at
+    scale 1, independent 2% downsamples, a fixed GT."""
+    from scipy.spatial.transform import Rotation
+
+    from se3_icp_tpu_torch.datasets import synthetic
+    rng = np.random.default_rng(1)
+    bunny = synthetic.load_bunny(scale=1.0)
+    src = synthetic.random_downsample(bunny, 0.02, rng)
+    T_gt = np.eye(4)
+    T_gt[:3, :3] = Rotation.from_euler(
+        "xyz", [np.pi / 5, np.pi / 4, np.pi / 6]).as_matrix()
+    T_gt[:3, 3] = (2.5, 3.5, 1.2)
+    tgt = synthetic.random_downsample(
+        bunny @ T_gt[:3, :3].T + T_gt[:3, 3], 0.02, rng)
+    return src, tgt, T_gt
+
+
+def _print_demo(args, res, T_gt) -> None:
+    from se3_icp_tpu_torch.utils import metrics_host
+    print("Estimated transformation = ")
+    np.savetxt(sys.stdout, res.transformation, fmt="%10.6f")
+    print("Ground truth transformation = ")
+    np.savetxt(sys.stdout, T_gt, fmt="%10.6f")
+    so3 = metrics_host.angular_error_so3(res.transformation[:3, :3],
+                                         T_gt[:3, :3])
+    print(f"SO3 error = {so3:.4f} deg")
+    _print_json(args, {
+        "T": res.transformation.tolist(), "T_gt": T_gt.tolist(),
+        "so3_error_deg": so3,
+        "translation_error": metrics_host.translation_error(
+            res.transformation[:3, 3], T_gt[:3, 3]),
+        "num_iterations": res.num_iterations})
+
+
+def cmd_example(args):
+    """registration_example (a self-contained bunny demo)."""
+    from se3_icp_tpu_torch.models import registration as reg
+    _resolve(args)
+    src, tgt, T_gt = _bunny_demo()
+    res = reg.register_pair(src, tgt, "se3_pt2pl", GOLDEN,
+                            device=args.device)
+    _print_demo(args, res, T_gt)
+
+
+def cmd_example_fgr(args):
+    """registration_example_fgr (FGR on the bunny demo problem).  The
+    reference draws the aligned clouds in an Open3D window; headless
+    here, ``--save-aligned DIR`` writes source, target and the aligned
+    source as PLY files for any viewer."""
+    import os
+
+    from se3_icp_tpu_torch.models import fgr
+    from se3_icp_tpu_torch.utils import ply
+    _resolve(args)
+    src, tgt, T_gt = _bunny_demo()
+    res = fgr.fgr_register(src, tgt, device=args.device)
+    _print_demo(args, res, T_gt)
+    if args.save_aligned:
+        d = args.save_aligned
+        os.makedirs(d, exist_ok=True)
+        T = res.transformation
+        ply.write_ply(os.path.join(d, "source.ply"), src)
+        ply.write_ply(os.path.join(d, "target.ply"), tgt)
+        ply.write_ply(os.path.join(d, "source_aligned.ply"),
+                      src @ T[:3, :3].T + T[:3, 3])
+        print(f"Wrote source/target/source_aligned PLYs to {d}")
+
+
+def cmd_create_problem(args):
+    """create_and_save_reg_problem: the golden-like problem's clouds and
+    GT written to ``--out``."""
+    import os
+
+    from se3_icp_tpu_torch.datasets import synthetic
+    from se3_icp_tpu_torch.utils import ply
+    prob = synthetic.golden_like_problem(seed=args.seed)
+    os.makedirs(args.out, exist_ok=True)
+    ply.write_ply(os.path.join(args.out, "source.ply"), prob.source)
+    ply.write_ply(os.path.join(args.out, "target.ply"), prob.target)
+    np.savetxt(os.path.join(args.out, "transformation_gt.txt"),
+               prob.T_gt, fmt="%9.6f")
+    print(f"Registration problem data written to {args.out}")
+    print("Gt transformation = ")
+    np.savetxt(sys.stdout, prob.T_gt, fmt="%10.6f")
+
+
+def cmd_bench_synthetic(args):
+    from se3_icp_tpu_torch.bench import synthetic_bench
+    if args.generate:
+        synthetic_bench.generate_dataset(args.folder, args.num_cases,
+                                         args.difficulty, args.noise)
+        print(f"dataset written to {args.folder}")
+        return
+    _resolve(args)
+    if args.alpha_sweep:
+        rep = synthetic_bench.alpha_sweep(args.algorithm, args.folder,
+                                          args.out_file, device=args.device)
+    else:
+        rep = synthetic_bench.benchmark_on_saved_data(
+            args.algorithm, args.folder, rot_alpha=args.rot_alpha,
+            checkpoint=args.checkpoint, dtype=np.dtype(args.dtype),
+            multi_start=args.multi_start, device=args.device)
+    _print_json(args, rep)
+
+
+def cmd_bench_extreme_noise(args):
+    from se3_icp_tpu_torch.bench import extreme_noise_bench
+    if args.generate:
+        extreme_noise_bench.generate_dataset(args.folder)
+        print(f"dataset written to {args.folder}")
+        return
+    _resolve(args)
+    errors = extreme_noise_bench.benchmark_extreme_noise(
+        args.algorithm, args.folder, dtype=np.dtype(args.dtype),
+        device=args.device)
+    _print_json(args, {"errors": errors})
+
+
+def cmd_bench_scaling(args):
+    """Weak-scaling sweep over the ladder of cards
+    (``bench/scaling_bench.py``)."""
+    from se3_icp_tpu_torch.bench import scaling_bench
+    _resolve(args)
+    rep = scaling_bench.run_scaling(
+        algorithm=args.algorithm, per_device=args.per_device,
+        reps=args.reps, cloud=args.cloud, device=args.device,
+        dtype=np.dtype(args.dtype))
+    print(f"devices {rep['device_counts']} -> pairs/s "
+          f"{rep['pairs_per_s']} (efficiency {rep['efficiency']})")
+    _print_json(args, rep)
 
 
 def _resolve(args) -> None:
@@ -234,8 +377,28 @@ def build_parser():
     _add_common(p)
     p.set_defaults(fn=cmd_run)
 
-    for name, fn in (("bench-lounge", cmd_bench_lounge),
-                     ("bench-kitti", cmd_bench_kitti)):
+    p = sub.add_parser("example", help="self-contained bunny demo")
+    _add_common(p)
+    p.set_defaults(fn=cmd_example)
+
+    p = sub.add_parser("example-fgr",
+                       help="FGR baseline on the bunny demo problem")
+    _add_common(p)
+    p.add_argument("--save-aligned", default=None,
+                   help="write source/target/aligned-source PLYs here "
+                        "(headless stand-in for the reference's Open3D "
+                        "visualization)")
+    p.set_defaults(fn=cmd_example_fgr)
+
+    p = sub.add_parser("create-problem")
+    p.add_argument("--out", default="created_example_reg_problem")
+    p.add_argument("--seed", type=int, default=1)
+    p.set_defaults(fn=cmd_create_problem)
+
+    for name, fn in (("bench-synthetic", cmd_bench_synthetic),
+                     ("bench-lounge", cmd_bench_lounge),
+                     ("bench-kitti", cmd_bench_kitti),
+                     ("bench-extreme-noise", cmd_bench_extreme_noise)):
         p = sub.add_parser(name)
         p.add_argument("algorithm", choices=ALGORITHMS + ("fgr",))
         p.add_argument("folder")
@@ -244,14 +407,30 @@ def build_parser():
         p.add_argument("--checkpoint", default=None,
                        help="JSONL per-pair checkpoint file (resumable)")
         p.add_argument("--generate", action="store_true",
-                       help="write a seed-made stand-in dataset in the "
+                       help="write the protocol's dataset in the "
                             "reference's on-disk layout to the folder")
-        p.add_argument("--analyze", action="store_true",
-                       help="the reference's dormant dataset difficulty "
-                            "+ Chamfer analyses instead of registering")
-        p.add_argument("--alpha-sweep", action="store_true",
-                       help="the full hybrid alpha grid over the "
-                            "protocol (benchmark_different_rot_scales)")
+        if name in ("bench-lounge", "bench-kitti"):
+            p.add_argument("--analyze", action="store_true",
+                           help="the reference's dormant dataset "
+                                "difficulty + Chamfer analyses instead "
+                                "of registering")
+        if name != "bench-extreme-noise":
+            p.add_argument("--alpha-sweep", action="store_true",
+                           help="the full hybrid alpha grid over the "
+                                "protocol (benchmark_different_rot_"
+                                "scales)")
+        if name == "bench-synthetic":
+            p.add_argument("--multi-start", type=int, default=0,
+                           help="run each problem from N rotation "
+                                "starts in one batch and keep the best "
+                                "(0/1 = off)")
+            p.add_argument("--out-file", default=None,
+                           help="append each alpha's success rate here "
+                                "(--alpha-sweep)")
+            p.add_argument("--num-cases", type=int, default=30)
+            p.add_argument("--difficulty", default="moderate",
+                           choices=["easy", "moderate", "difficult"])
+            p.add_argument("--noise", type=float, default=0.005)
         if name == "bench-kitti":
             p.add_argument("--max-index", type=int, default=1100)
             p.add_argument("--save-traj", default=None,
@@ -282,6 +461,20 @@ def build_parser():
     p.add_argument("est")
     _add_common(p)
     p.set_defaults(fn=cmd_eval_traj)
+
+    p = sub.add_parser("bench-scaling",
+                       help="weak-scaling sweep over the ladder of cards "
+                            "(pairs/s + efficiency)")
+    p.add_argument("--algorithm", default="se3_pt2pl",
+                   choices=ALGORITHMS + ("fgr",))
+    p.add_argument("--per-device", type=int, default=8,
+                   help="pairs per card (weak scaling)")
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--cloud", default="golden", choices=["golden", "easy"],
+                   help="golden: the create-problem clouds; easy: one "
+                        "easy synthetic case")
+    _add_common(p)
+    p.set_defaults(fn=cmd_bench_scaling)
 
     p = sub.add_parser("lrf-quality",
                        help="LRF rotational-consistency diagnostic "

@@ -33,6 +33,12 @@ order, so the same seed writes the same bytes:
            <folder>/Sequence_07/07.txt  (12-number rows, EVERY raw
            frame; the loader reads every other row, matching
            examples/benchmark_kitti.cpp:79-98)
+
+``write_bunny_standin`` writes a stand-in for the Stanford bunny that
+the bunny protocols read (``datasets/synthetic.py``, the file named by
+``SE3_ICP_TPU_BUNNY``): the "bumpy" surface at 1/50 of its size in a
+binary-float PLY, so the protocols' x50 and 2% downsample give clouds
+of the golden fixture's width and size.
 """
 
 from __future__ import annotations
@@ -352,3 +358,20 @@ def make_kitti_fixture(folder: str, max_index: int = 20,
             os.path.join(out, "Downsampled", f"{i:06d}.ply"), cloud)
     ply.write_trajectory_12col(os.path.join(out, "07.txt"),
                                np.asarray(poses_all))
+
+
+BUNNY_POINTS = 208_353      # the Stanford bunny's vertex count
+
+
+def write_bunny_standin(path: str, n_points: int = BUNNY_POINTS,
+                        seed: int = 11) -> None:
+    """Write the bunny stand-in: ``n_points`` of the "bumpy" surface
+    scaled by 1/50 (the protocols scale the bunny by 50), as a
+    binary-float PLY like the scanned model's.  With the default count
+    the protocols' 2% downsample keeps 4,167 points, the golden width."""
+    rng = np.random.default_rng(seed)
+    folder = os.path.dirname(path)
+    if folder:
+        os.makedirs(folder, exist_ok=True)
+    ply.write_ply(path, _bumpy_surface(rng, n_points) / 50.0,
+                  dtype="float")

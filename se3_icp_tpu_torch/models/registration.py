@@ -21,10 +21,13 @@ Mechanics:
     30, GICP 20) its ball, and the frames, normals and covariances are
     sums over those balls (K2, K3, glue in ``ops/lrf.py``);
     ``exact_knn=True`` takes ONE exact sorted kNN per cloud instead,
-    prefix-sliced by every consumer;
+    prefix-sliced by every consumer; SHOT frames (``lrf_method="shot"``)
+    always take that route, with their own radius neighbourhoods;
   * each iteration is two hand-written kernels -- the fused match
     (``ops/cuda_knn.py``) and the fused epilogue (``ops/cuda_loop.py``)
-    -- plus a 6x6 solve or 3x3 SVD;
+    -- plus a 6x6 solve or 3x3 SVD, and with ``anderson_m`` >= 2 an
+    Anderson-accelerated step in se(3) twist coordinates
+    (``anderson_step``);
   * every state update is masked by a per-pair ``done`` flag, so a step
     after a pair converged is a no-op for it.  On the card the whole
     registration -- setup, loop, back to original coordinates -- runs
@@ -61,6 +64,7 @@ import torch
 
 from se3_icp_tpu_torch.ops import (cuda_knn, cuda_loop, cuda_moments, knn,
                                    lrf, solve)
+from se3_icp_tpu_torch.utils import se3
 from se3_icp_tpu_torch.utils.config import (RegistrationConfig,
                                             parse_algorithm)
 
@@ -364,11 +368,23 @@ def _setup_thr(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
     return out
 
 
+def _shot_frames(points, n_valid, cfg):
+    """SHOT frames of one cloud: exact radius semantics, or capped at
+    ``shot_max_k`` neighbours (``shot_exact=False``)."""
+    if cfg.shot_exact:
+        return lrf.shot_frames_dense(points, cfg.lrf_radius, n_valid)
+    return lrf.shot_frames(points, cfg.lrf_radius, n_valid,
+                           max_k=cfg.shot_max_k)
+
+
 def _setup_exact(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
                  need_cov):
     """The exact sorted-kNN setup: ONE sorted kNN per cloud,
-    prefix-sliced by every consumer (TOLDI k, normals, GICP)."""
-    k_lrf = cfg.number_of_nn_for_lrf if is_se3 else 0
+    prefix-sliced by every consumer (TOLDI k, normals, GICP).  SHOT
+    frames take their own radius neighbourhoods, so they add nothing to
+    the kNN's width."""
+    shot = is_se3 and cfg.lrf_method != "toldi"
+    k_lrf = cfg.number_of_nn_for_lrf if is_se3 and not shot else 0
     k_src = max(k_lrf, cfg.gicp_normals_knn if need_cov else 0)
     k_tgt = max(k_lrf, cfg.normals_knn if need_tgt_nrm else 0,
                 cfg.gicp_normals_knn if need_cov else 0)
@@ -381,7 +397,10 @@ def _setup_exact(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
         _, d2_tgt = knn.knn_self(tgt_c, k_tgt + 1, n_tgt)
     out = dict(rot_src=None, rot_tgt=None, tgt_normals=None, cov_src6=None,
                cov_tgt6=None)
-    if is_se3:
+    if shot:
+        out["rot_src"] = _shot_frames(src_c, n_src, cfg)
+        out["rot_tgt"] = _shot_frames(tgt_c, n_tgt, cfg)
+    elif is_se3:
         out["rot_src"] = lrf.toldi_frames_dense(src_c, d2_src[..., :k_lrf],
                                                 n_src)
         out["rot_tgt"] = lrf.toldi_frames_dense(tgt_c, d2_tgt[..., :k_lrf],
@@ -405,22 +424,22 @@ def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
     The neighbourhoods come from the sort-free threshold setup (K1-K3,
     the route the JAX package takes on its accelerator) unless
     ``exact_knn``, which takes the exact sorted kNN instead (the JAX
-    package's ``SE3_ICP_TPU_EXACT_KNN=1``).  ``h``: the traced
-    hyperparameters (``split_cfg``, ``hyper``).  Returns (MatchState,
-    Preprocess)."""
+    package's ``SE3_ICP_TPU_EXACT_KNN=1``).  SHOT frames
+    (``lrf_method="shot"``) always take the exact route, whatever
+    ``exact_knn`` says, as the JAX package turns its threshold route off
+    for them (any ``lrf_method`` but ``"toldi"`` is SHOT there).  ``h``:
+    the traced hyperparameters (``split_cfg``, ``hyper``).  Returns
+    (MatchState, Preprocess)."""
     is_se3 = mode != "icp"
     use_cf = mode == "se3_cf"
     eff_variant = "gicp" if use_cf else variant
-    if is_se3 and cfg.lrf_method != "toldi":
-        raise NotImplementedError(
-            f"lrf_method={cfg.lrf_method!r}: SHOT frames are a later "
-            "slice of the port; this one has TOLDI")
     conf_src = conf_tgt = None
     if use_cf:  # on ORIGINAL coordinates
         conf_src = lounge_point_confidence(src)
         conf_tgt = lounge_point_confidence(tgt)
     src_c, tgt_c, pre = preprocess(src, n_src, tgt, n_tgt, cfg, is_se3, h)
-    route = _setup_exact if exact_knn else _setup_thr
+    shot = is_se3 and cfg.lrf_method != "toldi"
+    route = _setup_exact if exact_knn or shot else _setup_thr
     prod = route(src_c, n_src, tgt_c, n_tgt, cfg, is_se3,
                  eff_variant == "pt2pl", eff_variant == "gicp")
     state = pack_match_state(
@@ -493,11 +512,19 @@ class LoopState:
     switched: torch.Tensor        # [B] bool: in the R3 phase
     done: torch.Tensor            # [B] bool
     hist: torch.Tensor | None     # [B,H,4,4] per-iteration poses
+    # Anderson acceleration's window (``anderson_m`` >= 2): past iterates
+    # and fixed-point residuals in se(3) twist coordinates, the window's
+    # fill and the last residual norm
+    aa_X: torch.Tensor | None = None      # [B,m,6]
+    aa_F: torch.Tensor | None = None      # [B,m,6]
+    aa_n: torch.Tensor | None = None      # [B] int32
+    aa_fprev: torch.Tensor | None = None  # [B]
 
     def tensors(self) -> list:
         return [t for t in (self.T, self.it, self.pure_it, self.mse_prev,
                             self.mse_cur, self.switched, self.done,
-                            self.hist) if t is not None]
+                            self.hist, self.aa_X, self.aa_F, self.aa_n,
+                            self.aa_fprev) if t is not None]
 
 
 @dataclass
@@ -546,6 +573,12 @@ def init_loop(ms: MatchState, scaling: torch.Tensor,
         done=torch.zeros(bsz, dtype=torch.bool, device=dev),
         hist=(torch.zeros((bsz, hist_len, 4, 4), dtype=dtype, device=dev)
               if record_history else None))
+    if cfg.anderson_m:
+        m = cfg.anderson_m
+        state.aa_X = torch.zeros((bsz, m, 6), dtype=dtype, device=dev)
+        state.aa_F = torch.zeros_like(state.aa_X)
+        state.aa_n = torch.zeros_like(it)
+        state.aa_fprev = mse_cur.clone()
     consts = LoopConsts(
         cfg=cfg, h=h, max_iters=max_iters, hybrid=mode in ("se3", "se3_cf"),
         hist_len=hist_len, stop_thresh=stop_thresh,
@@ -578,6 +611,9 @@ def loop_step(s: LoopState, ms: MatchState, c: LoopConsts) -> LoopState:
 
     mse_rel = (mse_val - s.mse_cur).abs()
     T_new = T_i @ s.T
+    aa = None
+    if cfg.anderson_m:
+        T_new, aa = anderson_step(s, T_new, cfg.anderson_m)
     t_change = torch.linalg.norm((s.T - T_new).flatten(1), dim=1)
 
     # --- phase switch / stopping
@@ -600,13 +636,63 @@ def loop_step(s: LoopState, ms: MatchState, c: LoopConsts) -> LoopState:
         # their final T past their own num_iterations
         hist = hist.index_put(
             (c.ar, (it1 - 1).clamp(max=c.hist_len - 1).to(torch.int64)), T)
-    return LoopState(
+    out = LoopState(
         T=T, it=torch.where(active, it1, s.it),
         pure_it=torch.where(active & ~s.switched, s.pure_it + 1, s.pure_it),
         mse_prev=torch.where(active, s.mse_cur, s.mse_prev),
         mse_cur=torch.where(active, mse_val, s.mse_cur),
         switched=torch.where(active, new_switched, s.switched),
         done=s.done | new_done, hist=hist)
+    if aa is not None:
+        # the window restarts when the phase switches (a new fixed point)
+        aa["aa_n"] = torch.where(new_switched != s.switched,
+                                 torch.zeros_like(aa["aa_n"]), aa["aa_n"])
+        for name, new in aa.items():
+            old = getattr(s, name)
+            keep = active.view((-1,) + (1,) * (old.dim() - 1))
+            setattr(out, name, torch.where(keep, new, old))
+    return out
+
+
+def anderson_step(s: LoopState, T_new: torch.Tensor, m: int):
+    """Type-II Anderson acceleration of the fixed-point iteration
+    T -> G(T) in se(3) twist coordinates (AA-ICP, Pavlov et al. 2017; an
+    extension beyond the reference, the JAX package's loop body): a
+    Tikhonov-regularised least squares over the window's residual
+    differences.  The window restarts when the residual norm grows; the
+    step is taken only in the R3 phase (the SE(3) phase's map changes as
+    the frames re-weight).  Returns (T_new [B,4,4], the window's new
+    values by LoopState field, before the done mask)."""
+    dtype, dev = T_new.dtype, T_new.device
+    xi_k = se3.se3_log(s.T)                                   # [B,6]
+    g_k = se3.se3_log(T_new)
+    f_k = g_k - xi_k
+    fnorm = torch.linalg.norm(f_k, dim=-1)
+    grew = fnorm > s.aa_fprev
+    n_prev = torch.where(grew, torch.zeros_like(s.aa_n), s.aa_n)
+    Xb = torch.cat([s.aa_X[:, 1:], xi_k[:, None]], 1)         # [B,m,6]
+    Fb = torch.cat([s.aa_F[:, 1:], f_k[:, None]], 1)
+    dX = Xb[:, 1:] - Xb[:, :-1]                               # [B,m-1,6]
+    dF = Fb[:, 1:] - Fb[:, :-1]
+    # only the last n_prev differences belong to the window
+    ok_col = (torch.arange(m - 1, device=dev)[None]
+              >= (m - 1) - n_prev[:, None]).to(dtype)[..., None]
+    dFm = dF * ok_col
+    dXm = dX * ok_col
+    A = dFm @ dFm.mT                                          # [B,m-1,m-1]
+    trace = A.diagonal(dim1=-2, dim2=-1).sum(-1)
+    lam = 1e-10 * torch.clamp_min(trace, 1.0)
+    A = A + (lam + 1e-30)[:, None, None] * torch.eye(m - 1, dtype=dtype,
+                                                      device=dev)
+    # solve_ex: no check of the result on the host, so a capture holds it
+    gamma = torch.linalg.solve_ex(A, dFm @ f_k[..., None])[0]  # [B,m-1,1]
+    xi_aa = g_k - (gamma.mT @ (dXm + dFm))[:, 0]
+    use_aa = (s.switched & (n_prev >= 1) & ~grew
+              & torch.isfinite(xi_aa).all(-1))
+    T_new = torch.where(use_aa[:, None, None], se3.se3_exp(xi_aa), T_new)
+    return T_new, dict(aa_X=Xb, aa_F=Fb,
+                       aa_n=torch.clamp_max(n_prev + 1, m - 1),
+                       aa_fprev=fnorm)
 
 
 def run_loop(ms: MatchState, scaling: torch.Tensor,
@@ -656,10 +742,6 @@ def to_original(T, pre: Preprocess, is_se3: bool):
 def check_supported(cfg: RegistrationConfig) -> None:
     if cfg.anderson_m == 1:
         raise ValueError("anderson_m must be 0 (off) or >= 2 (window)")
-    if cfg.anderson_m:
-        raise NotImplementedError(
-            "anderson_m != 0: Anderson acceleration is a later slice of "
-            "the port (it needs se3_exp/se3_log)")
 
 
 def loop_route(device, mode: str, variant: str) -> str:
@@ -791,6 +873,31 @@ def sanitize_cloud(points) -> np.ndarray:
     return pts[mask]
 
 
+def warn_shot_truncation(src: np.ndarray, tgt: np.ndarray,
+                         cfg: RegistrationConfig) -> None:
+    """The capped SHOT route's host check: on the centred and scaled
+    clouds the engine will see, warn (``RuntimeWarning``) when a radius
+    neighbourhood holds more than ``shot_max_k`` points, which the
+    route truncates to the nearest ``shot_max_k``."""
+    import warnings
+    cen_s, cen_t = src.mean(0), tgt.mean(0)
+    r = max(np.linalg.norm(src - cen_s, axis=1).max(),
+            np.linalg.norm(tgt - cen_t, axis=1).max())
+    s = cfg.scale_preprocessing / max(r, 1e-30)
+    n_tr = (lrf.shot_truncated_count((src - cen_s) * s, cfg.lrf_radius,
+                                     cfg.shot_max_k)
+            + lrf.shot_truncated_count((tgt - cen_t) * s, cfg.lrf_radius,
+                                       cfg.shot_max_k))
+    if n_tr:
+        warnings.warn(
+            f"SHOT LRF: {n_tr} points have more than "
+            f"shot_max_k={cfg.shot_max_k} neighbors within "
+            f"lrf_radius={cfg.lrf_radius}; their neighborhoods are "
+            "truncated to the nearest max_k (diverges from the "
+            "reference's radius semantics). Raise cfg.shot_max_k "
+            "or lower cfg.lrf_radius.", RuntimeWarning)
+
+
 def register_pair(source_points, target_points,
                   algorithm: str = "se3_pt2pl",
                   cfg: RegistrationConfig | None = None,
@@ -808,6 +915,8 @@ def register_pair(source_points, target_points,
     cfg = cfg or RegistrationConfig()
     src = sanitize_cloud(source_points)
     tgt = sanitize_cloud(target_points)
+    if cfg.lrf_method == "shot" and mode != "icp" and not cfg.shot_exact:
+        warn_shot_truncation(src, tgt, cfg)
     ns, nt = len(src), len(tgt)
     src_p = np.zeros((1, _bucket(ns), 3), np.float64)
     src_p[0, :ns] = src

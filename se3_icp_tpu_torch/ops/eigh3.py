@@ -140,13 +140,110 @@ def _components(A):
             A[..., 1, 1], A[..., 1, 2], A[..., 2, 2])
 
 
+def _det3(M):
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2]
+                            - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2]
+                              - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1]
+                              - M[..., 1, 1] * M[..., 2, 0]))
+
+
+def eigvalsh3(A):
+    """Eigenvalues of symmetric [...,3,3], ascending (Cardano)."""
+    dtype = A.dtype
+    scale = A.abs().amax(dim=(-2, -1)).clamp_min(1e-30)
+    As = A / scale[..., None, None]
+    q = (As[..., 0, 0] + As[..., 1, 1] + As[..., 2, 2]) / 3.0
+    B = As - q[..., None, None] * torch.eye(3, dtype=dtype, device=A.device)
+    p = torch.sqrt(torch.clamp_min(torch.sum(B * B, dim=(-2, -1)) / 6.0,
+                                   0.0))
+    eps = 1e-7 if dtype == torch.float32 else 1e-12
+    small = p < eps
+    p_safe = torch.where(small, torch.ones_like(p), p)
+    r = torch.clamp(_det3(B / p_safe[..., None, None]) * 0.5, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    two_p = torch.where(small, torch.zeros_like(p), 2.0 * p)
+    e2 = q + two_p * torch.cos(phi)
+    e0 = q + two_p * torch.cos(phi + 2.0 * math.pi / 3.0)
+    e1 = 3.0 * q - e0 - e2
+    return torch.stack([e0, e1, e2], -1) * scale[..., None]
+
+
+def _null_vec(M, eps):
+    """Unit vector in the (approximate) null space of symmetric M: the
+    largest cross product of two rows, e1 when M ~ 0."""
+    r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+    c01 = torch.linalg.cross(r0, r1, dim=-1)
+    c02 = torch.linalg.cross(r0, r2, dim=-1)
+    c12 = torch.linalg.cross(r1, r2, dim=-1)
+    n01 = torch.sum(c01 * c01, -1)
+    n02 = torch.sum(c02 * c02, -1)
+    n12 = torch.sum(c12 * c12, -1)
+    v12 = torch.where((n02 >= n12)[..., None], c02, c12)  # ties: lower pair
+    nb12 = torch.maximum(n02, n12)
+    v = torch.where((n01 >= nb12)[..., None], c01, v12)
+    ok = torch.maximum(n01, nb12) > eps * eps
+    e1 = torch.zeros_like(v)
+    e1[..., 0] = 1.0
+    v = torch.where(ok[..., None], v, e1)
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True).clamp_min(eps)
+
+
+def _complement(w, eps):
+    """Orthonormal (U, V) spanning the plane perpendicular to unit w."""
+    abs_w = w.abs()
+    use_x = abs_w[..., 0] > abs_w[..., 2]
+    inv1 = 1.0 / torch.sqrt(w[..., 0] ** 2 + w[..., 1] ** 2).clamp_min(eps)
+    inv2 = 1.0 / torch.sqrt(w[..., 1] ** 2 + w[..., 2] ** 2).clamp_min(eps)
+    zero = torch.zeros_like(w[..., 0])
+    u_a = torch.stack([-w[..., 1] * inv1, w[..., 0] * inv1, zero], -1)
+    u_b = torch.stack([zero, -w[..., 2] * inv2, w[..., 1] * inv2], -1)
+    U = torch.where(use_x[..., None], u_a, u_b)
+    return U, torch.linalg.cross(w, U, dim=-1)
+
+
 def eigh3(A):
     """Symmetric [...,3,3] -> (eigvals [...,3] ascending, eigvecs
     [...,3,3] with the k-th COLUMN the k-th eigenvector), mirroring
-    Eigen's ``SelfAdjointEigenSolver`` layout."""
-    vals, vecs = eigh3_c(*_components(A))
-    cols = [torch.stack(v, -1) for v in vecs]
-    return torch.stack(vals, -1), torch.stack(cols, -1)
+    Eigen's ``SelfAdjointEigenSolver`` layout.  The JAX package's
+    ``eigh3``: the better-isolated extreme eigenvector from a null
+    space, the other from the 2x2 problem on its complement, so its
+    choices in degenerate cases (a rank-1 neighbourhood, equal
+    eigenvalues) are the JAX package's; ``eigh3_c`` is the
+    component-major scheme of the setup and the loop."""
+    dtype = A.dtype
+    eps = 1e-7 if dtype == torch.float32 else 1e-14
+    scale = A.abs().amax(dim=(-2, -1)).clamp_min(1e-30)
+    As = A / scale[..., None, None]
+    vals_s = eigvalsh3(As)
+    e0, e1, e2 = vals_s[..., 0], vals_s[..., 1], vals_s[..., 2]
+    eye = torch.eye(3, dtype=dtype, device=A.device)
+    first_is_low = (e1 - e0) >= (e2 - e1)
+    lam_first = torch.where(first_is_low, e0, e2)
+    w = _null_vec(As - lam_first[..., None, None] * eye, eps)
+    # the complement as a 2x2 symmetric problem
+    U, V = _complement(w, eps)
+    AU = (As @ U[..., None])[..., 0]
+    AV = (As @ V[..., None])[..., 0]
+    a = torch.sum(U * AU, -1)
+    b = torch.sum(U * AV, -1)
+    c = torch.sum(V * AV, -1)
+    lam_other = torch.where(first_is_low, e2, e0)
+    d1 = torch.stack([b, lam_other - a], -1)
+    d2 = torch.stack([lam_other - c, b], -1)
+    d = torch.where((torch.sum(d1 * d1, -1) >= torch.sum(d2 * d2, -1))
+                    [..., None], d1, d2)
+    nd = torch.linalg.norm(d, dim=-1, keepdim=True)
+    e1_2 = torch.zeros_like(d)
+    e1_2[..., 0] = 1.0
+    # degenerate 2x2 (equal remaining eigenvalues): any direction
+    d = torch.where(nd > eps, d / nd.clamp_min(eps), e1_2)
+    v_other = d[..., 0:1] * U + d[..., 1:2] * V
+    v_mid = torch.linalg.cross(w, v_other, dim=-1)
+    v0 = torch.where(first_is_low[..., None], w, v_other)
+    v2 = torch.where(first_is_low[..., None], v_other, w)
+    return vals_s * scale[..., None], torch.stack([v0, v_mid, v2], -1)
 
 
 def smallest_eigvec3_c(a00, a01, a02, a11, a12, a22):

@@ -7,6 +7,12 @@ natively batched, on two routes.
   * PCA normal estimation (Open3D ``EstimateNormals`` analog).
   * GICP covariance initialisation, including the reference's
     ``c < -0.99 -> identity`` quirk in GetRotationFromE1ToX.
+  * SHOT SE(3) frames (``computeSingleSHOTSE3Frame``, the reference's
+    dormant alternative LRF): a (radius - d)-weighted covariance over a
+    radius neighbourhood, axes signed by majority with a 5-sample
+    median-rank tie-break.  ``shot_frames_dense`` keeps the exact radius
+    semantics; ``shot_frames`` caps a neighbourhood at its ``max_k``
+    nearest (``shot_truncated_count`` counts the points it truncates).
 
 The EXACT route (``*_dense``) takes the sorted kNN: every neighbourhood
 reduction is a masked ``[B,C,N] x [B,N,*]`` matrix product, with rank
@@ -27,8 +33,6 @@ Intentional parity quirk: the TOLDI centroid sums neighbours ranked
 1..k//3-1 but divides by k//3, while the covariance uses ranks 1..k//3.
 Reproduced by default; ``exact_centroid=True`` divides by k//3-1 (exact
 route only).
-
-SHOT frames are a later slice of the port.
 """
 
 from __future__ import annotations
@@ -333,3 +337,154 @@ def gicp_covariances_thr_t(points, thr, k_use: int, epsilon: float,
     """GICP covariance init [B,6,N] from one threshold per query."""
     return gicp_cov6_from_normals_t(
         normals_thr_t(points, thr, k_use, n_valid, cloud=cloud), epsilon)
+
+
+# ---------------------------------------------------------------------
+# SHOT frames (the JAX package's ``shot_frames_dense``, ``shot_frames``,
+# ``shot_truncated_count``), batched over pairs.
+
+def _shot_axes(cov):
+    """(x+, z+) [.., 3]: the eigenvectors of the largest and smallest
+    eigenvalue of a [..,3,3] covariance."""
+    _, vecs = eigh3.eigh3(cov)
+    return vecs[..., 2], vecs[..., 0]
+
+
+def _shot_rot(x, z):
+    return torch.stack([x, torch.linalg.cross(z, x, dim=-1), z], dim=-1)
+
+
+def shot_frames_dense(points: torch.Tensor, radius: float,
+                      n_valid: torch.Tensor,
+                      tie_iters: int = 40) -> torch.Tensor:
+    """SHOT frames with EXACT radius semantics (no neighbour cap).
+
+    points [B,N,3]; n_valid [B].  Returns rot [B,N,3,3], columns x, y, z.
+    Query rows go in chunks (``_chunk_rows``: a [B,C,N] block within
+    ``_CHUNK_BYTES``, 256 rows on the CPU).  A chunk's
+    (radius - d)-weighted covariance is three masked products expanded
+    about the query point; the sign counts are masked indicator sums;
+    the median band (neighbour positions med-2..med+2 of the
+    self-exclusive ascending list) comes sort-free from bisecting the
+    neighbour count for its two bracketing order statistics,
+    ``tie_iters`` steps each, a count of 0 opening the band at -inf so
+    that d2 == 0 duplicates stay in.  Where the band clips at the list's
+    ends (m < 5) it holds fewer than 5 samples (the reference reads out
+    of bounds there); distance ties at its edges are all in."""
+    dtype, dev = points.dtype, points.device
+    bsz, n, _ = points.shape
+    r2 = radius * radius
+    col = torch.arange(n, device=dev)
+    colv = col[None, :] < n_valid[:, None]                   # [B,N]
+    P9 = (points[:, :, :, None] * points[:, :, None, :]).flatten(2)
+    out = []
+    chunk = _chunk_rows(bsz, n, points.element_size(), dev)
+    for s0 in range(0, n, chunk):
+        q = points[:, s0:s0 + chunk]                          # [B,C,3]
+        c = q.shape[1]
+        D2 = knn._pairwise_d2(q, points)                      # [B,C,N]
+        mask = ((D2 <= r2) & colv[:, None, :]
+                & (col[s0:s0 + c, None] != col[None, :]))     # skip self
+        d = torch.sqrt(D2.clamp_min(0.0))
+        w = torch.where(mask, radius - d, torch.zeros_like(d))
+        del d
+        S0 = w.sum(-1)
+        S1 = w @ points                                       # [B,C,3]
+        S2 = (w @ P9).reshape(bsz, c, 3, 3)
+        del w
+        cov = (S2 - S1[..., :, None] * q[..., None, :]
+               - q[..., :, None] * S1[..., None, :]
+               + S0[..., None, None] * q[..., :, None] * q[..., None, :])
+        cov = cov / S0.clamp_min(1e-30)[..., None, None]
+        x_plus, z_plus = _shot_axes(cov)
+        m = mask.sum(-1)                                      # [B,C]
+        # the median band's thresholds: the c-th smallest neighbour d2
+        # for c = med-2 (below the band) and med+3 (through it); outside
+        # the neighbourhood a distance counts as +inf, so the count is
+        # one comparison (the bisection stays within [0, r2])
+        med = m // 2
+        counts = torch.stack([torch.minimum(torch.clamp_min(med - 2, 0), m),
+                              torch.minimum(med + 3, m)])     # [2,B,C]
+        D2n = torch.where(mask, D2, torch.full_like(D2, float("inf")))
+        lo = torch.zeros((2, bsz, c), dtype=dtype, device=dev)
+        hi = torch.full((2, bsz, c), r2, dtype=dtype, device=dev)
+        for _ in range(tie_iters):
+            mid = 0.5 * (lo + hi)
+            cnt = torch.stack([(D2n <= mid[i, ..., None]).sum(-1)
+                               for i in range(2)])
+            below = cnt < counts
+            lo = torch.where(below, mid, lo)
+            hi = torch.where(below, hi, mid)
+        del D2n
+        thr = torch.where(counts == 0,
+                          torch.full_like(hi, float("-inf")), hi)
+        band = mask & (D2 > thr[0, ..., None]) & (D2 <= thr[1, ..., None])
+        del D2
+        # each axis flips when fewer than half of the neighbours lie on
+        # its positive side; on an exact half, when fewer than 3 of the
+        # median band's samples do
+        axes = []
+        for a in (x_plus, z_plus):
+            pos = (a @ points.mT - torch.sum(q * a, -1, keepdim=True)) >= 0
+            s2 = 2 * torch.sum(pos & mask, -1) - m
+            s_tie = torch.sum(pos & band, -1)
+            flip = torch.where(s2 == 0, s_tie < 3, s2 < 0)
+            axes.append(torch.where(flip[..., None], -a, a))
+        out.append(_shot_rot(*axes))
+    return torch.cat(out, dim=1)
+
+
+def shot_frames(points: torch.Tensor, radius: float, n_valid: torch.Tensor,
+                max_k: int = 128) -> torch.Tensor:
+    """SHOT frames over a radius neighbourhood capped at its ``max_k``
+    nearest points (self included at rank 0): a neighbourhood denser than
+    the cap is truncated to its nearest, unlike the reference's radius
+    search (``shot_truncated_count`` counts such points).  points
+    [B,N,3], n_valid [B] -> rot [B,N,3,3]."""
+    idx, d2 = knn.knn_self(points, max_k, n_valid)            # [B,N,K]
+    nb = _gather_rows(points, idx)                            # [B,N,K,3]
+    d = torch.sqrt(d2.clamp_min(0.0))
+    rank = torch.arange(max_k, device=points.device)
+    in_r = (d2 <= radius * radius) & (rank >= 1)              # skip self
+    w = torch.where(in_r, radius - d, torch.zeros_like(d))
+    diffs = nb - points[:, :, None, :]                        # [B,N,K,3]
+    cov = torch.einsum("bnk,bnki,bnkj->bnij", w, diffs, diffs)
+    cov = cov / w.sum(-1).clamp_min(1e-30)[..., None, None]
+    x_plus, z_plus = _shot_axes(cov)
+    m = in_r.sum(-1)
+    # the median band: neighbour positions med-2..med+2 of the
+    # self-exclusive ascending list are ranks med-1..med+3 here
+    med = m // 2
+    offs = torch.arange(-2, 3, device=points.device)
+    tie_rank = torch.clamp(med[..., None] + 1 - offs, 1, max_k - 1)
+    axes = []
+    for a in (x_plus, z_plus):
+        dots = (diffs * a[..., None, :]).sum(-1)              # [B,N,K]
+        pos = dots >= 0
+        s2 = 2 * torch.sum(pos & in_r, -1) - m
+        # a clipped band repeats a rank: count each of the 5 samples
+        s_tie = torch.sum(torch.gather(pos, -1, tie_rank), -1)
+        flip = torch.where(s2 == 0, s_tie < 3, s2 < 0)
+        axes.append(torch.where(flip[..., None], -a, a))
+    return _shot_rot(*axes)
+
+
+def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points [B,N,3], idx [B,N,K] -> [B,N,K,3]."""
+    bsz, n, k = idx.shape
+    flat = torch.gather(points, 1, idx.reshape(bsz, n * k, 1).expand(
+        -1, -1, 3).to(torch.int64))
+    return flat.reshape(bsz, n, k, 3)
+
+
+def shot_truncated_count(points, radius: float, max_k: int) -> int:
+    """Host check of the capped SHOT route: the number of points whose
+    radius neighbourhood (self included) holds more than ``max_k``
+    points, whose frames ``shot_frames`` builds from a truncated
+    neighbourhood.  points [N,3] (numpy)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+    pts = np.asarray(points)
+    counts = cKDTree(pts).query_ball_point(
+        pts, r=float(radius), return_length=True)
+    return int((counts > max_k).sum())

@@ -3,9 +3,11 @@
 The pieces the estimators, the iteration loop and the metrics use:
 roll/pitch/yaw rotations, skew matrices, Open3D's Euler-ZYX retraction
 ``TransformVector6dToMatrix4d`` (used by every Gauss-Newton estimator),
-the rotation vector of a rotation (``so3_log_vee``), and homogeneous
-transform assembly/application/inversion.  The twist
-maps (``se3_exp``/``se3_log``) arrive with Anderson acceleration.
+the rotation vector of a rotation (``so3_log_vee``), homogeneous
+transform assembly/application/inversion, and the exponential and log
+maps (``so3_exp``, ``se3_exp``, ``se3_log``) that Anderson acceleration
+steps in.  The maps take their small-angle branches by ``torch.where``,
+never by a Python branch on a value, so a graph capture holds them.
 """
 
 from __future__ import annotations
@@ -116,3 +118,53 @@ def T_inverse(T: torch.Tensor) -> torch.Tensor:
     """Rigid inverse of [...,4,4]."""
     Rt = T[..., :3, :3].mT
     return rt_to_T(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues: [...,3] axis-angle -> [...,3,3] rotation (first order
+    below theta = 1e-8)."""
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)[..., None]
+    small = theta < 1e-8
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    K = skew(w / safe[..., 0])
+    s, c = torch.sin(safe), torch.cos(safe)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    R = eye + s * K + (1.0 - c) * (K @ K)
+    return torch.where(small, eye + skew(w), R)
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """[...,6] twist (w, v) -> [...,4,4] rigid transform: t = V(w) v with
+    the left Jacobian V, V -> I + skew(w)/2 below theta = 1e-6."""
+    w, v = xi[..., :3], xi[..., 3:]
+    R = so3_exp(w)
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)[..., None]
+    small = theta < 1e-6
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    K = skew(w / safe[..., 0])
+    A = (1.0 - torch.cos(safe)) / (safe * safe) * safe   # (1-cos)/theta
+    B = (safe - torch.sin(safe)) / (safe * safe)         # (th-sin)/th^2
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    V = eye + A * K + B * safe * (K @ K)
+    V = torch.where(small, eye + 0.5 * skew(w), V)
+    return rt_to_T(R, (V @ v[..., None])[..., 0])
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """[...,4,4] rigid transform -> [...,6] twist (w, v), the inverse of
+    ``se3_exp``: v = V(w)^-1 t."""
+    w = so3_log_vee(T[..., :3, :3])
+    t = T[..., :3, 3]
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)[..., None]
+    small = theta < 1e-6
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    K = skew(w / safe[..., 0])
+    half = 0.5 * safe
+    # V^-1 = I - th/2 K + (1 - th/2 cot(th/2)) K^2
+    cot = torch.cos(half) / torch.sin(
+        torch.where(small, torch.ones_like(half), half))
+    coef = 1.0 - half * cot
+    eye = torch.eye(3, dtype=T.dtype, device=T.device)
+    Vinv = eye - half * K + coef * (K @ K)
+    Vinv = torch.where(small, eye - 0.5 * skew(w), Vinv)
+    return torch.cat([w, (Vinv @ t[..., None])[..., 0]], dim=-1)

@@ -11,7 +11,9 @@ counted on the card once a step that ran, and the pt2pt variants run the
 eager route; configs that differ in a traced float share one
 program and each gets its own eager bits; a second dispatched batch
 leaves the first one's results alone; a failing capture raises and
-nothing runs eagerly in its place.
+nothing runs eagerly in its place; SHOT frames (exact and capped) and
+Anderson acceleration (``anderson_m`` 3 and 5) give the eager loop's
+bits on the captured program with no host sync.
 """
 
 import numpy as np
@@ -163,3 +165,29 @@ def test_a_failing_capture_raises_and_runs_nothing_eagerly(card,
     got = reg.register_arrays(src, n_src, tgt, n_tgt, cfg, "se3", "pt2pl")
     assert _same(got, reg.register_arrays_eager(src, n_src, tgt, n_tgt, cfg,
                                                 "se3", "pt2pl"))
+
+
+# SHOT frames (both routes: their setup takes the exact route) and
+# Anderson acceleration (its window is loop state, its solve has no host
+# check) on the captured program
+OPTIONS = [
+    ("shot_exact", GOLDEN.replace(lrf_method="shot"), {}),
+    ("shot_capped", GOLDEN.replace(lrf_method="shot", shot_exact=False), {}),
+    ("anderson_3", GOLDEN.replace(anderson_m=3), fixtures.NOISY),
+    ("anderson_5", GOLDEN.replace(anderson_m=5, mse=1e-7), fixtures.NOISY),
+]
+
+
+@pytest.mark.parametrize("name,cfg,kw", OPTIONS, ids=[o[0] for o in OPTIONS])
+def test_shot_and_anderson_on_the_captured_program(card, name, cfg, kw):
+    _, (src, n_src, tgt, n_tgt) = _batch(card, **kw)
+    assert reg.loop_route(card, "se3", "pt2pl") == "graph"
+    captures = program.info()["captures"]
+    st, se = {}, {}
+    got = reg.register_arrays(src, n_src, tgt, n_tgt, cfg, "se3", "pt2pl",
+                              stats=st)
+    ref = reg.register_arrays_eager(src, n_src, tgt, n_tgt, cfg, "se3",
+                                    "pt2pl", stats=se)
+    assert program.info()["captures"] == captures + 1
+    assert _same(got, ref)
+    assert st["host_syncs"] == 0 and st["loop_steps"] == se["loop_steps"]

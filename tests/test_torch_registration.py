@@ -112,9 +112,7 @@ def test_entry_points_default_to_the_card_and_raise_without_it():
 
 
 @pytest.mark.parametrize("ckw,exc", [
-    ({"anderson_m": 3}, NotImplementedError),
     ({"anderson_m": 1}, ValueError),
-    ({"lrf_method": "shot"}, NotImplementedError),
 ])
 def test_later_slices_raise_by_name(ckw, exc):
     p = fixtures.golden_shape_problem(seed=1, n=200)
