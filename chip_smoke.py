@@ -69,7 +69,19 @@ two-alpha sweep); ``bench-extreme-noise`` (11 levels of 30 runs, level
 0.0 gated run by run); ``bench-scaling --per-device 64``.  Then SHOT
 frames (64 x 4608 exact, 8 pairs capped) and Anderson acceleration
 (``anderson_m`` 0, 3, 5 at 64 x 4608) on the captured program, each
-held bit for bit against the eager loop with no host sync.  Every phase
+held bit for bit against the eager loop with no host sync.  A
+``scaleout`` phase runs the pairs mesh over meshes that name the one
+card 2 and 4 times (64 pairs, and 62 padded over 4: every pair the
+unsharded call's bits; the setup checksum sharded against unsharded,
+bitwise; ``bench-scaling``'s ladder, run by the bunny phase over the
+cards present, is quoted), K1-K4's
+row-slice instances at R = 2, 4 on 64 x 4608 and one KITTI road pair
+(1 x 15872; concatenated the whole call's bits, each slice held against
+its plain version), and on a world-1 NCCL group the points route (the
+golden pair, the road pair), the 2-D layout (1 x 1, 32 road pairs) and
+``register_pairs_multihost`` (64 pairs), each against the eager loop's
+or ``register_pairs``' bits, with ms a call and launches beside
+``register_arrays``'.  Every phase
 prints one JSON line; any failed phase raises, so the exit code is
 non-zero and the final ``{"ok": true, ...}`` line is not printed.
 Without a CUDA device it exits with code 2 and prints no result.
@@ -2786,6 +2798,9 @@ def extreme_noise_runs(tmp, total):
          config="EXTREME_NOISE", runs=en.RUNS, levels=levels, **line)
 
 
+SCALING = {}     # bench-scaling's ladder, for the scaleout line
+
+
 def scaling_run(total):
     """``bench-scaling --per-device 64`` through the CLI: 64 golden-like
     pairs a repetition, one batch in flight, fresh arrays each."""
@@ -2796,8 +2811,15 @@ def scaling_run(total):
     rep = json.loads(printed.strip().splitlines()[-1])
     check_registration_launches("bench-scaling", launches)
     sum_launches(total, launches)
-    check(rep["device_counts"] == [1] and rep["pairs_per_s"][0] > 0
-          and rep["platform"] == "gpu", f"bench-scaling: {rep}")
+    from se3_icp_tpu_torch.bench import scaling_bench
+    present = torch.cuda.device_count()
+    check(rep["device_counts"] == scaling_bench.device_ladder(present)
+          and rep["devices_present"] == present
+          and rep["pairs_per_s"][0] > 0 and rep["platform"] == "gpu",
+          f"bench-scaling: {rep}")
+    SCALING.update(device_counts=rep["device_counts"],
+                   devices_present=present,
+                   pairs_per_s=rep["pairs_per_s"])
     emit("protocol", protocol="scaling", **rep, **line)
 
 
@@ -2957,6 +2979,383 @@ def bunny_phase():
     return out
 
 
+# --------------------------------------------------------------------
+# Scale-out: the pairs mesh, the points route over a process group, the
+# 2-D layout and the multi-process route, on the one card.
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def slice_bounds(n, n_slices):
+    return [(i * n // n_slices, (i + 1) * n // n_slices)
+            for i in range(n_slices)]
+
+
+def setup_slice_cases(tag, points, nv, counts, n_slices):
+    """K1-K3's row-slice instances on ``n_slices`` slices of a cloud
+    batch (the points route's rows): concatenated, the whole call's bits;
+    each slice K1's plain bits, K2's plain counts and sums within
+    K2_REL_TOL, K3 within K3_REL_TOL.  Returns the cases of the first
+    slice (its time, its plain version's, its bound)."""
+    from se3_icp_tpu_torch.ops import cuda_moments as cm, lrf
+    cloud = cm.setup_cloud(points, nv)
+    bsz, n, _ = points.shape
+    cc = torch.tensor(counts, dtype=torch.int32,
+                      device=points.device).expand(bsz, -1)
+    thr = cm.neighborhood_thresholds_batched(points, nv, cc, cloud=cloud)
+    mom = cm.moments_batched(points, nv, thr[:, 2], thr[:, 1], thr[:, 0],
+                             cloud=cloud)
+    normal_t, ndotq, radius = lrf.toldi_axis_inputs(mom, thr[:, 0],
+                                                    counts[2])
+    ax = cm.axis_sums_batched(points, nv, normal_t, ndotq, radius,
+                              thr[:, 0], cloud=cloud)
+    parts, first = [], None
+    for rows in slice_bounds(n, n_slices):
+        sl = slice(*rows)
+        k1 = lambda: cm.neighborhood_thresholds_batched(
+            points, nv, cc, cloud=cloud, rows=rows)
+        t = k1()
+        t_p = cm.neighborhood_thresholds_plain(points, nv, cc, cloud=cloud,
+                                               rows=rows)
+        check(torch.equal(t, t_p), f"{tag}: K1 slice {rows} differs from "
+              "its plain version's bits")
+        thr3 = (t[:, 2], t[:, 1], t[:, 0])
+        k2 = lambda: cm.moments_batched(points, nv, *thr3, cloud=cloud,
+                                        rows=rows)
+        m = k2()
+        m_p = cm.moments_plain(points, nv, *thr3, cloud=cloud, rows=rows)
+        nv_rows = (nv - rows[0]).clamp(0, rows[1] - rows[0])
+        for key in ("cen_cnt", "cov_cnt", "all_cnt"):
+            check(torch.equal(m[key], m_p[key]),
+                  f"{tag}: K2 slice {rows} {key} differs from plain")
+        rel2 = max(row_rel_err(m[k], m_p[k], nv_rows)
+                   for k in ("cen_sum", "cen_p9", "cov_sum", "cov_p9",
+                             "all_sum"))
+        check(rel2 <= K2_REL_TOL, f"{tag}: K2 slice {rows} sums differ by "
+              f"{rel2:.2e}")
+        ax_args = (normal_t[..., sl], ndotq[..., sl], radius[..., sl],
+                   t[:, 0])
+        k3 = lambda: cm.axis_sums_batched(points, nv, *ax_args, cloud=cloud,
+                                          rows=rows)
+        a = k3()
+        a_p = cm.axis_sums_plain(points, nv, *ax_args, cloud=cloud,
+                                 rows=rows)
+        rel3 = max(row_rel_err(a[0], a_p[0], nv_rows),
+                   row_rel_err(a[1], a_p[1], nv_rows))
+        check(rel3 <= K3_REL_TOL, f"{tag}: K3 slice {rows} sums differ by "
+              f"{rel3:.2e}")
+        parts.append((t, m, a))
+        if first is None:
+            nq = rows[1] - rows[0]
+            vq = nv_rows.double()
+            nvd = nv.double()
+            members = [float(((m[k] + 1.0)
+                              * (torch.arange(nq, device=nv.device)[None]
+                                 < nv_rows[:, None])).sum())
+                       for k in ("cen_cnt", "cov_cnt", "all_cnt")]
+            pairs_ops = 8 * float((vq * nvd).sum())
+            shape = dict(B=bsz, N=n, rows=list(rows), slices=n_slices)
+            first = [
+                dict(name=f"neighborhood_thresholds_batched[{tag}, slice "
+                     f"1 of {n_slices}]", max_abs_err=0.0, bit_equal=True,
+                     concat_bits_equal_whole=True, ms=time_ms(k1, reps=5),
+                     plain_ms=time_ms(lambda: cm.neighborhood_thresholds_plain(
+                         points, nv, cc, cloud=cloud, rows=rows), reps=2),
+                     **bound(pairs_ops + 2 * cm.CAND * sum(cm.plan(3))
+                             * float(vq.sum()),
+                             4 * bsz * (4 * n + 3 * nq),
+                             op_rate=PEAK_F32_OPS_NO_FMA),
+                     library_ms=None, shape=shape),
+                dict(name=f"moments_batched[{tag}, slice 1 of {n_slices}]",
+                     max_abs_err=rel2, counts_equal=True,
+                     concat_bits_equal_whole=True, ms=time_ms(k2, reps=5),
+                     plain_ms=time_ms(lambda: cm.moments_plain(
+                         points, nv, *thr3, cloud=cloud, rows=rows), reps=2),
+                     **bound(pairs_ops + 9 * max(members) + 10 * sum(members),
+                             4 * bsz * (4 * n + nq * (1 + 3 + 30)),
+                             op_rate=PEAK_F32_OPS_NO_FMA),
+                     library_ms=None, shape=shape),
+                dict(name=f"axis_sums_batched[{tag}, slice 1 of {n_slices}]",
+                     max_abs_err=rel3, concat_bits_equal_whole=True,
+                     ms=time_ms(k3, reps=5),
+                     plain_ms=time_ms(lambda: cm.axis_sums_plain(
+                         points, nv, *ax_args, cloud=cloud, rows=rows),
+                         reps=2),
+                     **bound(pairs_ops + 20 * members[2],
+                             4 * bsz * (4 * n + nq * (1 + 6 + 4)),
+                             op_rate=PEAK_F32_OPS_NO_FMA),
+                     library_ms=None, shape=shape)]
+    check(torch.equal(torch.cat([x[0] for x in parts], -1), thr),
+          f"{tag}: K1 slices concatenated differ from the whole call")
+    for key in mom:
+        check(torch.equal(torch.cat([x[1][key] for x in parts], -1),
+                          mom[key]),
+              f"{tag}: K2 slices concatenated differ ({key})")
+    for j in (0, 1):
+        check(torch.equal(torch.cat([x[2][j] for x in parts], -1), ax[j]),
+              f"{tag}: K3 slices concatenated differ from the whole call")
+    return first
+
+
+def match_slice_case(tag, ms, W, phase, n_slices):
+    """K4 on ``n_slices`` row slices of ``feat16`` (the points route's):
+    concatenated, the whole call's bits; the first slice against its
+    plain version (``k4_case``)."""
+    from se3_icp_tpu_torch.ops import cuda_knn
+    d2, mt = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets, phase)
+    d2s, mts, first = [], [], None
+    for rows in slice_bounds(ms.feat16.shape[1], n_slices):
+        part = copy.copy(ms)
+        part.feat16 = ms.feat16[:, rows[0]:rows[1]].contiguous()
+        a, b = cuda_knn.nn_match_affine(part.feat16, W, ms.targets, phase)
+        d2s.append(a)
+        mts.append(b)
+        if first is None:
+            first = k4_case(f"nn_match_affine[{tag}, slice 1 of "
+                            f"{n_slices}]", part, W, phase)
+            first["concat_bits_equal_whole"] = True
+    live = phase[:, 1] == 0
+    check(torch.equal(torch.cat(d2s, 1)[live], d2[live])
+          and torch.equal(torch.cat(mts, 2)[live], mt[live]),
+          f"{tag}: K4 slices concatenated differ from the whole call")
+    return first
+
+
+def slice_phase_cases():
+    """K1-K4's slice instances at R = 2, 4 on the main path's 64 x 4608
+    sources and on one KITTI road pair (1 x 15872)."""
+    from se3_icp_tpu_torch.utils.config import GOLDEN, KITTI_SE3
+    out = {k: [] for k in ("k1", "k2", "k3", "k4")}
+    dev = torch.device("cuda")
+    road = kitti_road_pairs(1)
+    for tag, problems, cfg in (("64 x 4608", golden_pairs(N_PAIRS), GOLDEN),
+                               ("kitti road, 1 x 15872", road, KITTI_SE3)):
+        (src, n_src), _ = setup_clouds(problems, cfg)
+        ms, _ = match_state(problems, cfg, "se3_pt2pl")
+        bsz = len(problems)
+        false_b = torch.zeros(bsz, dtype=torch.bool, device=dev)
+        W, phase, _ = loop_inputs(ms, cfg, false_b, false_b,
+                                  torch.eye(4, device=dev).repeat(bsz, 1, 1))
+        for n_slices in (2, 4):
+            for key, case in zip(("k1", "k2", "k3"), setup_slice_cases(
+                    tag, src, n_src, (90, 31, 30), n_slices)):
+                out[key].append(case)
+            out["k4"].append(match_slice_case(tag, ms, W, phase, n_slices))
+        del ms, src
+        torch.cuda.empty_cache()
+    return out
+
+
+_ROAD = {}
+
+
+def kitti_road_pairs(n_pairs):
+    """The first ``n_pairs`` pairs of the resampled KITTI road
+    (``KITTI_FIXTURE``), as problems with their GT transforms; the
+    fixture is written once."""
+    from se3_icp_tpu_torch.bench import kitti_bench
+    from se3_icp_tpu_torch.datasets import fixtures
+    if "probs" not in _ROAD:
+        with tempfile.TemporaryDirectory() as tmp:
+            fixtures.make_kitti_fixture(tmp, **KITTI_FIXTURE)
+            clouds, poses = kitti_bench.load_kitti(
+                tmp, max_index=KITTI_FIXTURE["max_index"])
+        _ROAD["probs"] = [types.SimpleNamespace(
+            source=clouds[i + 1], target=clouds[i],
+            T_gt=np.linalg.inv(poses[i]) @ poses[i + 1])
+            for i in range(len(clouds) - 1)]
+    return _ROAD["probs"][:n_pairs]
+
+
+def pairs_mesh_runs(total):
+    """The main path over meshes of the one card named 2 and 4 times,
+    and 62 pairs over 4 (padded to 64): every pair's bits equal the
+    unsharded call's; the setup checksum sharded equals unsharded."""
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    problems = golden_pairs(N_PAIRS)
+    pl = [(p.source, p.target) for p in problems]
+    out = []
+    for n_pairs in (N_PAIRS, 62):
+        ref = pairs.register_pairs(pl[:n_pairs], "se3_pt2pl", GOLDEN,
+                                   mesh=False)
+        gate(problems[:n_pairs], ref, f"pairs mesh reference ({n_pairs})")
+        for n_dev in ((2, 4) if n_pairs == N_PAIRS else (4,)):
+            mesh = pairs.default_mesh(["cuda:0"] * n_dev)
+            call = lambda st=None: pairs.register_pairs(
+                pl[:n_pairs], "se3_pt2pl", GOLDEN, mesh=mesh, stats=st)
+            call()                                   # captures the shards
+            zero_launches()
+            stats = {}
+            t0 = time.perf_counter()
+            got = call(stats)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            check(same_results(got, ref), f"pairs mesh x{n_dev}, {n_pairs} "
+                  "pairs: other bits than the unsharded call")
+            check_launches(f"pairs mesh x{n_dev}", launches,
+                           stats["loop_steps"],
+                           (2 * n_dev, 2 * n_dev, 2 * n_dev))
+            sum_launches(total, launches)
+            out.append(dict(pairs=n_pairs, mesh=n_dev, same_bits=True,
+                            seconds=wall, loop_steps=stats["loop_steps"],
+                            launches=launches))
+    # not a hold: 8 pairs whole against shards of 4, 2 and 1 (a pair's
+    # last bits can follow its batch's size on the card below 16 pairs)
+    small = {}
+    ref = pairs.register_pairs(pl[:8], "se3_pt2pl", GOLDEN, mesh=False)
+    for n_dev in (2, 4, 8):
+        got = pairs.register_pairs(pl[:8], "se3_pt2pl", GOLDEN,
+                                   mesh=pairs.default_mesh(["cuda:0"] * n_dev))
+        small[f"8 pairs in shards of {8 // n_dev}"] = dict(
+            pairs_with_other_bits=[i for i, (a, b) in enumerate(zip(got, ref))
+                                   if not same_results([a], [b])],
+            iterations_moved=sum(abs(a.num_iterations - b.num_iterations)
+                                 for a, b in zip(got, ref)))
+    batch = [torch.as_tensor(a, device="cuda")
+             for a in pairs.pack_pairs(pl)]
+    whole = pairs.setup_checksum_batch(*batch, GOLDEN, "se3_pt2pl")
+    for n_dev in (2, 4):
+        got = pairs.setup_checksum_batch(
+            *batch, GOLDEN, "se3_pt2pl",
+            mesh=pairs.default_mesh(["cuda:0"] * n_dev))
+        check(torch.equal(got, whole), f"setup checksum over x{n_dev} "
+              "differs from the unsharded one")
+    check(bool(torch.isfinite(whole).all()), "setup checksum not finite")
+    return out, dict(checksum_bits_equal=True,
+                     checksum_pair0=float(whole[0]), small_shards=small)
+
+
+def points_run(tag, src, n_src, tgt, n_tgt, cfg, algorithm, total,
+               setup_launches, problems):
+    """The points route on the world-1 NCCL group against the eager
+    loop on the same tensors (bits; every pair within 2 deg / 0.25), and
+    against ``register_arrays`` (the captured program) for time; ms a
+    call and launches."""
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.parallel import points
+    from se3_icp_tpu_torch.utils.config import parse_algorithm
+    mode, variant = parse_algorithm(algorithm)
+    args = (src, n_src, tgt, n_tgt, cfg)
+    ref = reg.register_arrays_eager(*args, mode, variant)
+    got = points.register_arrays_points_sharded(*args, algorithm)
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+          f"points route ({tag}): other bits than the eager loop")
+    T = got[0].double().cpu().numpy()
+    check(np.isfinite(T).all(), f"points route ({tag}): not finite")
+    gate(problems, [types.SimpleNamespace(transformation=Ti) for Ti in T],
+         f"points route ({tag})")
+    graph = lambda: reg.register_arrays(*args, mode, variant)
+    graph()
+    zero_launches()
+    stats = {}
+    points.register_arrays_points_sharded(*args, algorithm, stats=stats)
+    launches = read_launches()
+    check_launches(f"points route ({tag})", launches, stats["loop_steps"],
+                   setup_launches)
+    sum_launches(total, launches)
+    sharded = lambda: points.register_arrays_points_sharded(*args,
+                                                            algorithm)
+    return dict(case=tag, algorithm=algorithm, shape=list(src.shape),
+                same_bits_as_eager=True, iterations=got[1].tolist()[:4],
+                loop_steps=stats["loop_steps"], launches=launches,
+                ms_points_route=time_ms(sharded, reps=3),
+                ms_eager_loop=time_ms(
+                    lambda: reg.register_arrays_eager(*args, mode, variant),
+                    reps=3),
+                ms_register_arrays=time_ms(graph, reps=3))
+
+
+def scaleout_phase():
+    """Scale-out on one card: the pairs mesh (the card named 2 and 4
+    times), the setup checksum, K1-K4's slice instances against the
+    whole call and their plain versions, the points route, the 2-D layout and the multi-process
+    route on a world-1 NCCL group, each against the eager loop or the
+    one-process call.  Returns (launches, kernel cases)."""
+    import torch.distributed as dist
+    from se3_icp_tpu_torch.parallel import multihost, pairs, points
+    from se3_icp_tpu_torch.utils.config import GOLDEN, KITTI_SE3, \
+        KITTI_VANILLA
+    t_start = time.perf_counter()
+    total = {}
+    mesh_runs, checksum = pairs_mesh_runs(total)
+    cases = slice_phase_cases()
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    try:
+        check(dist.get_backend() == "nccl", "the world group is not NCCL")
+        from se3_icp_tpu_torch.models import registration as reg
+        # one step's collective alone: the matched rows of one 4608-point
+        # pair (P = 9) gathered, against a copy of them
+        rows = torch.rand((1, 9, 4608), device="cuda")
+        gather = dict(shape=[1, 9, 4608], ms_all_gather=time_ms(
+            lambda: reg.gather_rows(rows, dist.group.WORLD, 2), reps=20),
+            ms_clone=time_ms(lambda: rows.clone(), reps=20))
+        runs = []
+        golden = golden_pairs(1)
+        road = kitti_road_pairs(32)
+        # the KITTI pair from the identity: the online protocol's first
+        # pair, under its configuration
+        for tag, probs, cfg, alg, setup in (
+                ("golden pair", golden, GOLDEN, "se3_pt2pl", (2, 2, 2)),
+                ("kitti road pair", road[:1], KITTI_VANILLA, "pt2pl",
+                 ALGORITHM_SETUP_LAUNCHES["pt2pl"])):
+            batch = [torch.as_tensor(a, device="cuda") for a in
+                     pairs.pack_pairs([(p.source, p.target) for p in probs])]
+            runs.append(points_run(tag, *batch, cfg, alg, total, setup,
+                                   probs))
+        # the 2-D layout on 1 x 1 ranks, 32 road pairs, the batched
+        # KITTI protocol's configuration
+        pairs_group, points_group = points.mesh_2d(1, 1)
+        batch = [torch.as_tensor(a, device="cuda") for a in
+                 pairs.pack_pairs([(p.source, p.target) for p in road])]
+        ref = reg.register_arrays_eager(*batch, KITTI_SE3, "se3", "pt2pl")
+        stats = {}
+        zero_launches()
+        got = points.register_batch_2d(*batch, KITTI_SE3, "se3_pt2pl",
+                                       pairs_group, points_group,
+                                       stats=stats)
+        launches = read_launches()
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              "register_batch_2d (1 x 1): other bits than the eager loop")
+        check_launches("register_batch_2d", launches, stats["loop_steps"],
+                       (2, 2, 2))
+        sum_launches(total, launches)
+        gate(road, [types.SimpleNamespace(transformation=T)
+                    for T in got[0].double().cpu().numpy()],
+             "register_batch_2d on the road")
+        grid = dict(layout="1 x 1", pairs=len(road),
+                    shape=list(batch[0].shape), same_bits_as_eager=True,
+                    loop_steps=stats["loop_steps"], launches=launches)
+        # the multi-process route, one process
+        pl = [(p.source, p.target) for p in golden_pairs(N_PAIRS)]
+        want = pairs.register_pairs(pl, "se3_pt2pl", GOLDEN, mesh=False)
+        zero_launches()
+        got = multihost.register_pairs_multihost(pl, "se3_pt2pl", GOLDEN)
+        sum_launches(total, read_launches())
+        check(same_results(got, want),
+              "register_pairs_multihost (world 1): other bits than "
+              "register_pairs")
+    finally:
+        dist.destroy_process_group()
+    emit("scaleout", seconds=time.perf_counter() - t_start,
+         pairs_mesh=mesh_runs, **checksum,
+         scaling=dict(SCALING, run="bench-scaling of the bunny phase"),
+         slice_instances={k: [dict(name=c["name"], ms=c["ms"],
+                                   plain_ms=c["plain_ms"],
+                                   bound_ms=c["bound_ms"])
+                              for c in v] for k, v in cases.items()},
+         points_route=runs, world1_gather=gather, batch_2d=grid,
+         multihost=dict(world=1, pairs=len(pl), same_bits=True),
+         launches=total,
+         note="collectives across several ranks are verified on the CPU "
+              "over gloo; on cards, one card: world 1")
+    return total, cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2987,9 +3386,11 @@ def smoke() -> int:
     cli_slice3_phase()
     proto_launches, proto_cases = protocols_phase()
     bunny_launches = bunny_phase()
+    scaleout_launches, slice_cases = scaleout_phase()
     for cases, key in ((k1_cases, "k1"), (k2_cases, "k2"), (k3_cases, "k3"),
                        (k4_cases, "k4"), (k5_cases, "k5")):
         cases.extend(proto_cases[key])
+        cases.extend(slice_cases.get(key, []))
     k6_cases, k7_cases, k8_cases, k9_cases = nn_kernels_phase(feats)
     del feats
 
@@ -2997,7 +3398,8 @@ def smoke() -> int:
         """``counts``: {path: launch counts} of the paths that run this
         kernel (default: the main path and the bench protocols)."""
         counts = counts or {"main_path": launches,
-                            "protocols": proto_launches, **bunny_launches}
+                            "protocols": proto_launches, **bunny_launches,
+                            "scaleout": scaleout_launches}
         head = dict(cases[0])
         head.update(route="cuda", source=source, replaces=replaces,
                     launches=sum(c[key] for c in counts.values()),

@@ -29,7 +29,8 @@ def __getattr__(name):
         from se3_icp_tpu_torch.models import registration
         return getattr(registration, name)
     if name in ("register_pairs", "register_pairs_async", "PendingBatch",
-                "register_batch", "pack_pairs", "pack_clouds"):
+                "register_batch", "pack_pairs", "pack_clouds",
+                "default_mesh"):
         from se3_icp_tpu_torch.parallel import pairs
         return getattr(pairs, name)
     if name in ("register_pair_multistart", "register_pairs_multistart"):
@@ -49,7 +50,7 @@ __all__ = [
     "RegistrationResult", "register_pair", "register_arrays",
     "sanitize_cloud",
     "register_pairs", "register_pairs_async", "PendingBatch",
-    "register_batch", "pack_pairs", "pack_clouds",
+    "register_batch", "pack_pairs", "pack_clouds", "default_mesh",
     "register_pair_multistart", "register_pairs_multistart",
     "fgr_register",
     "read_ply", "write_ply",

@@ -8,8 +8,9 @@ serial protocols it gives:
   * per-pair results checkpointed to a JSONL file, so a long sequence
     run resumes where it stopped.
 
-The batches run on one device: sharding them over several GPUs is a
-later slice of the port.
+The batches run on one device, or sharded over a pairs mesh
+(``run_pairs(mesh=...)``; by default every card when there is more than
+one).
 """
 
 from __future__ import annotations
@@ -93,20 +94,27 @@ class Checkpoint:
 def run_pairs(pair_list, algorithm: str, cfg: RegistrationConfig,
               chunk: int | None = None, checkpoint: str | None = None,
               dtype=np.float32, verbose: bool = True, device="cuda",
-              exact_knn: bool = False):
+              exact_knn: bool = False, mesh=None):
     """Register an indexed list of (src, tgt) pairs in batches of
     ``chunk``, resumably.  Runs on the card unless ``device='cpu'``;
-    ``exact_knn`` as ``register_pairs``.  Returns {index: PairOutcome};
-    ``wall_ms`` is a pair's share of its batch's ``register_pairs``
-    call, which returns once the results are on the host."""
+    ``exact_knn`` as ``register_pairs``.  ``mesh``: a pairs mesh each
+    batch is sharded over (``parallel.pairs.default_mesh``; by default
+    every card when there is more than one, ``False`` for one device);
+    the chunk is then a multiple of the mesh's size.  Returns {index:
+    PairOutcome}; ``wall_ms`` is a pair's share of its batch's
+    ``register_pairs`` call, which returns once the results are on the
+    host."""
     ck = Checkpoint(checkpoint)
     todo = [i for i in range(len(pair_list)) if i not in ck.done]
     if not todo:
         return ck.done
+    mesh = par._auto_mesh(mesh, device)
+    ndev = 1 if mesh is None else len(mesh)
     # size batches from the FULL pair list (not the resume remainder):
     # a resume with 3 pairs left reuses the full run's batch shape, and
     # with it the captured program, instead of capturing a 3-pair one
-    chunk = chunk or min(32, len(pair_list))
+    chunk = chunk or max(ndev, min(32, len(pair_list)))
+    chunk = -(-chunk // ndev) * ndev
     for lo in range(0, len(todo), chunk):
         sel = todo[lo:lo + chunk]
         batch = [pair_list[i] for i in sel]
@@ -117,15 +125,16 @@ def run_pairs(pair_list, algorithm: str, cfg: RegistrationConfig,
         batch = batch + [batch[-1]] * (chunk - n_real)
         t0 = time.perf_counter()
         results = par.register_pairs(batch, algorithm, cfg, dtype=dtype,
-                                     device=device,
-                                     exact_knn=exact_knn)[:n_real]
+                                     device=device, exact_knn=exact_knn,
+                                     mesh=mesh or False)[:n_real]
         wall = (time.perf_counter() - t0) * 1e3 / n_real
         for i, r in zip(sel, results):
             ck.add(PairOutcome(i, r.transformation, r.num_iterations,
                                r.num_pure_se3_iterations, wall))
         if verbose:
             print(f"  pairs {sel[0]}..{sel[-1]}: {wall:.1f} ms/pair "
-                  f"(batch of {len(sel)} on {device})")
+                  f"(batch of {len(sel)} on "
+                  f"{device if mesh is None else f'{ndev} device(s)'})")
     return ck.done
 
 

@@ -12,11 +12,11 @@ a repetition's time is the gap between two results.  Each repetition
 takes fresh arrays (the source jittered by 1e-4), so the upload memo of
 ``register_pairs_async`` never serves them.
 
-Pairs are not yet sharded over several cards (scale-out is a later
-slice of the port), so the ladder is that of ONE card, ``[1]``,
-whatever ``torch.cuda.device_count()`` says; the report gives both.
-The report carries ``platform`` (``gpu`` or ``cpu``): on the CPU the
-numbers check the mechanics only.
+The ladder runs over the cards ``torch.cuda.device_count()`` reports,
+each rung on an explicit n-card pairs mesh (``parallel.pairs.
+default_mesh(devices[:n])``); ``devices_present`` gives the count.  The
+report carries ``platform`` (``gpu`` or ``cpu``): on the CPU the ladder
+is one device and the numbers check the mechanics only.
 """
 
 from __future__ import annotations
@@ -64,15 +64,20 @@ def run_scaling(algorithm: str = "se3_pt2pl", cfg=None,
     cfg = cfg or GOLDEN
     on_card = dev.type == "cuda"
     present = torch.cuda.device_count() if on_card else 1
+    devices = ([torch.device("cuda", i) for i in range(present)] if on_card
+               else [dev])
     if cloud == "golden":
         prob = synthetic.golden_like_problem(seed + 1)
     else:
         prob = synthetic.synthetic_problem("easy", 0.002, seed=seed + 1)
     rng = np.random.default_rng(seed)
-    kw = dict(dtype=dtype, device=dev, exact_knn=exact_knn)
-
     counts, rates = [], []
-    for n in device_ladder(1):
+    for n in device_ladder(present):
+        # ALWAYS an explicit n-device mesh: mesh=None would take every
+        # card of a multi-card host, inflating the one-card base rate
+        # and with it every efficiency number
+        kw = dict(dtype=dtype, exact_knn=exact_knn,
+                  mesh=par.default_mesh(devices[:n]))
         batch = per_device * n
         rep_lists = _jittered_lists(prob, batch, reps, rng)
         par.register_pairs(rep_lists[-1], algorithm, cfg, **kw)

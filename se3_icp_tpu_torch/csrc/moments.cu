@@ -62,6 +62,16 @@
 // ~16 warps an SM that K2's registers allow hide their latency only in
 // part; a tenth of the steps take the member branch (~70 instructions in
 // K2).
+//
+// Row slices (`se3icp_moments_rows`, `se3icp_axis_rows`): the queries may
+// be the rows [q0, q0 + nq) of the cloud, summed over the whole cloud;
+// the order then lists the slice's rows (as offsets from q0: the entries
+// of the cloud's Z-order that lie in the slice, in that order), and the
+// per-query inputs and the outputs are [B, C, nq].  The points route of
+// a registration sharded over a process group (parallel/points.py) gives
+// each rank its own rows, the counterpart of the `queries=` path of the
+// TPU kernels.  A query's sums depend on its own inputs and the cloud
+// only, so a slice's rows are the whole call's rows, bit for bit.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -132,12 +142,13 @@ __device__ __forceinline__ int query_pos(int r) {
          (threadIdx.x & 31);
 }
 
-// The row of the query at position p of pair b's order, or -1 past the
-// row count and for an entry that is no row: that query is skipped.
-__device__ __forceinline__ int query_row(const int* order, int b, int n,
+// The slice row (offset from q0) of the query at position p of pair b's
+// order, or -1 past the slice's row count and for an entry that is no
+// row of the slice: that query is skipped.
+__device__ __forceinline__ int query_row(const int* order, int b, int nq,
                                          int p) {
-  const int row = p < n ? order[(size_t)b * n + p] : -1;
-  return (unsigned)row < (unsigned)n ? row : -1;
+  const int row = p < nq ? order[(size_t)b * nq + p] : -1;
+  return (unsigned)row < (unsigned)nq ? row : -1;
 }
 
 template <int kBalls>
@@ -145,10 +156,10 @@ __global__ void __launch_bounds__(kMomThreads)
 moments_kernel(const float* __restrict__ pts_t,    // [B,3,N]
                const float* __restrict__ tn,       // [B,N] |p|^2
                const int* __restrict__ n_valid,    // [B]
-               const int* __restrict__ order,      // [B,N] query order
-               const float* __restrict__ thr_s,    // [B,kBalls,N] thr - |q|^2
-               float* __restrict__ out,            // [B,kBalls*10,N]
-               int n) {
+               const int* __restrict__ order,      // [B,nq] query order
+               const float* __restrict__ thr_s,    // [B,kBalls,nq] thr - |q|^2
+               float* __restrict__ out,            // [B,kBalls*10,nq]
+               int n, int q0, int nq) {
   constexpr int kR = kMomR;
   __shared__ float4 t_s[2][kTile];
   const int b = blockIdx.y;
@@ -162,16 +173,17 @@ moments_kernel(const float* __restrict__ pts_t,    // [B,3,N]
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     const int p = query_pos<kMomThreads, kR>(r);
-    row[r] = query_row(order, b, n, p);
+    row[r] = query_row(order, b, nq, p);
     const bool active = row[r] >= 0;
-    const int i = active ? row[r] : 0;
-    qx[r] = active ? px[i] : 0.f;
-    qy[r] = active ? px[n + i] : 0.f;
-    qz[r] = active ? px[2 * n + i] : 0.f;
+    const int i = active ? row[r] : 0;        // slice row
+    const int g = q0 + i;                     // cloud row
+    qx[r] = active ? px[g] : 0.f;
+    qy[r] = active ? px[n + g] : 0.f;
+    qz[r] = active ? px[2 * n + g] : 0.f;
     th_max[r] = __int_as_float(0x7fc00000);   // NaN: no member
 #pragma unroll
     for (int m = 0; m < kBalls; ++m) {
-      th[r][m] = active ? thr_s[((size_t)b * kBalls + m) * n + i]
+      th[r][m] = active ? thr_s[((size_t)b * kBalls + m) * nq + i]
                         : __int_as_float(0x7fc00000);
       th_max[r] = fmaxf(th_max[r], th[r][m]);   // NaN only if all are
 #pragma unroll
@@ -210,12 +222,12 @@ moments_kernel(const float* __restrict__ pts_t,    // [B,3,N]
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     if (row[r] < 0) continue;
-    float* ob = out + (size_t)b * kBalls * kSums * n + row[r];
+    float* ob = out + (size_t)b * kBalls * kSums * nq + row[r];
 #pragma unroll
     for (int m = 0; m < kBalls; ++m) {
 #pragma unroll
       for (int k = 0; k < kSums; ++k) {
-        ob[(size_t)(m * kSums + k) * n] = acc[r][m][k];
+        ob[(size_t)(m * kSums + k) * nq] = acc[r][m][k];
       }
     }
   }
@@ -225,11 +237,11 @@ __global__ void __launch_bounds__(kAxisThreads)
 axis_kernel(const float* __restrict__ pts_t,     // [B,3,N]
             const float* __restrict__ tn,        // [B,N] |p|^2
             const int* __restrict__ n_valid,     // [B]
-            const int* __restrict__ order,       // [B,N] query order
-            const float* __restrict__ normal_t,  // [B,3,N] unit normals
-            const float* __restrict__ aux,       // [B,3,N] thr-|q|^2, radius, n.q
-            float* __restrict__ out,             // [B,4,N]
-            int n) {
+            const int* __restrict__ order,       // [B,nq] query order
+            const float* __restrict__ normal_t,  // [B,3,nq] unit normals
+            const float* __restrict__ aux,       // [B,3,nq] thr-|q|^2, radius, n.q
+            float* __restrict__ out,             // [B,4,nq]
+            int n, int q0, int nq) {
   constexpr int kR = kAxisR;
   __shared__ float4 t_s[2][kTile];
   const int b = blockIdx.y;
@@ -244,21 +256,22 @@ axis_kernel(const float* __restrict__ pts_t,     // [B,3,N]
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     const int p = query_pos<kAxisThreads, kR>(r);
-    row[r] = query_row(order, b, n, p);
+    row[r] = query_row(order, b, nq, p);
     const bool active = row[r] >= 0;
-    const int i = active ? row[r] : 0;
-    const float* nb = normal_t + (size_t)b * 3 * n + i;
-    const float* ab = aux + (size_t)b * 3 * n + i;
-    qx[r] = active ? px[i] : 0.f;
-    qy[r] = active ? px[n + i] : 0.f;
-    qz[r] = active ? px[2 * n + i] : 0.f;
-    qn[r] = active ? tnb[i] : 0.f;
+    const int i = active ? row[r] : 0;        // slice row
+    const int g = q0 + i;                     // cloud row
+    const float* nb = normal_t + (size_t)b * 3 * nq + i;
+    const float* ab = aux + (size_t)b * 3 * nq + i;
+    qx[r] = active ? px[g] : 0.f;
+    qy[r] = active ? px[n + g] : 0.f;
+    qz[r] = active ? px[2 * n + g] : 0.f;
+    qn[r] = active ? tnb[g] : 0.f;
     nx[r] = active ? nb[0] : 0.f;
-    ny[r] = active ? nb[n] : 0.f;
-    nz[r] = active ? nb[2 * (size_t)n] : 0.f;
+    ny[r] = active ? nb[nq] : 0.f;
+    nz[r] = active ? nb[2 * (size_t)nq] : 0.f;
     thr[r] = active ? ab[0] : __int_as_float(0x7fc00000);   // NaN: no member
-    rad[r] = active ? ab[n] : 0.f;
-    ndq[r] = active ? ab[2 * (size_t)n] : 0.f;
+    rad[r] = active ? ab[nq] : 0.f;
+    ndq[r] = active ? ab[2 * (size_t)nq] : 0.f;
     sx[r] = sy[r] = sz[r] = sw[r] = 0.f;
   }
 
@@ -291,49 +304,75 @@ axis_kernel(const float* __restrict__ pts_t,     // [B,3,N]
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     if (row[r] < 0) continue;
-    float* ob = out + (size_t)b * 4 * n + row[r];
+    float* ob = out + (size_t)b * 4 * nq + row[r];
     ob[0] = sx[r];
-    ob[n] = sy[r];
-    ob[2 * (size_t)n] = sz[r];
-    ob[3 * (size_t)n] = sw[r];
+    ob[nq] = sy[r];
+    ob[2 * (size_t)nq] = sz[r];
+    ob[3 * (size_t)nq] = sw[r];
   }
 }
 
 }  // namespace
 
-// balls: 3 (three thresholds a query) or 1 (one).
-extern "C" int se3icp_moments(const void* pts_t, const void* tn,
-                              const void* n_valid, const void* order,
-                              const void* thr_s, void* out, int bsz, int n,
-                              int balls, void* stream) {
-  if (bsz <= 0 || n <= 0) return (int)cudaGetLastError();
+// balls: 3 (three thresholds a query) or 1 (one).  The queries are the
+// rows [q0, q0 + nq) of each cloud; order, thr_s and out have nq columns.
+extern "C" int se3icp_moments_rows(const void* pts_t, const void* tn,
+                                   const void* n_valid, const void* order,
+                                   const void* thr_s, void* out, int bsz,
+                                   int n, int q0, int nq, int balls,
+                                   void* stream) {
+  if (bsz <= 0 || n <= 0 || nq <= 0) return (int)cudaGetLastError();
   if (bsz > 65535) return (int)cudaErrorInvalidConfiguration;
-  if (balls != 1 && balls != 3) return (int)cudaErrorInvalidValue;
+  if ((balls != 1 && balls != 3) || q0 < 0 || nq > n - q0) {
+    return (int)cudaErrorInvalidValue;
+  }
   constexpr int kBlockQueries = kMomThreads * kMomR;
-  const dim3 grid((n + kBlockQueries - 1) / kBlockQueries, bsz);
+  const dim3 grid((nq + kBlockQueries - 1) / kBlockQueries, bsz);
   if (balls == 3) {
     moments_kernel<3><<<grid, kMomThreads, 0, (cudaStream_t)stream>>>(
         (const float*)pts_t, (const float*)tn, (const int*)n_valid,
-        (const int*)order, (const float*)thr_s, (float*)out, n);
+        (const int*)order, (const float*)thr_s, (float*)out, n, q0, nq);
   } else {
     moments_kernel<1><<<grid, kMomThreads, 0, (cudaStream_t)stream>>>(
         (const float*)pts_t, (const float*)tn, (const int*)n_valid,
-        (const int*)order, (const float*)thr_s, (float*)out, n);
+        (const int*)order, (const float*)thr_s, (float*)out, n, q0, nq);
   }
   return (int)cudaGetLastError();
 }
 
+// Every row of each cloud.
+extern "C" int se3icp_moments(const void* pts_t, const void* tn,
+                              const void* n_valid, const void* order,
+                              const void* thr_s, void* out, int bsz, int n,
+                              int balls, void* stream) {
+  return se3icp_moments_rows(pts_t, tn, n_valid, order, thr_s, out, bsz, n,
+                             0, n, balls, stream);
+}
+
+// The queries are the rows [q0, q0 + nq) of each cloud; order, normal_t,
+// aux and out have nq columns.
+extern "C" int se3icp_axis_rows(const void* pts_t, const void* tn,
+                                const void* n_valid, const void* order,
+                                const void* normal_t, const void* aux,
+                                void* out, int bsz, int n, int q0, int nq,
+                                void* stream) {
+  if (bsz <= 0 || n <= 0 || nq <= 0) return (int)cudaGetLastError();
+  if (bsz > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (q0 < 0 || nq > n - q0) return (int)cudaErrorInvalidValue;
+  constexpr int kBlockQueries = kAxisThreads * kAxisR;
+  const dim3 grid((nq + kBlockQueries - 1) / kBlockQueries, bsz);
+  axis_kernel<<<grid, kAxisThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)pts_t, (const float*)tn, (const int*)n_valid,
+      (const int*)order, (const float*)normal_t, (const float*)aux,
+      (float*)out, n, q0, nq);
+  return (int)cudaGetLastError();
+}
+
+// Every row of each cloud.
 extern "C" int se3icp_axis(const void* pts_t, const void* tn,
                            const void* n_valid, const void* order,
                            const void* normal_t, const void* aux, void* out,
                            int bsz, int n, void* stream) {
-  if (bsz <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (bsz > 65535) return (int)cudaErrorInvalidConfiguration;
-  constexpr int kBlockQueries = kAxisThreads * kAxisR;
-  const dim3 grid((n + kBlockQueries - 1) / kBlockQueries, bsz);
-  axis_kernel<<<grid, kAxisThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)pts_t, (const float*)tn, (const int*)n_valid,
-      (const int*)order, (const float*)normal_t, (const float*)aux,
-      (float*)out, n);
-  return (int)cudaGetLastError();
+  return se3icp_axis_rows(pts_t, tn, n_valid, order, normal_t, aux, out, bsz,
+                          n, 0, n, stream);
 }

@@ -58,6 +58,15 @@
 // lane take 128 registers, so 16 warps an SM are all that run, and the
 // probe chain -- probe, shuffle, count, reduce, brackets -- is serial
 // within a warp.
+//
+// Row slices (`se3icp_thresholds_rows`): the queries may be the rows
+// [q0, q0 + nq) of the cloud, searched against the whole cloud, with the
+// result written as [B, T, nq]; the points route of a registration
+// sharded over a process group (parallel/points.py) gives each rank its
+// own rows, the counterpart of the `queries=` path of the TPU kernel.  A
+// query's thresholds depend on its own position and the cloud only (hib
+// and the counts are the cloud's, clamped by the wrapper), so a slice's
+// rows are the whole call's rows, bit for bit.
 
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
@@ -132,13 +141,13 @@ thresholds_kernel(const float* __restrict__ pts_t,    // [B,3,N]
                   const int* __restrict__ n_valid,    // [B]
                   const float* __restrict__ counts,   // [B,T] descending
                   const float* __restrict__ hib,      // [B]
-                  float* __restrict__ out,            // [B,T,N]
-                  int n) {
+                  float* __restrict__ out,            // [B,T,nq]
+                  int n, int q0, int nq) {
   __shared__ float xs[2][kCand], ys[2][kCand], zs[2][kCand], ts[2][kCand];
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int q0 = (blockIdx.x * kWarps + warp) * kQ;   // the warp's queries
+  const int l0 = (blockIdx.x * kWarps + warp) * kQ;   // the warp's queries
   const int my = lane & (kQ - 1);                     // the lane's own query
   const float* px = pts_t + (size_t)b * 3 * n;
   const float* py = px + n;
@@ -149,11 +158,12 @@ thresholds_kernel(const float* __restrict__ pts_t,    // [B,3,N]
   float qx[kQ], qy[kQ], qz[kQ], qn[kQ];
 #pragma unroll
   for (int q = 0; q < kQ; ++q) {
-    const bool active = q0 + q < n;    // uniform over the warp
-    qx[q] = active ? px[q0 + q] : 0.f;
-    qy[q] = active ? py[q0 + q] : 0.f;
-    qz[q] = active ? pz[q0 + q] : 0.f;
-    qn[q] = active ? tnb[q0 + q] : 0.f;
+    const bool active = l0 + q < nq;   // uniform over the warp
+    const int i = q0 + l0 + q;         // the query's row of the cloud
+    qx[q] = active ? px[i] : 0.f;
+    qy[q] = active ? py[i] : 0.f;
+    qz[q] = active ? pz[i] : 0.f;
+    qn[q] = active ? tnb[i] : 0.f;
   }
 
   // 1. candidate fold over the valid targets, kQ queries at once
@@ -293,31 +303,35 @@ thresholds_kernel(const float* __restrict__ pts_t,    // [B,3,N]
   }
 
   // lane kQ t + q writes count t of query q
-  const int qi = q0 + my;
+  const int qi = l0 + my;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
-    if (lane / kQ == t && qi < n) out[((size_t)b * T + t) * n + qi] = hi[t];
+    if (lane / kQ == t && qi < nq) out[((size_t)b * T + t) * nq + qi] = hi[t];
   }
 }
 
 template <int T>
 cudaError_t launch(const float* pts_t, const float* tn, const int* n_valid,
                    const float* counts, const float* hib, float* out,
-                   int bsz, int n, cudaStream_t stream) {
-  const dim3 grid((n + kBlockQueries - 1) / kBlockQueries, bsz);
-  thresholds_kernel<T><<<grid, kThreads, 0, stream>>>(pts_t, tn, n_valid,
-                                                      counts, hib, out, n);
+                   int bsz, int n, int q0, int nq, cudaStream_t stream) {
+  const dim3 grid((nq + kBlockQueries - 1) / kBlockQueries, bsz);
+  thresholds_kernel<T><<<grid, kThreads, 0, stream>>>(
+      pts_t, tn, n_valid, counts, hib, out, n, q0, nq);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int se3icp_thresholds(const void* pts_t, const void* tn,
-                                 const void* n_valid, const void* counts,
-                                 const void* hib, void* out, int bsz, int n,
-                                 int t, void* stream) {
-  if (bsz <= 0 || n <= 0) return (int)cudaGetLastError();
-  if (bsz > 65535 || t < 1 || t > kMaxT) return (int)cudaErrorInvalidValue;
+// The queries are the rows [q0, q0 + nq) of each cloud; out is [B,T,nq].
+extern "C" int se3icp_thresholds_rows(const void* pts_t, const void* tn,
+                                      const void* n_valid, const void* counts,
+                                      const void* hib, void* out, int bsz,
+                                      int n, int q0, int nq, int t,
+                                      void* stream) {
+  if (bsz <= 0 || n <= 0 || nq <= 0) return (int)cudaGetLastError();
+  if (bsz > 65535 || t < 1 || t > kMaxT || q0 < 0 || nq > n - q0) {
+    return (int)cudaErrorInvalidValue;
+  }
   const float* p = (const float*)pts_t;
   const float* tq = (const float*)tn;
   const int* nv = (const int*)n_valid;
@@ -326,13 +340,22 @@ extern "C" int se3icp_thresholds(const void* pts_t, const void* tn,
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (t) {
-    case 1: return (int)launch<1>(p, tq, nv, c, h, o, bsz, n, s);
-    case 2: return (int)launch<2>(p, tq, nv, c, h, o, bsz, n, s);
-    case 3: return (int)launch<3>(p, tq, nv, c, h, o, bsz, n, s);
-    case 4: return (int)launch<4>(p, tq, nv, c, h, o, bsz, n, s);
-    case 5: return (int)launch<5>(p, tq, nv, c, h, o, bsz, n, s);
-    case 6: return (int)launch<6>(p, tq, nv, c, h, o, bsz, n, s);
-    case 7: return (int)launch<7>(p, tq, nv, c, h, o, bsz, n, s);
-    default: return (int)launch<8>(p, tq, nv, c, h, o, bsz, n, s);
+    case 1: return (int)launch<1>(p, tq, nv, c, h, o, bsz, n, q0, nq, s);
+    case 2: return (int)launch<2>(p, tq, nv, c, h, o, bsz, n, q0, nq, s);
+    case 3: return (int)launch<3>(p, tq, nv, c, h, o, bsz, n, q0, nq, s);
+    case 4: return (int)launch<4>(p, tq, nv, c, h, o, bsz, n, q0, nq, s);
+    case 5: return (int)launch<5>(p, tq, nv, c, h, o, bsz, n, q0, nq, s);
+    case 6: return (int)launch<6>(p, tq, nv, c, h, o, bsz, n, q0, nq, s);
+    case 7: return (int)launch<7>(p, tq, nv, c, h, o, bsz, n, q0, nq, s);
+    default: return (int)launch<8>(p, tq, nv, c, h, o, bsz, n, q0, nq, s);
   }
+}
+
+// Every row of each cloud: out is [B,T,N].
+extern "C" int se3icp_thresholds(const void* pts_t, const void* tn,
+                                 const void* n_valid, const void* counts,
+                                 const void* hib, void* out, int bsz, int n,
+                                 int t, void* stream) {
+  return se3icp_thresholds_rows(pts_t, tn, n_valid, counts, hib, out, bsz, n,
+                                0, n, t, stream);
 }

@@ -182,14 +182,15 @@ def register_pair_multistart(source_points, target_points,
                              cfg: RegistrationConfig | None = None,
                              n_starts: int = 8, seed: int = 0,
                              dtype=torch.float32, device="cuda",
-                             exact_knn: bool = False) -> MultistartResult:
+                             exact_knn: bool = False,
+                             mesh=None) -> MultistartResult:
     """Register one pair from ``n_starts`` rotation initializations in
     one batched call; return the start with the lowest trimmed NN score
     (plus all scores for diagnostics).  Runs on the card unless
-    ``device='cpu'``."""
+    ``device='cpu'``; ``mesh`` as ``register_pairs_multistart``."""
     return register_pairs_multistart(
         [(source_points, target_points)], algorithm, cfg, n_starts, seed,
-        dtype=dtype, device=device, exact_knn=exact_knn)[0]
+        dtype=dtype, device=device, exact_knn=exact_knn, mesh=mesh)[0]
 
 
 def register_pairs_multistart(pairs, algorithm: str = "se3_pt2pl",
@@ -198,7 +199,7 @@ def register_pairs_multistart(pairs, algorithm: str = "se3_pt2pl",
                               dtype=torch.float32,
                               pair_chunk: int | None = None, device="cuda",
                               stats: dict | None = None,
-                              exact_knn: bool = False
+                              exact_knn: bool = False, mesh=None
                               ) -> list[MultistartResult]:
     """Multi-start registration of MANY pairs: the engine's batch is
     (pair, start) flattened -- independent registrations of one shape.
@@ -210,15 +211,25 @@ def register_pairs_multistart(pairs, algorithm: str = "se3_pt2pl",
     whatever ``len(pairs)``; every chunk has one shape (cloud buckets
     from the FULL list; the tail chunk repeats its last pair).
     ``stats`` receives the engine's ``loop_steps`` and ``host_syncs``,
-    summed over the chunks."""
+    summed over the chunks.
+
+    ``mesh``: a pairs mesh (``parallel.pairs.default_mesh``) the
+    flattened (pair, start) batch is sharded over, as
+    ``register_pairs``: by default every card when there is more than
+    one; ``mesh=False`` forces one device.  The default chunk then holds
+    enough pairs that the flattened axis covers every device of the
+    mesh.  Scores are taken on ``device``."""
+    from se3_icp_tpu_torch.parallel import pairs as par
     dev = reg.resolve_device(device)
+    mesh = par._auto_mesh(mesh, dev)
+    ndev = 1 if mesh is None else len(mesh)
     cfg = cfg or RegistrationConfig()
     rots = so3_grid(n_starts, seed)
     srcs = [reg.sanitize_cloud(s) for s, _ in pairs]
     tgts = [reg.sanitize_cloud(t) for _, t in pairs]
     p_n = len(pairs)
     if pair_chunk is None:
-        pair_chunk = max(1, -(-FLAT_BATCH // n_starts))
+        pair_chunk = max(1, -(-FLAT_BATCH // n_starts), -(-ndev // n_starts))
     pair_chunk = max(1, min(pair_chunk, p_n))
     ns_max = reg._bucket(max(len(s) for s in srcs))
     nt_max = reg._bucket(max(len(t) for t in tgts))
@@ -230,14 +241,15 @@ def register_pairs_multistart(pairs, algorithm: str = "se3_pt2pl",
         res = _multistart_chunk([srcs[i] for i in idx],
                                 [tgts[i] for i in idx], rots, algorithm,
                                 cfg, dtype, dev, ns_max, nt_max, stats,
-                                exact_knn)
+                                exact_knn, mesh)
         for j, i in enumerate(sel):
             out[i] = res[j]
     return out
 
 
 def _multistart_chunk(srcs, tgts, rots, algorithm, cfg, dtype, dev, ns_max,
-                      nt_max, stats, exact_knn) -> list[MultistartResult]:
+                      nt_max, stats, exact_knn,
+                      mesh=None) -> list[MultistartResult]:
     """One fixed-shape (pair, start) chunk: register, score, select."""
     from se3_icp_tpu_torch.parallel import pairs as par
 
@@ -267,7 +279,7 @@ def _multistart_chunk(srcs, tgts, rots, algorithm, cfg, dtype, dev, ns_max,
     T, it, pure = par.register_batch(
         dev_t(src_b.reshape(p_n * n_starts, ns_max, 3)), n_src_k, flat_tgt,
         n_tgt_k, cfg, algorithm, device=dev, stats=stats,
-        exact_knn=exact_knn)
+        exact_knn=exact_knn, mesh=mesh)
     T_full = (T.double().cpu().numpy().reshape(p_n, n_starts, 4, 4) @ M)
 
     # every candidate against its pair's ORIGINAL source and target

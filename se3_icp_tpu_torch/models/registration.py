@@ -40,7 +40,20 @@ Mechanics:
     ``loop_route``) and the captured program's reference
     (``register_arrays_eager``);
   * float hyperparameters travel as one device vector (``split_cfg``,
-    ``Hyper``), so one captured program serves every value of a sweep.
+    ``Hyper``), so one captured program serves every value of a sweep;
+  * the points route (``group``: a ``torch.distributed`` process group,
+    driven by ``parallel/points.py``) shards ONE registration's rows over
+    the group's ranks while both clouds stay replicated.  Setup runs the
+    neighbourhood kernels (K1-K3, or the exact route's kNN and dense
+    reductions) on this rank's contiguous row slice and all-gathers the
+    frames, normals and covariances to full rows; every step runs K4 on
+    the rank's slice of ``feat16`` and all-gathers the matched payload
+    rows.  Deviation from the JAX package, on purpose: K5 then runs
+    replicated on the full rows (the JAX package's points route turns
+    its fused epilogue off and takes its XLA epilogue), so the route
+    keeps the unsharded bits and the exact-count trim, and every rank
+    reaches the same stop decision, which the collectives need.  It runs
+    the eager polled loop (``run_loop``), not the captured program.
 
 Behavioural parity notes, all reproduced:
   * the 12-D match uses alpha/beta-weighted frames, but trimming/MSE use
@@ -148,6 +161,9 @@ class MatchState:
     pay_off: dict = field(default_factory=dict)   # payload row offsets
     cov_src6: torch.Tensor | None = None          # [B,6,Ns] (gicp)
     conf_src: torch.Tensor | None = None          # [B,Ns]   (with_cf)
+    # the points route: its process group and this rank's rows of feat16
+    group: object = None
+    feat16_rows: torch.Tensor | None = None       # [B,Ns/world,16]
 
 
 @dataclass
@@ -317,54 +333,102 @@ def _const(values, dtype, device) -> torch.Tensor:
     return out
 
 
-def _thresholds(points, n_valid, counts):
-    """(SetupCloud, {count: thr [B,N]}) of one cloud, or (None, {})."""
+def check_group(group, device) -> None:
+    """The points route's process group fits the tensors' device: NCCL
+    for CUDA tensors, gloo for CPU ones.  Nothing falls back."""
+    import torch.distributed as dist
+    backend = dist.get_backend(group)
+    want = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if backend != want:
+        raise ValueError(
+            f"the points route on '{device}' tensors needs a {want} process "
+            f"group; this one is {backend}")
+
+
+def group_rows(group, n: int):
+    """This rank's contiguous rows (r0, r1) of an n-row cloud sharded
+    over ``group``, or None without a group.  n must divide by the
+    group's size."""
+    if group is None:
+        return None
+    import torch.distributed as dist
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    if n % world:
+        raise ValueError(f"padded cloud size {n} must be divisible by the "
+                         f"points group's size {world}")
+    c = n // world
+    return rank * c, (rank + 1) * c
+
+
+def gather_rows(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` (its rows along ``dim``), concatenated in rank
+    order: one all_gather over ``group``; ``x`` itself without one."""
+    if group is None:
+        return x
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+def _thresholds(points, n_valid, counts, rows=None):
+    """(SetupCloud, {count: thr [B,C]}) of one cloud's rows ``rows``
+    (all: C = N), or (None, {})."""
     if not counts:
         return None, {}
     cloud = cuda_moments.setup_cloud(points, n_valid)
     cc = _const(counts, torch.int64, points.device)
     thr = cuda_moments.neighborhood_thresholds_batched(
-        points, n_valid, cc.expand(points.shape[0], -1), cloud=cloud)
+        points, n_valid, cc.expand(points.shape[0], -1), cloud=cloud,
+        rows=rows)
     return cloud, {c: thr[:, i] for i, c in enumerate(counts)}
 
 
 def _setup_thr(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
-               need_cov):
+               need_cov, group=None):
     """The sort-free threshold setup (the JAX package's accelerator
     route): one K1 call per cloud, then the frames (K2 + K3, with the
     pt2pl normals fused into the target's K2 pass when normals_knn ==
     k//3), normals and covariances (K2).  Kernels in float32, glue in
-    the caller's dtype."""
+    the caller's dtype.  With a points ``group`` every kernel runs on
+    this rank's rows and the products are all-gathered to full rows."""
+    rows_s = group_rows(group, src_c.shape[1])
+    rows_t = group_rows(group, tgt_c.shape[1])
     cu_src, cu_tgt = _count_sets(cfg, is_se3, need_tgt_nrm, need_cov)
-    cloud_s, thr_s = _thresholds(src_c, n_src, cu_src)
-    cloud_t, thr_t = _thresholds(tgt_c, n_tgt, cu_tgt)
+    cloud_s, thr_s = _thresholds(src_c, n_src, cu_src, rows_s)
+    cloud_t, thr_t = _thresholds(tgt_c, n_tgt, cu_tgt, rows_t)
     out = dict(rot_src=None, rot_tgt=None, tgt_normals=None, cov_src6=None,
                cov_tgt6=None)
     k = cfg.number_of_nn_for_lrf
     rz = k // 3
     nrm_t = None
     if is_se3:
-        out["rot_src"] = lrf.rot_t9_to_rot(lrf.toldi_frames_thr_t(
+        out["rot_src"] = lrf.rot_t9_to_rot(gather_rows(lrf.toldi_frames_thr_t(
             src_c, thr_s[rz], thr_s[rz + 1], thr_s[k], k, n_src,
-            cloud=cloud_s))
+            cloud=cloud_s, rows=rows_s), group, 2))
         fuse = need_tgt_nrm and cfg.normals_knn == rz
-        fr = lrf.toldi_frames_thr_t(
+        fr = gather_rows(lrf.toldi_frames_thr_t(
             tgt_c, thr_t[rz], thr_t[rz + 1], thr_t[k], k, n_tgt,
-            cloud=cloud_t, normals_k=cfg.normals_knn if fuse else None)
+            cloud=cloud_t, normals_k=cfg.normals_knn if fuse else None,
+            rows=rows_t), group, 2)
         out["rot_tgt"] = lrf.rot_t9_to_rot(fr[:, :9])
         if fuse:
             nrm_t = fr[:, 9:12]
     if need_tgt_nrm:
         if nrm_t is None:
-            nrm_t = lrf.normals_thr_t(tgt_c, thr_t[cfg.normals_knn],
-                                      cfg.normals_knn, n_tgt, cloud=cloud_t)
+            nrm_t = gather_rows(lrf.normals_thr_t(
+                tgt_c, thr_t[cfg.normals_knn], cfg.normals_knn, n_tgt,
+                cloud=cloud_t, rows=rows_t), group, 2)
         out["tgt_normals"] = nrm_t.mT
     elif need_cov:
         kg = cfg.gicp_normals_knn
-        out["cov_src6"] = lrf.gicp_covariances_thr_t(
-            src_c, thr_s[kg], kg, cfg.gicp_epsilon, n_src, cloud=cloud_s)
-        out["cov_tgt6"] = lrf.gicp_covariances_thr_t(
-            tgt_c, thr_t[kg], kg, cfg.gicp_epsilon, n_tgt, cloud=cloud_t)
+        out["cov_src6"] = gather_rows(lrf.gicp_covariances_thr_t(
+            src_c, thr_s[kg], kg, cfg.gicp_epsilon, n_src, cloud=cloud_s,
+            rows=rows_s), group, 2)
+        out["cov_tgt6"] = gather_rows(lrf.gicp_covariances_thr_t(
+            tgt_c, thr_t[kg], kg, cfg.gicp_epsilon, n_tgt, cloud=cloud_t,
+            rows=rows_t), group, 2)
     return out
 
 
@@ -377,12 +441,25 @@ def _shot_frames(points, n_valid, cfg):
                            max_k=cfg.shot_max_k)
 
 
+def _knn_rows(points, k: int, n_valid, rows):
+    """Sorted squared distances [B,C,k] of the rows ``rows`` (all: the
+    cloud's self kNN) against the whole cloud."""
+    if rows is None:
+        return knn.knn_self(points, k, n_valid)[1]
+    return knn.knn_topk(points[:, rows[0]:rows[1]], points, k, n_valid)[1]
+
+
 def _setup_exact(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
-                 need_cov):
+                 need_cov, group=None):
     """The exact sorted-kNN setup: ONE sorted kNN per cloud,
     prefix-sliced by every consumer (TOLDI k, normals, GICP).  SHOT
     frames take their own radius neighbourhoods, so they add nothing to
-    the kNN's width."""
+    the kNN's width.  With a points ``group`` the kNN and the TOLDI,
+    normal and covariance reductions run on this rank's rows and their
+    products are all-gathered; SHOT frames run whole on every rank (as
+    in the JAX package)."""
+    rows_s = group_rows(group, src_c.shape[1])
+    rows_t = group_rows(group, tgt_c.shape[1])
     shot = is_se3 and cfg.lrf_method != "toldi"
     k_lrf = cfg.number_of_nn_for_lrf if is_se3 and not shot else 0
     k_src = max(k_lrf, cfg.gicp_normals_knn if need_cov else 0)
@@ -392,32 +469,36 @@ def _setup_exact(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
     # needs the first EXCLUDED order statistic too
     d2_src = d2_tgt = None
     if k_src:
-        _, d2_src = knn.knn_self(src_c, k_src + 1, n_src)
+        d2_src = _knn_rows(src_c, k_src + 1, n_src, rows_s)
     if k_tgt:
-        _, d2_tgt = knn.knn_self(tgt_c, k_tgt + 1, n_tgt)
+        d2_tgt = _knn_rows(tgt_c, k_tgt + 1, n_tgt, rows_t)
     out = dict(rot_src=None, rot_tgt=None, tgt_normals=None, cov_src6=None,
                cov_tgt6=None)
     if shot:
         out["rot_src"] = _shot_frames(src_c, n_src, cfg)
         out["rot_tgt"] = _shot_frames(tgt_c, n_tgt, cfg)
     elif is_se3:
-        out["rot_src"] = lrf.toldi_frames_dense(src_c, d2_src[..., :k_lrf],
-                                                n_src)
-        out["rot_tgt"] = lrf.toldi_frames_dense(tgt_c, d2_tgt[..., :k_lrf],
-                                                n_tgt)
+        out["rot_src"] = gather_rows(lrf.toldi_frames_dense(
+            src_c, d2_src[..., :k_lrf], n_src, rows=rows_s), group, 1)
+        out["rot_tgt"] = gather_rows(lrf.toldi_frames_dense(
+            tgt_c, d2_tgt[..., :k_lrf], n_tgt, rows=rows_t), group, 1)
     if need_tgt_nrm:
-        out["tgt_normals"] = lrf.normals_dense(tgt_c, d2_tgt,
-                                               cfg.normals_knn, n_tgt)
+        out["tgt_normals"] = gather_rows(lrf.normals_dense(
+            tgt_c, d2_tgt, cfg.normals_knn, n_tgt, rows=rows_t), group, 1)
     elif need_cov:
-        out["cov_src6"] = lrf._sym_to_6(lrf.gicp_covariances_dense(
-            src_c, d2_src, cfg.gicp_normals_knn, cfg.gicp_epsilon, n_src))
-        out["cov_tgt6"] = lrf._sym_to_6(lrf.gicp_covariances_dense(
-            tgt_c, d2_tgt, cfg.gicp_normals_knn, cfg.gicp_epsilon, n_tgt))
+        out["cov_src6"] = gather_rows(lrf._sym_to_6(
+            lrf.gicp_covariances_dense(src_c, d2_src, cfg.gicp_normals_knn,
+                                       cfg.gicp_epsilon, n_src, rows_s)),
+            group, 2)
+        out["cov_tgt6"] = gather_rows(lrf._sym_to_6(
+            lrf.gicp_covariances_dense(tgt_c, d2_tgt, cfg.gicp_normals_knn,
+                                       cfg.gicp_epsilon, n_tgt, rows_t)),
+            group, 2)
     return out
 
 
 def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
-          variant: str, h: Hyper, exact_knn: bool = False):
+          variant: str, h: Hyper, exact_knn: bool = False, group=None):
     """Everything before the loop: confidences, preprocessing, the
     neighbourhood setup (frames, normals, covariances) and the packing.
 
@@ -428,8 +509,14 @@ def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
     (``lrf_method="shot"``) always take the exact route, whatever
     ``exact_knn`` says, as the JAX package turns its threshold route off
     for them (any ``lrf_method`` but ``"toldi"`` is SHOT there).  ``h``:
-    the traced hyperparameters (``split_cfg``, ``hyper``).  Returns
+    the traced hyperparameters (``split_cfg``, ``hyper``).  ``group``: a
+    process group for the points route (see the module docstring); both
+    padded widths must divide by its size, else ``ValueError``.  Returns
     (MatchState, Preprocess)."""
+    if group is not None:
+        check_group(group, src.device)
+        group_rows(group, src.shape[1])
+        group_rows(group, tgt.shape[1])
     is_se3 = mode != "icp"
     use_cf = mode == "se3_cf"
     eff_variant = "gicp" if use_cf else variant
@@ -441,11 +528,33 @@ def setup(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, mode: str,
     shot = is_se3 and cfg.lrf_method != "toldi"
     route = _setup_exact if exact_knn or shot else _setup_thr
     prod = route(src_c, n_src, tgt_c, n_tgt, cfg, is_se3,
-                 eff_variant == "pt2pl", eff_variant == "gicp")
+                 eff_variant == "pt2pl", eff_variant == "gicp", group)
     state = pack_match_state(
         src_c, tgt_c, n_src, n_tgt, cfg, mode, variant, conf_src=conf_src,
         conf_tgt=conf_tgt, h=h, **prod)
+    if group is not None:
+        r0, r1 = group_rows(group, src.shape[1])
+        state.group = group
+        state.feat16_rows = state.feat16[:, r0:r1].contiguous()
     return state, pre
+
+
+def setup_checksum(ms: MatchState, h: Hyper) -> torch.Tensor:
+    """[B] per-pair checksum of the pre-loop tensors the JAX package's
+    setup-only program sums (its ``registration.py:566-580`` on its
+    unpacked route): the payload, the phase-B target embedding and, for
+    the SE(3) modes, the alpha-weighted source frames and the phase-A
+    embedding.  Each pair's sums are taken on its own slices, so a pair's
+    checksum has the same bits in any batch."""
+    emb = ms.targets.emb
+    out = []
+    for b in range(emb.shape[0]):
+        chk = ms.targets.payload[b].sum() + emb[b, 1].sum()
+        if ms.is_se3:
+            chk = chk + (ms.feat16[b, :, :9] * h.alpha_rot).sum() \
+                + emb[b, 0].sum()
+        out.append(chk)
+    return torch.stack(out)
 
 
 def epilogue_options(ms: MatchState, cfg: RegistrationConfig) -> dict:
@@ -599,7 +708,13 @@ def loop_step(s: LoopState, ms: MatchState, c: LoopConsts) -> LoopState:
     # --- correspondence search + fused epilogue (trim, MSE, the
     #     estimator's reduction)
     W, ph2, pf = iteration_inputs(ms, cfg, s.T, s.switched, s.done, c.h)
-    _, matched_T = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets, ph2)
+    if ms.group is None:
+        _, matched_T = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets,
+                                                ph2)
+    else:   # the points route: K4 on this rank's rows, then all rows
+        _, matched_T = cuda_knn.nn_match_affine(ms.feat16_rows, W,
+                                                ms.targets, ph2)
+        matched_T = gather_rows(matched_T, ms.group, 2)
     A66, b8, st = cuda_loop.loop_epilogue_batched(
         ms.src_cT, matched_T, pf, ms.cov_src6, ms.conf_src, **c.ep_kw)
     mse_val, wsum = st[:, 0], st[:, 1]
@@ -796,18 +911,20 @@ def register_arrays_eager(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
                           mode: str, variant: str,
                           record_history: bool = False, initial_T=None,
                           stats: dict | None = None,
-                          exact_knn: bool = False):
+                          exact_knn: bool = False, group=None):
     """``register_arrays`` on the eager route on any device: setup, then
     ``run_loop`` polling every ``_POLL_EVERY`` steps.  The CPU's route and
     the pt2pt variants' on the card; on the card also the reference the
-    captured program is held against, bit for bit."""
+    captured program is held against, bit for bit.  ``group``: the
+    points route over that process group (every rank calls this with the
+    same arguments; see the module docstring)."""
     check_supported(cfg)
     is_se3 = mode != "icp"
     with torch.no_grad(), knn.full_precision():
         floats, scfg = split_cfg(cfg, src.dtype, src.device)
         h = hyper(floats)
         ms, pre = setup(src, n_src, tgt, n_tgt, scfg, mode, variant, h,
-                        exact_knn)
+                        exact_knn, group)
         T_init = (None if initial_T is None
                   else warm_start(initial_T, pre, src.dtype))
         T, it, pure_it, hist = run_loop(ms, pre.scaling, scfg, mode, h,

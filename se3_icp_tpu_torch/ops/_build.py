@@ -58,10 +58,16 @@ SIGNATURES = {
     "se3icp_loop_epilogue": [_P] * 8 + [_I] * 13 + [_P],
     # pts_t, tn, n_valid, counts, hib, out, B, N, T, stream
     "se3icp_thresholds": [_P] * 6 + [_I] * 3 + [_P],
+    # pts_t, tn, n_valid, counts, hib, out, B, N, q0, nq, T, stream
+    "se3icp_thresholds_rows": [_P] * 6 + [_I] * 5 + [_P],
     # pts_t, tn, n_valid, order, thr_s, out, B, N, balls, stream
     "se3icp_moments": [_P] * 6 + [_I] * 3 + [_P],
+    # pts_t, tn, n_valid, order, thr_s, out, B, N, q0, nq, balls, stream
+    "se3icp_moments_rows": [_P] * 6 + [_I] * 5 + [_P],
     # pts_t, tn, n_valid, order, normal_t, aux, out, B, N, stream
     "se3icp_axis": [_P] * 7 + [_I] * 2 + [_P],
+    # pts_t, tn, n_valid, order, normal_t, aux, out, B, N, q0, nq, stream
+    "se3icp_axis_rows": [_P] * 7 + [_I] * 4 + [_P],
     # q, t, n_tgt, idx, d2, B, Nq, Nt, D, split, stream
     "se3icp_nn_argmin": [_P] * 5 + [_I] * 5 + [_P],
     # q, t, n_tgt, idx, d2, B, Nq, Nt, D, stream

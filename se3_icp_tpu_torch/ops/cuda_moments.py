@@ -34,6 +34,15 @@ differ only in their order (the plain versions' are matrix products).
 The kernels work in float32 whatever the caller's dtype, as the JAX
 package's do.
 
+Row slices: each wrapper takes ``rows=(r0, r1)`` for the query rows
+[r0, r1) of the cloud against the whole cloud (the points route of
+``parallel/points.py`` gives each rank its own rows; the JAX package's
+``queries=`` path).  The per-query inputs and outputs then have r1 - r0
+columns; K1's count clamp and bracket top stay the whole cloud's, and
+K2/K3 walk the slice's entries of the Z-order (``SetupCloud.
+rows_order``).  A query's results depend on its own inputs and the
+cloud only, so a slice gives the whole call's rows bit for bit.
+
 Each wrapper launches its CUDA kernel for tensors on the card and
 raises if it cannot; it takes the plain version only for CPU tensors.
 Each ``*_plain`` twin has the wrapper's arguments and results.
@@ -66,9 +75,41 @@ class SetupCloud:
     tn: torch.Tensor        # [B,N]   float32 |p|^2
     n: torch.Tensor         # [B]     int32 valid rows
     order: torch.Tensor = field(init=False, repr=False)   # [B,N] int32
+    _slices: dict = field(init=False, repr=False, default_factory=dict)
 
     def __post_init__(self):
         self.order = _morton_order(self.pts_t, self.n).contiguous()
+
+    def rows_order(self, rows) -> torch.Tensor:
+        """[B, r1 - r0] int32: K2's and K3's query order of the rows
+        ``rows`` = (r0, r1) -- the entries of ``order`` that lie in the
+        slice, in their order, as offsets from r0 -- or ``order`` itself
+        for ``rows=None``.  Made once a slice (and again if ``order`` is
+        replaced)."""
+        if rows is None:
+            return self.order
+        r0, r1 = rows
+        made = self._slices.get((r0, r1))
+        if made is not None and made[0] is self.order:
+            return made[1]
+        inside = (self.order >= r0) & (self.order < r1)
+        keep = torch.argsort((~inside).to(torch.uint8), dim=1,
+                             stable=True)[:, :r1 - r0]
+        out = (torch.take_along_dim(self.order, keep, 1) - r0).to(
+            torch.int32).contiguous()
+        self._slices[(r0, r1)] = (self.order, out)
+        return out
+
+
+def row_span(rows, n: int) -> tuple:
+    """(r0, r1) of ``rows`` (None: every row of an n-row cloud),
+    checked to lie in [0, n]."""
+    if rows is None:
+        return 0, n
+    r0, r1 = int(rows[0]), int(rows[1])
+    if not 0 <= r0 <= r1 <= n:
+        raise ValueError(f"rows ({r0}, {r1}) outside the cloud's {n}")
+    return r0, r1
 
 
 def _spread3(v: torch.Tensor) -> torch.Tensor:
@@ -119,6 +160,28 @@ def _valid_cols(cloud: SetupCloud) -> torch.Tensor:
 def _chunk(cloud: SetupCloud) -> int:
     bsz, _, n = cloud.pts_t.shape
     return max(32, _CHUNK_BYTES // max(bsz * n * 4, 1))
+
+
+def _row_blocks(r0: int, r1: int, chunk: int, n: int):
+    """(b0, b1, lo, hi): the blocks of ``chunk`` rows at multiples of
+    ``chunk`` (the last one cut at n) that meet the rows [r0, r1), and
+    the rows [lo, hi) of each that lie in them.  The plain versions'
+    matrix products run on whole blocks: a CPU product's row can take
+    other bits in a block of another height or offset, so a row slice
+    computes the whole call's blocks and keeps its rows."""
+    for b0 in range(r0 - r0 % chunk, r1, chunk):
+        b1 = min(n, b0 + chunk)
+        yield b0, b1, max(b0, r0), min(b1, r1)
+
+
+def _block_rows(x: torch.Tensor, r0: int, b0: int, b1: int, lo: int,
+                hi: int, fill: float) -> torch.Tensor:
+    """The rows [b0, b1) of the per-query inputs ``x`` [..., C] of the
+    rows r0 .. r0 + C - 1 along the last axis: its rows [lo, hi), the
+    others ``fill``."""
+    out = x.new_full(x.shape[:-1] + (b1 - b0,), fill)
+    out[..., lo - b0:hi - b0] = x[..., lo - r0:hi - r0]
+    return out
 
 
 def _shifted_d2(cloud: SetupCloud, s: int, e: int) -> torch.Tensor:
@@ -232,35 +295,38 @@ def _rank_search(cand, cc):
     return torch.stack(his, 1)
 
 
-def _thresholds_core_plain(cloud, cc, hib):
+def _thresholds_core_plain(cloud, cc, hib, rows=None):
     bsz, _, n = cloud.pts_t.shape
+    r0, r1 = row_span(rows, n)
     dev = cloud.pts_t.device
     init = torch.tensor(_INIT, dtype=torch.float32, device=dev)
     width = -(-n // CAND) * CAND
     valid = _valid_cols(cloud)
-    out = torch.empty((bsz, cc.shape[1], n), dtype=torch.float32,
+    out = torch.empty((bsz, cc.shape[1], r1 - r0), dtype=torch.float32,
                       device=dev)
     chunk = _chunk(cloud)
-    for s in range(0, n, chunk):
-        e = min(n, s + chunk)
+    for s in range(r0, r1, chunk):
+        e = min(r1, s + chunk)
         r = torch.where(valid[:, None, :], _shifted_d2(cloud, s, e), init)
         r = F.pad(r, (0, width - n), value=_INIT)
         cand = torch.minimum(
             r.view(bsz, e - s, width // CAND, CAND).amin(2), init)
         cand = cand + cloud.tn[:, s:e, None]                  # un-shift
         cand = torch.minimum(cand, hib[:, None, None]).clamp_min(0.0)
-        out[:, :, s:e] = _rank_search(cand, cc)
+        out[:, :, s - r0:e - r0] = _rank_search(cand, cc)
     return out
 
 
-def neighborhood_thresholds_plain(points, n_valid, counts, cloud=None):
+def neighborhood_thresholds_plain(points, n_valid, counts, cloud=None,
+                                  rows=None):
     """Plain PyTorch version of ``neighborhood_thresholds_batched``."""
     cloud, cc, hib, order = _threshold_inputs(points, n_valid, counts,
                                               cloud)
-    return _unpermute(_thresholds_core_plain(cloud, cc, hib), order)
+    return _unpermute(_thresholds_core_plain(cloud, cc, hib, rows), order)
 
 
-def neighborhood_thresholds_batched(points, n_valid, counts, cloud=None):
+def neighborhood_thresholds_batched(points, n_valid, counts, cloud=None,
+                                    rows=None):
     """Batched neighbourhood-size -> distance-threshold conversion.
 
     points [B,N,3] (padded rows arbitrary), n_valid [B], counts [B,T]
@@ -271,20 +337,24 @@ def neighborhood_thresholds_batched(points, n_valid, counts, cloud=None):
     min(counts[b,t], n_valid[b]) (within [c-2, c+4] plus lane-collision
     slack); thr of count k converges to the k-th nearest candidate
     distance from above, so it doubles as the TOLDI radius^2.
+    ``rows=(r0, r1)``: the query rows [r0, r1) only, against the whole
+    cloud -> thr [B,T,r1-r0], the whole call's columns r0:r1.
     """
     cloud, cc, hib, order = _threshold_inputs(points, n_valid, counts,
                                               cloud)
     if not cloud.pts_t.is_cuda:
-        return _unpermute(_thresholds_core_plain(cloud, cc, hib), order)
+        return _unpermute(_thresholds_core_plain(cloud, cc, hib, rows),
+                          order)
     bsz, n, dev = _check_cloud(cloud)
+    r0, r1 = row_span(rows, n)
     t_n = cc.shape[1]
     lib = _build.load()
-    out = torch.empty((bsz, t_n, n), dtype=torch.float32, device=dev)
+    out = torch.empty((bsz, t_n, r1 - r0), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.se3icp_thresholds(
+        code = lib.se3icp_thresholds_rows(
             cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
-            cc.data_ptr(), hib.data_ptr(), out.data_ptr(), bsz, n, t_n,
-            _stream(dev))
+            cc.data_ptr(), hib.data_ptr(), out.data_ptr(), bsz, n, r0,
+            r1 - r0, t_n, _stream(dev))
     _build.check(code, "neighborhood_thresholds_batched")
     _build.count_launch("neighborhood_thresholds_batched", dev)
     return _unpermute(out, order)
@@ -294,33 +364,36 @@ def neighborhood_thresholds_batched(points, n_valid, counts, cloud=None):
 
 # ---------------------------------------------------------------- K2
 
-def _moments_raw_plain(cloud, thr_s):
-    """[B,10 M,N] for thr_s [B,M,N]: per ball m, rows 10 m .. 10 m + 9 =
-    sums of x y z, xx xy xz yy yz zz, 1 over the valid targets with
-    r <= thr_s[:, m] (self included)."""
-    bsz, balls, n = thr_s.shape
+def _moments_raw_plain(cloud, thr_s, r0: int = 0):
+    """[B,10 M,C] for thr_s [B,M,C] of the query rows r0 .. r0 + C - 1:
+    per ball m, rows 10 m .. 10 m + 9 = sums of x y z, xx xy xz yy yz
+    zz, 1 over the valid targets with r <= thr_s[:, m] (self
+    included)."""
+    bsz, balls, nq = thr_s.shape
     valid = _valid_cols(cloud)
     x, y, z = cloud.pts_t.unbind(1)
     feat = torch.stack([x, y, z, x * x, x * y, x * z, y * y, y * z, z * z,
                         torch.ones_like(x)], -1)              # [B,N,10]
-    out = torch.empty((bsz, balls, _SUMS, n), dtype=torch.float32,
+    out = torch.empty((bsz, balls, _SUMS, nq), dtype=torch.float32,
                       device=cloud.pts_t.device)
-    chunk = _chunk(cloud)
-    for s in range(0, n, chunk):
-        e = min(n, s + chunk)
-        r = _shifted_d2(cloud, s, e)
+    for b0, b1, lo, hi in _row_blocks(r0, r0 + nq, _chunk(cloud),
+                                      cloud.pts_t.shape[2]):
+        r = _shifted_d2(cloud, b0, b1)
+        thr = _block_rows(thr_s, r0, b0, b1, lo, hi, float("nan"))
         for m in range(balls):
-            mask = (r <= thr_s[:, m, s:e, None]) & valid[:, None, :]
-            out[:, m, :, s:e] = (mask.to(torch.float32) @ feat).mT
-    return out.view(bsz, balls * _SUMS, n)
+            mask = (r <= thr[:, m, :, None]) & valid[:, None, :]
+            out[:, m, :, lo - r0:hi - r0] = (
+                mask.to(torch.float32) @ feat).mT[..., lo - b0:hi - b0]
+    return out.view(bsz, balls * _SUMS, nq)
 
 
-def _moments_inputs(points, n_valid, thrs, cloud):
-    """The cloud and the shifted thresholds [B,M,N] of the M balls whose
-    thresholds [B,N] are ``thrs``."""
+def _moments_inputs(points, n_valid, thrs, cloud, rows=None):
+    """The cloud and the shifted thresholds [B,M,C] of the M balls whose
+    thresholds [B,C] of the query rows ``rows`` are ``thrs``."""
     cloud = _cloud(points, n_valid, cloud)
+    r0, r1 = row_span(rows, cloud.pts_t.shape[2])
     thr = torch.stack(thrs, 1).to(torch.float32)
-    return cloud, (thr - cloud.tn[:, None, :]).contiguous()
+    return cloud, (thr - cloud.tn[:, None, r0:r1]).contiguous()
 
 
 def _moments_dict(raw, points):
@@ -351,15 +424,18 @@ def _moments_dict(raw, points):
                 all_sum=all_sum, all_cnt=all_cnt, q_t=q_t)
 
 
-def moments_plain(points, n_valid, thr_cen, thr_cov, thr_all, cloud=None):
+def moments_plain(points, n_valid, thr_cen, thr_cov, thr_all, cloud=None,
+                  rows=None):
     """Plain PyTorch version of ``moments_batched``."""
-    cloud, thr_s = _moments_inputs(points, n_valid,
-                                   (thr_cen, thr_cov, thr_all), cloud)
-    return _moments_dict(_moments_raw_plain(cloud, thr_s), points)
+    cloud, thr_s = _moments_inputs(
+        points, n_valid, (thr_cen, thr_cov, thr_all), cloud, rows)
+    r0 = row_span(rows, points.shape[1])[0]
+    return _moments_dict(_moments_raw_plain(cloud, thr_s, r0),
+                         points[:, r0:r0 + thr_s.shape[2]])
 
 
 def moments_batched(points, n_valid, thr_cen, thr_cov, thr_all,
-                    cloud=None):
+                    cloud=None, rows=None):
     """Batched neighbourhood moments for three distance thresholds.
 
     points [B,N,3] (padded rows arbitrary), n_valid [B], thr_* [B,N]
@@ -368,109 +444,126 @@ def moments_batched(points, n_valid, thr_cen, thr_cov, thr_all,
     a dict of COMPONENT-MAJOR per-query sums in the caller's dtype with
     the SELF term removed: cen_sum/cov_sum/all_sum [B,3,N], cen_p9 /
     cov_p9 [B,9,N], cen_cnt/cov_cnt/all_cnt [B,N], and q_t [B,3,N] (the
-    query positions transposed).
+    query positions transposed).  ``rows=(r0, r1)``: the query rows
+    [r0, r1) only (thr_* [B,r1-r0]), every result r1 - r0 wide.
     """
-    return _moments(points, n_valid, (thr_cen, thr_cov, thr_all), cloud)
+    return _moments(points, n_valid, (thr_cen, thr_cov, thr_all), cloud,
+                    rows)
 
 
-def moments_one_ball(points, n_valid, thr, cloud=None):
-    """``moments_batched(points, n_valid, thr, thr, thr, cloud)`` with
-    the one ball summed once (K2's one-ball instance): the same dict,
-    the same bits.  Its launches count as ``moments_batched``'s.
+def moments_one_ball(points, n_valid, thr, cloud=None, rows=None):
+    """``moments_batched(points, n_valid, thr, thr, thr, cloud, rows)``
+    with the one ball summed once (K2's one-ball instance): the same
+    dict, the same bits.  Its launches count as ``moments_batched``'s.
     """
-    return _moments(points, n_valid, (thr,), cloud)
+    return _moments(points, n_valid, (thr,), cloud, rows)
 
 
-def _moments(points, n_valid, thrs, cloud):
+def _moments(points, n_valid, thrs, cloud, rows):
     """K2 over the balls of ``thrs`` (three, or one serving all three)."""
-    cloud, thr_s = _moments_inputs(points, n_valid, thrs, cloud)
+    cloud, thr_s = _moments_inputs(points, n_valid, thrs, cloud, rows)
+    r0, nq = row_span(rows, points.shape[1])[0], thr_s.shape[2]
     if not cloud.pts_t.is_cuda:
-        return _moments_dict(_moments_raw_plain(cloud, thr_s), points)
+        return _moments_dict(_moments_raw_plain(cloud, thr_s, r0),
+                             points[:, r0:r0 + nq])
     bsz, n, dev = _check_cloud(cloud)
     balls = thr_s.shape[1]
-    _check(thr_s, "thresholds", (bsz, balls, n), torch.float32, dev)
+    _check(thr_s, "thresholds", (bsz, balls, nq), torch.float32, dev)
+    order = cloud.rows_order(rows)
     lib = _build.load()
-    raw = torch.empty((bsz, balls * _SUMS, n), dtype=torch.float32,
+    raw = torch.empty((bsz, balls * _SUMS, nq), dtype=torch.float32,
                       device=dev)
     with torch.cuda.device(dev):
-        code = lib.se3icp_moments(
+        code = lib.se3icp_moments_rows(
             cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
-            cloud.order.data_ptr(), thr_s.data_ptr(), raw.data_ptr(), bsz,
-            n, balls, _stream(dev))
+            order.data_ptr(), thr_s.data_ptr(), raw.data_ptr(), bsz, n, r0,
+            nq, balls, _stream(dev))
     _build.check(code, "moments_batched")
     _build.count_launch("moments_batched", dev)
-    return _moments_dict(raw, points)
+    return _moments_dict(raw, points[:, r0:r0 + nq])
 
 
 
 
 # ---------------------------------------------------------------- K3
 
-def _axis_inputs(points, n_valid, normal_t, ndotq, radius, thr_all, cloud):
+def _axis_inputs(points, n_valid, normal_t, ndotq, radius, thr_all, cloud,
+                 rows=None):
     cloud = _cloud(points, n_valid, cloud)
+    r0, r1 = row_span(rows, cloud.pts_t.shape[2])
     f32 = torch.float32
-    aux = torch.stack([thr_all.to(f32) - cloud.tn, radius.to(f32),
-                       ndotq.to(f32)], 1).contiguous()        # [B,3,N]
+    aux = torch.stack([thr_all.to(f32) - cloud.tn[:, r0:r1], radius.to(f32),
+                       ndotq.to(f32)], 1).contiguous()        # [B,3,C]
     return cloud, normal_t.to(f32).contiguous(), aux
 
 
-def _axis_raw_plain(cloud, nrm, aux):
-    """[B,4,N]: sum_j W p_j (3 rows) and sum_j W over the valid targets."""
-    bsz, _, n = cloud.pts_t.shape
+def _axis_raw_plain(cloud, nrm, aux, r0: int = 0):
+    """[B,4,C] for the query rows r0 .. r0 + C - 1: sum_j W p_j (3 rows)
+    and sum_j W over the valid targets."""
+    bsz, _, n_rows = aux.shape
     valid = _valid_cols(cloud)
     pts = cloud.pts_t.mT                                      # [B,N,3]
     t = cloud.pts_t[:, :, None, :]                            # [B,3,1,N]
-    out = torch.empty((bsz, 4, n), dtype=torch.float32, device=cloud.pts_t.device)
-    chunk = _chunk(cloud)
-    for s in range(0, n, chunk):
-        e = min(n, s + chunk)
-        r = _shifted_d2(cloud, s, e)
-        member = (r <= aux[:, 0, s:e, None]) & valid[:, None, :]
-        d = _sqrt_rn(torch.clamp_min(r + cloud.tn[:, s:e, None], 0.0))
-        w1 = aux[:, 1, s:e, None] - d
-        nq = nrm[:, :, s:e, None]                             # [B,3,C,1]
+    out = torch.empty((bsz, 4, n_rows), dtype=torch.float32,
+                      device=cloud.pts_t.device)
+    for b0, b1, lo, hi in _row_blocks(r0, r0 + n_rows, _chunk(cloud),
+                                      cloud.pts_t.shape[2]):
+        blk = _block_rows(aux, r0, b0, b1, lo, hi, float("nan"))
+        nrm_b = _block_rows(nrm, r0, b0, b1, lo, hi, 0.0)
+        r = _shifted_d2(cloud, b0, b1)
+        member = (r <= blk[:, 0, :, None]) & valid[:, None, :]
+        d = _sqrt_rn(torch.clamp_min(r + cloud.tn[:, b0:b1, None], 0.0))
+        w1 = blk[:, 1, :, None] - d
+        nq = nrm_b[:, :, :, None]                             # [B,3,C,1]
         ndp = nq[:, 0] * t[:, 0] + nq[:, 1] * t[:, 1]
         ndp = ndp + nq[:, 2] * t[:, 2]
-        zd = ndp - aux[:, 2, s:e, None]
+        zd = ndp - blk[:, 2, :, None]
         w = torch.where(member, (w1 * w1) * (zd * zd), 0.0)   # [B,C,N]
-        out[:, :3, s:e] = (w @ pts).mT
-        out[:, 3, s:e] = w.sum(-1)
+        keep = slice(lo - b0, hi - b0)
+        out[:, :3, lo - r0:hi - r0] = (w @ pts).mT[..., keep]
+        out[:, 3, lo - r0:hi - r0] = w.sum(-1)[:, keep]
     return out
 
 
 def axis_sums_plain(points, n_valid, normal_t, ndotq, radius, thr_all,
-                    cloud=None):
+                    cloud=None, rows=None):
     """Plain PyTorch version of ``axis_sums_batched``."""
     cloud, nrm, aux = _axis_inputs(points, n_valid, normal_t, ndotq,
-                                   radius, thr_all, cloud)
-    out = _axis_raw_plain(cloud, nrm, aux)
+                                   radius, thr_all, cloud, rows)
+    r0 = row_span(rows, points.shape[1])[0]
+    out = _axis_raw_plain(cloud, nrm, aux, r0)
     return out[:, :3], out[:, 3]
 
 
 def axis_sums_batched(points, n_valid, normal_t, ndotq, radius, thr_all,
-                      cloud=None):
+                      cloud=None, rows=None):
     """Batched TOLDI x-axis weighted sums (component-major).
 
     W_ij = [d2_ij <= thr_all_i] (radius_i - d_ij)^2 (n_i . (p_j - q_i))^2
     (the self term vanishes).  ``normal_t`` [B,3,N] unit normals;
     ``ndotq`` (n_i . q_i), ``radius``, ``thr_all`` [B,N] per query.
     Returns (sum_j W p_j [B,3,N], sum_j W [B,N]) in float32.
+    ``rows=(r0, r1)``: the query rows [r0, r1) only (every per-query
+    input and result r1 - r0 wide).
     """
     cloud, nrm, aux = _axis_inputs(points, n_valid, normal_t, ndotq,
-                                   radius, thr_all, cloud)
+                                   radius, thr_all, cloud, rows)
+    r0 = row_span(rows, points.shape[1])[0]
     if not cloud.pts_t.is_cuda:
-        out = _axis_raw_plain(cloud, nrm, aux)
+        out = _axis_raw_plain(cloud, nrm, aux, r0)
         return out[:, :3], out[:, 3]
     bsz, n, dev = _check_cloud(cloud)
-    _check(nrm, "normal_t", (bsz, 3, n), torch.float32, dev)
-    _check(aux, "thr_all/radius/ndotq", (bsz, 3, n), torch.float32, dev)
+    nq = aux.shape[2]
+    _check(nrm, "normal_t", (bsz, 3, nq), torch.float32, dev)
+    _check(aux, "thr_all/radius/ndotq", (bsz, 3, nq), torch.float32, dev)
+    order = cloud.rows_order(rows)
     lib = _build.load()
-    out = torch.empty((bsz, 4, n), dtype=torch.float32, device=dev)
+    out = torch.empty((bsz, 4, nq), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.se3icp_axis(
+        code = lib.se3icp_axis_rows(
             cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
-            cloud.order.data_ptr(), nrm.data_ptr(), aux.data_ptr(),
-            out.data_ptr(), bsz, n, _stream(dev))
+            order.data_ptr(), nrm.data_ptr(), aux.data_ptr(),
+            out.data_ptr(), bsz, n, r0, nq, _stream(dev))
     _build.check(code, "axis_sums_batched")
     _build.count_launch("axis_sums_batched", dev)
     return out[:, :3], out[:, 3]

@@ -29,6 +29,17 @@ in the kernels of ``ops/cuda_moments.py``; the glue here is the JAX
 package's ``_toldi_fused_from_thr`` / ``_normals_fused_batched`` /
 ``gicp_cov6_from_normals_t``, COMPONENT-MAJOR throughout ([B,C,N]).
 
+Row slices: every function of both routes but SHOT's takes
+``rows=(r0, r1)`` and computes the query rows [r0, r1) only, against the
+whole cloud (the points route of ``parallel/points.py``, where each rank
+takes its own rows; the JAX package's ``queries=`` / ``row_offset=``
+arguments); its per-query inputs and results are then r1 - r0 wide.
+On the threshold route a slice gives the whole call's rows bit for bit
+(the kernels and their plain versions); the exact route's dense
+reductions run their row blocks from the slice's first row, and a CPU
+matrix product's row can take other last bits in a block of another
+height or offset.
+
 Intentional parity quirk: the TOLDI centroid sums neighbours ranked
 1..k//3-1 but divides by k//3, while the covariance uses ranks 1..k//3.
 Reproduced by default; ``exact_centroid=True`` divides by k//3-1 (exact
@@ -72,16 +83,18 @@ def _cov_components(s1, s2, mean, m):
 
 
 def toldi_frames_dense(points: torch.Tensor, d2sorted: torch.Tensor,
-                       n_valid: torch.Tensor,
-                       exact_centroid: bool = False) -> torch.Tensor:
+                       n_valid: torch.Tensor, exact_centroid: bool = False,
+                       rows=None) -> torch.Tensor:
     """TOLDI frames for every point of every cloud.
 
     points [B,N,3]; d2sorted [B,N,k] ascending squared neighbour
     distances with self at rank 0 (``knn.knn_self``); n_valid [B].
-    Returns rot [B,N,3,3] with columns x, y, z.
+    Returns rot [B,N,3,3] with columns x, y, z.  ``rows=(r0, r1)``: the
+    rows [r0, r1) only (d2sorted and the result r1 - r0 long).
     """
     dtype = points.dtype
     bsz, n, _ = points.shape
+    r0, r1 = cuda_moments.row_span(rows, n)
     k = d2sorted.shape[2]
     rz = k // 3
     divisor = float((rz - 1) if exact_centroid else rz)
@@ -94,9 +107,10 @@ def toldi_frames_dense(points: torch.Tensor, d2sorted: torch.Tensor,
     last = torch.clamp(n_valid - 1, min=1).clamp(max=k - 1)   # [B]
     out = []
     chunk = _chunk_rows(bsz, n, points.element_size(), points.device)
-    for s in range(0, n, chunk):
-        q = points[:, s:s + chunk]                            # [B,C,3]
-        d2row = d2sorted[:, s:s + chunk]
+    for s in range(r0, r1, chunk):
+        e = min(r1, s + chunk)
+        q = points[:, s:e]                                    # [B,C,3]
+        d2row = d2sorted[:, s - r0:e - r0]
         c = q.shape[1]
         D2 = knn._pairwise_d2(q, points)                      # [B,C,N]
         base = ((col[None, None, :] != col[s:s + c][None, :, None])
@@ -138,13 +152,16 @@ def toldi_frames_dense(points: torch.Tensor, d2sorted: torch.Tensor,
 
 
 def normals_dense(points: torch.Tensor, d2sorted: torch.Tensor,
-                  k_use: int, n_valid: torch.Tensor) -> torch.Tensor:
+                  k_use: int, n_valid: torch.Tensor,
+                  rows=None) -> torch.Tensor:
     """PCA normals [B,N,3] over the k_use nearest neighbours INCLUDING
     self, recovered as the masked set {j : d2_ij <= midpoint(
     d2sorted[i, k_use-1], d2sorted[i, k_use])} -- so ``d2sorted`` must
-    be at least k_use+1 wide."""
+    be at least k_use+1 wide.  ``rows=(r0, r1)``: the rows [r0, r1) only
+    (d2sorted and the result r1 - r0 long)."""
     dtype = points.dtype
     bsz, n, _ = points.shape
+    r0, r1 = cuda_moments.row_span(rows, n)
     if d2sorted.shape[2] <= k_use:
         raise ValueError(f"d2sorted width {d2sorted.shape[2]} must "
                          f"exceed k_use={k_use}")
@@ -155,9 +172,10 @@ def normals_dense(points: torch.Tensor, d2sorted: torch.Tensor,
     thr = 0.5 * (d2sorted[..., k_use - 1] + d2sorted[..., k_use])
     out = []
     chunk = _chunk_rows(bsz, n, points.element_size(), points.device)
-    for s in range(0, n, chunk):
-        D2 = knn._pairwise_d2(points[:, s:s + chunk], points)
-        M = ((D2 <= thr[:, s:s + chunk, None])
+    for s in range(r0, r1, chunk):
+        e = min(r1, s + chunk)
+        D2 = knn._pairwise_d2(points[:, s:e], points)
+        M = ((D2 <= thr[:, s - r0:e - r0, None])
              & colv[:, None, :]).to(dtype)
         S = M @ p12
         s1 = S[..., :3]
@@ -184,10 +202,11 @@ def rotation_from_e1_to_x(x: torch.Tensor) -> torch.Tensor:
 
 def gicp_covariances_dense(points: torch.Tensor, d2sorted: torch.Tensor,
                            k_use: int, epsilon: float,
-                           n_valid: torch.Tensor) -> torch.Tensor:
+                           n_valid: torch.Tensor, rows=None) -> torch.Tensor:
     """GICP covariance init [B,N,3,3]: dense normals ->
-    Sigma = Rx diag(eps,1,1) Rx^T."""
-    normals = normals_dense(points, d2sorted, k_use, n_valid)
+    Sigma = Rx diag(eps,1,1) Rx^T (of the rows ``rows`` only, as
+    ``normals_dense``)."""
+    normals = normals_dense(points, d2sorted, k_use, n_valid, rows)
     Rx = rotation_from_e1_to_x(normals)
     C = torch.diag(torch.tensor([epsilon, 1.0, 1.0], dtype=points.dtype,
                                 device=points.device))
@@ -264,7 +283,7 @@ def toldi_axis_inputs(mom, thr_k, rz: int):
 
 
 def toldi_frames_thr_t(points, thr_cen, thr_cov, thr_k, k: int, n_valid,
-                       cloud=None, normals_k: int | None = None):
+                       cloud=None, normals_k: int | None = None, rows=None):
     """TOLDI frames from neighbourhood thresholds, TRANSPOSED.
 
     points [B,N,3]; thr_cen / thr_cov / thr_k [B,N] squared-distance
@@ -276,19 +295,21 @@ def toldi_frames_thr_t(points, thr_cen, thr_cov, thr_k, k: int, n_valid,
     ``normals_k``: the pt2pl normals' count when it equals rz (the
     GOLDEN configuration: 30 = 90//3).  The centroid ball's sums ARE
     then the normals' moments, and three rows (n0,n1,n2) are appended
-    ([B,12,N]): no separate normals pass.
+    ([B,12,N]): no separate normals pass.  ``rows=(r0, r1)``: the rows
+    [r0, r1) only (thresholds and result r1 - r0 wide).
     """
     dtype = points.dtype
     rz = k // 3
     if normals_k is not None and normals_k != rz:
         raise ValueError(f"normals_k={normals_k} must equal k//3={rz}")
     mom = cuda_moments.moments_batched(points, n_valid, thr_cen, thr_cov,
-                                       thr_k, cloud=cloud)
+                                       thr_k, cloud=cloud, rows=rows)
     q_t = mom["q_t"]                                          # [B,3,N]
     normal_t, ndotq, radius = toldi_axis_inputs(mom, thr_k, rz)
     arrow = mom["all_sum"] - mom["all_cnt"][:, None] * q_t
     w_p, w_sum = cuda_moments.axis_sums_batched(
-        points, n_valid, normal_t, ndotq, radius, thr_k, cloud=cloud)
+        points, n_valid, normal_t, ndotq, radius, thr_k, cloud=cloud,
+        rows=rows)
     scaled = w_p.to(dtype) - w_sum.to(dtype)[:, None] * q_t   # [B,3,N]
 
     flip = torch.sum(normal_t * arrow, 1) < 0.0
@@ -305,12 +326,13 @@ def toldi_frames_thr_t(points, thr_cen, thr_cov, thr_k, k: int, n_valid,
     return torch.cat(rows, 1)
 
 
-def normals_thr_t(points, thr, k_use: int, n_valid,
-                  cloud=None) -> torch.Tensor:
+def normals_thr_t(points, thr, k_use: int, n_valid, cloud=None,
+                  rows=None) -> torch.Tensor:
     """PCA normals [B,3,N] from one threshold per query: the ball of the
     self-inclusive count ``k_use`` (the mean still divides by k_use, as
-    ``normals_dense``)."""
-    mom = cuda_moments.moments_one_ball(points, n_valid, thr, cloud=cloud)
+    ``normals_dense``); of the rows ``rows`` only."""
+    mom = cuda_moments.moments_one_ball(points, n_valid, thr, cloud=cloud,
+                                        rows=rows)
     return _pca_normal_t(mom, k_use, "cov")
 
 
@@ -333,10 +355,12 @@ def gicp_cov6_from_normals_t(normals_t: torch.Tensor,
 
 
 def gicp_covariances_thr_t(points, thr, k_use: int, epsilon: float,
-                           n_valid, cloud=None) -> torch.Tensor:
-    """GICP covariance init [B,6,N] from one threshold per query."""
+                           n_valid, cloud=None, rows=None) -> torch.Tensor:
+    """GICP covariance init [B,6,N] from one threshold per query (of the
+    rows ``rows`` only)."""
     return gicp_cov6_from_normals_t(
-        normals_thr_t(points, thr, k_use, n_valid, cloud=cloud), epsilon)
+        normals_thr_t(points, thr, k_use, n_valid, cloud=cloud, rows=rows),
+        epsilon)
 
 
 # ---------------------------------------------------------------------

@@ -21,6 +21,10 @@ within 1e-5 of |q|^2 + max |t|^2 (an FMA chain here, a matrix product in
 the plain version), indices equal except between targets within that of
 each other (at most 1% of rows), matched rows copies of the indexed
 payload rows, and the tiled K6/K7 bit-equal to the untiled search.
+K1-K3's row-slice instances (the points route's: rows [r0, r1) of a
+cloud against the whole cloud), concatenated over R = 1, 2, 3, 4 slices,
+a slice of padding rows only among them, are bit-equal to the whole call
+and each to its plain version's slice (K1 bits, K2 counts).
 Needs a host C++20 compiler (``g++``).
 """
 
@@ -113,7 +117,8 @@ def emulated(tmp_path_factory):
                    check=True, capture_output=True, text=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     for name in ("se3icp_thresholds", "se3icp_moments", "se3icp_axis",
-                 "se3icp_nn_argmin", "se3icp_nn_argmin_batched",
+                 "se3icp_thresholds_rows", "se3icp_moments_rows",
+                 "se3icp_axis_rows", "se3icp_nn_argmin", "se3icp_nn_argmin_batched",
                  "se3icp_nn_match_batched", "se3icp_nn_match_packed",
                  "se3icp_nn_match_packed_batched", "se3icp_nn_tiled_smem",
                  "se3icp_match_affine", "se3icp_loop_epilogue"):
@@ -320,6 +325,89 @@ def test_emulated_one_ball_moments_equal_the_three_ball_block(emulated):
     assert got.keys() == want.keys()
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+def _k1_rows(lib, points, nv, counts, rows):
+    cloud, cc, hib, order = cm._threshold_inputs(points, nv, counts, None)
+    bsz, _, n = cloud.pts_t.shape
+    r0, r1 = rows
+    out = torch.full((bsz, cc.shape[1], r1 - r0), float("nan"))
+    assert lib.se3icp_thresholds_rows(
+        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+        cc.data_ptr(), hib.data_ptr(), out.data_ptr(), bsz, n, r0, r1 - r0,
+        cc.shape[1], None) == 0
+    return cm._unpermute(out, order)
+
+
+def _k2_rows(lib, cloud, thr_s, rows):
+    """The emulated K2 on the rows ``rows``: thr_s [B,M,C] -> [B,10 M,C]."""
+    bsz, balls, nq = thr_s.shape
+    order = cloud.rows_order(rows)
+    raw = torch.full((bsz, 10 * balls, nq), float("nan"))
+    assert lib.se3icp_moments_rows(
+        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+        order.data_ptr(), thr_s.data_ptr(), raw.data_ptr(), bsz,
+        cloud.pts_t.shape[2], rows[0], nq, balls, None) == 0
+    return raw
+
+
+def _k3_rows(lib, cloud, nrm, aux, rows):
+    bsz, _, nq = nrm.shape
+    order = cloud.rows_order(rows)
+    out = torch.full((bsz, 4, nq), float("nan"))
+    assert lib.se3icp_axis_rows(
+        cloud.pts_t.data_ptr(), cloud.tn.data_ptr(), cloud.n.data_ptr(),
+        order.data_ptr(), nrm.data_ptr(), aux.data_ptr(), out.data_ptr(),
+        bsz, cloud.pts_t.shape[2], rows[0], nq, None) == 0
+    return out
+
+
+_WHOLE_CALLS: dict = {}
+
+
+def _whole_call(lib, clouds):
+    """(inputs, K1-K3's whole-call results) of ``clouds``, made once."""
+    if clouds not in _WHOLE_CALLS:
+        points, nv = clouds()
+        cloud, thr_s, nrm, aux = _setup_inputs(points, nv)
+        cc = torch.tensor([[90, 31, 30]] * points.shape[0])
+        _WHOLE_CALLS[clouds] = (
+            (points, nv, cc, cloud, thr_s, nrm, aux),
+            (_k1(lib, points, nv, cc), _k2(lib, cloud, thr_s),
+             _k3(lib, cloud, nrm, aux)))
+    return _WHOLE_CALLS[clouds]
+
+
+@pytest.mark.parametrize("clouds,n_slices", [
+    (_ragged_clouds, 1), (_ragged_clouds, 2), (_ragged_clouds, 3),
+    (_ragged_clouds, 4), (_surface_clouds, 3), (_surface_clouds, 4)],
+    ids=["ragged-1", "ragged-2", "ragged-3", "ragged-4", "surface-3",
+         "surface-4"])
+def test_emulated_row_slices_give_the_whole_call_bits(emulated, clouds,
+                                                      n_slices):
+    """K1, K2 and K3 on R contiguous row slices, each against the whole
+    cloud: concatenated, the whole call's bits; each slice K1's plain
+    bits and K2's plain counts.  The surface clouds' last of 4 slices
+    (rows 768-1023, past both n_valid) and the ragged clouds' slices
+    past the first pair's one valid row hold padding only."""
+    (points, nv, cc, cloud, thr_s, nrm, aux), whole = _whole_call(
+        emulated, clouds)
+    n = points.shape[1]
+    parts = []
+    for i in range(n_slices):
+        rows = (i * n // n_slices, (i + 1) * n // n_slices)
+        sl = slice(*rows)
+        thr = _k1_rows(emulated, points, nv, cc, rows)
+        assert torch.equal(thr, cm.neighborhood_thresholds_plain(
+            points, nv, cc, cloud=cloud, rows=rows))
+        raw = _k2_rows(emulated, cloud, thr_s[..., sl].contiguous(), rows)
+        raw_p = cm._moments_raw_plain(cloud, thr_s[..., sl], rows[0])
+        assert torch.equal(raw[:, [9, 19, 29]], raw_p[:, [9, 19, 29]])
+        parts.append((thr, raw, _k3_rows(
+            emulated, cloud, nrm[..., sl].contiguous(),
+            aux[..., sl].contiguous(), rows)))
+    for k, want in enumerate(whole):
+        assert torch.equal(torch.cat([p[k] for p in parts], -1), want), k
 
 
 def test_setup_cloud_query_order_is_a_permutation_valid_rows_first():

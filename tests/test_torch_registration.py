@@ -208,7 +208,9 @@ def test_kernel_wrappers_count_launches_only_on_the_card():
         assert 'extern "C" int se3icp_' in text
     assert set(_build.SIGNATURES) == {
         "se3icp_match_affine", "se3icp_loop_epilogue", "se3icp_thresholds",
-        "se3icp_moments", "se3icp_axis", "se3icp_nn_argmin",
+        "se3icp_moments", "se3icp_axis", "se3icp_thresholds_rows",
+        "se3icp_moments_rows", "se3icp_axis_rows",
+        "se3icp_nn_argmin",
         "se3icp_nn_argmin_batched", "se3icp_nn_match_batched",
         "se3icp_nn_tiled_smem", "se3icp_nn_match_packed",
         "se3icp_nn_match_packed_batched", "se3icp_cond_begin",

@@ -33,7 +33,8 @@ from se3_icp_tpu_torch.utils import metrics_host
 torch.set_num_threads(1)
 
 
-def _jax_k1(points, n_valid, counts, cloud=None):
+def _jax_k1(points, n_valid, counts, cloud=None, rows=None):
+    assert rows is None             # the unsharded route: every row
     thr = pm.neighborhood_thresholds_batched(
         jnp.asarray(points.numpy()), jnp.asarray(n_valid.numpy(), jnp.int32),
         jnp.asarray(counts.numpy(), jnp.int32))
