@@ -21,10 +21,13 @@ against one block a pair). It then drives the main path through the
 public entry points (``register_pairs`` with ``se3_pt2pl`` / ``GOLDEN``
 on 64 seed-made golden-shape pairs, on the default threshold route and
 again with ``exact_knn=True``), then smaller batches of the other
-algorithms, then the CLI as a subprocess.
+algorithms (the pt2pt variants among them, on the captured program),
+then the CLI as a subprocess.
 Then the paths of the 1-NN kernels K6-K9: the multistart restart fleet
 (8 pairs x 8 starts), FGR + FPFH through ``register_pairs(..., "fgr")``
-(64 pairs), the metrics on the main path's results, the public 1-NN
+(64 pairs, a replay of FGR's captured program, held bit for bit with its
+per-pair counts against the eager function on these clouds and on moved
+ones), the metrics on the main path's results, the public 1-NN
 ops, ``run fgr`` and ``run --multi-start`` of the CLI, and K6-K9 against
 their plain versions (K9 at 4608 points, D = 3, and 15360, D = 12, its
 targets split over several blocks a query tile and held bit for bit
@@ -78,10 +81,12 @@ cards present, is quoted), K1-K4's
 row-slice instances at R = 2, 4 on 64 x 4608 and one KITTI road pair
 (1 x 15872; concatenated the whole call's bits, each slice held against
 its plain version), and on a world-1 NCCL group the points route (the
-golden pair, the road pair), the 2-D layout (1 x 1, 32 road pairs) and
+golden pair, the road pair: a replay of its captured program, the
+all_gathers inside the graph), the 2-D layout (1 x 1, 32 road pairs) and
 ``register_pairs_multihost`` (64 pairs), each against the eager loop's
-or ``register_pairs``' bits, with ms a call and launches beside
-``register_arrays``'.  Every phase
+or ``register_pairs``' bits, with ms a call and launches beside the
+points route's eager loop and ``register_arrays``'.  The ``program``
+line, printed last, lists every path's hold.  Every phase
 prints one JSON line; any failed phase raises, so the exit code is
 non-zero and the final ``{"ok": true, ...}`` line is not printed.
 Without a CUDA device it exits with code 2 and prints no result.
@@ -1113,11 +1118,15 @@ PROGRAM_HOLDS = []
 
 def hold_against_eager(path, call, results, stats, route="graph"):
     """``call()`` again under ``EagerLoop``: its results must be the
-    captured run's ``results`` bit for bit (any difference fails)."""
+    captured run's ``results`` bit for bit (any difference fails); the
+    eager call's wall time is recorded."""
     eager_stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with EagerLoop():
         ref = call(eager_stats)
     torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
     same = same_results(results, ref)
     check(same, f"{path}: the captured program's results differ from the "
           "eager loop's")
@@ -1130,7 +1139,7 @@ def hold_against_eager(path, call, results, stats, route="graph"):
         path=path, route=route, same_bits=same,
         loop_steps=stats["loop_steps"], host_syncs=stats["host_syncs"],
         eager_loop_steps=eager_stats["loop_steps"],
-        eager_host_syncs=eager_stats["host_syncs"]))
+        eager_host_syncs=eager_stats["host_syncs"], eager_seconds=eager_s))
 
 
 def zero_launches() -> None:
@@ -1199,7 +1208,9 @@ ALGORITHM_SETUP_LAUNCHES = {
     "se3_gicp": (2, 4, 2),          # frames, then the GICP normals' pass
     "se3_gicp_with_cf": (2, 4, 2),
     "se3_pt2pt": (2, 2, 2),
+    "se3_pure_pt2pt": (2, 2, 2),
     "pt2pl": (1, 1, 0),             # target normals only, no frames
+    "pt2pt": (0, 0, 0),             # no neighbourhoods at all
 }
 
 
@@ -1209,6 +1220,7 @@ def main_path_phase():
     from se3_icp_tpu_torch.datasets.fixtures import NOISY, SMALL_POSE
     from se3_icp_tpu_torch.parallel import pairs
     from se3_icp_tpu_torch.utils.config import GOLDEN, LOUNGE, parse_algorithm
+    PURE = GOLDEN.replace(alpha_rot=0.1, max_num_se3_iterations=60)
 
     problems = golden_pairs(N_PAIRS)
     pair_list = [(p.source, p.target) for p in problems]
@@ -1260,11 +1272,15 @@ def main_path_phase():
     emit("card_vs_cpu", route="threshold", pairs=2, points=600,
          iterations=[r.num_iterations for r in on_card], agree=True)
 
-    # the other algorithms, smaller batches, same entry point and gate
+    # the other algorithms, smaller batches, same entry point and gate;
+    # the pt2pt variants on the captured program too (``solve.kabsch3``)
     for alg, cfg, cfg_name, kw in (
             ("se3_gicp", GOLDEN, "GOLDEN", {}),
             ("se3_gicp_with_cf", LOUNGE, "LOUNGE", NOISY),
             ("se3_pt2pt", GOLDEN, "GOLDEN", {}),
+            ("se3_pure_pt2pt", PURE, "GOLDEN, alpha_rot 0.1, 60 SE(3) "
+             "iterations", {}),
+            ("pt2pt", GOLDEN, "GOLDEN", SMALL_POSE),
             ("pt2pl", GOLDEN, "GOLDEN", SMALL_POSE)):
         probs = golden_pairs(SMALL_BATCH, **kw)
         plist = [(p.source, p.target) for p in probs]
@@ -1847,17 +1863,61 @@ def multistart_phase(with_profile: bool = False):
     return launches
 
 
+def fgr_hold(cfg, packed, moved):
+    """FGR's captured program against the eager function on the same
+    card tensors: the same transform bits and per-pair counts, on the
+    main path's clouds and again on other clouds (the inputs reloaded);
+    ms a call of both (CUDA events, median of 3), each call's peak of
+    allocated memory (a replay's intermediates live in the shared pools,
+    which that peak does not count) and the entry's growth of the
+    shared pools at its capture."""
+    from se3_icp_tpu_torch.models import fgr, program
+    out = {}
+    for tag, arrs in (("golden", packed), ("moved", moved)):
+        se, sg = {}, {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ref = fgr.fgr_register_arrays(*arrs, cfg, stats=se)
+        torch.cuda.synchronize()
+        peak_eager = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = fgr.dispatch_arrays(*arrs, cfg, stats=sg).settle()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        same = (all(torch.equal(a, b) for a, b in zip(got, ref))
+                and se == sg)
+        check(same, f"fgr ({tag}): the captured program's results or "
+              "counts differ from the eager function's")
+        out[tag] = dict(same_bits=True, peak_mem_gb=peak / 1e9,
+                        eager_peak_mem_gb=peak_eager / 1e9)
+    out["ms_program"] = time_ms(
+        lambda: fgr.dispatch_arrays(*packed, cfg).settle(), reps=3)
+    out["ms_eager"] = time_ms(
+        lambda: fgr.fgr_register_arrays(*packed, cfg), reps=3)
+    entries = [e for e in program.info()["cached"] if e["kind"] == "FGR"
+               and e["pairs"] == N_PAIRS]
+    check(len(entries) == 1, f"fgr: {len(entries)} cached 64-pair entries")
+    out["pool_bytes_added"] = entries[0]["pool_bytes_added"]
+    PROGRAM_HOLDS.append(dict(
+        path="fgr", route="graph", same_bits=True, host_syncs=0,
+        eager_host_syncs=None, loop_steps=None, eager_loop_steps=None,
+        ms_program=out["ms_program"], ms_eager=out["ms_eager"]))
+    return out
+
+
 def fgr_phase():
     """FGR + FPFH through ``register_pairs(pairs, "fgr", FGRConfig())``
-    on the main path's 64 golden-shape pairs, every pair gated.  Returns
-    (launches, the features of the first call's clouds for the kernel
-    case)."""
+    on the main path's 64 golden-shape pairs, every pair gated: a replay
+    of its captured program, held against the eager function
+    (``fgr_hold``).  Returns (launches, the features of the first call's
+    clouds for the kernel case)."""
+    from se3_icp_tpu_torch.datasets.fixtures import SMALL_POSE
     from se3_icp_tpu_torch.models import fgr
     from se3_icp_tpu_torch.parallel import pairs
     cfg = fgr.FGRConfig()
     problems = golden_pairs(N_PAIRS)
     pair_list = [(p.source, p.target) for p in problems]
-    pairs.register_pairs(pair_list[:2], "fgr", cfg)      # warm-up
+    pairs.register_pairs(pair_list, "fgr", cfg)     # warm-up: the capture
     torch.cuda.synchronize()
     zero_launches()
     stats = {}
@@ -1878,12 +1938,18 @@ def fgr_phase():
     from se3_icp_tpu_torch.utils import metrics_host as mh
     errs = [mh.angular_error_so3(p.T_gt[:3, :3], r.transformation[:3, :3])
             for p, r in zip(problems, res)]
+    packed = [torch.as_tensor(a, device="cuda")
+              for a in pairs.pack_pairs(pair_list)]
+    moved = [torch.as_tensor(a, device="cuda") for a in pairs.pack_pairs(
+        [(p.source, p.target) for p in golden_pairs(N_PAIRS, **SMALL_POSE)])]
+    hold = fgr_hold(cfg, packed, moved)
     emit("fgr", config="FGRConfig()", pairs=N_PAIRS, points=4167,
-         bucket=4608, seconds=wall, pairs_per_s=N_PAIRS / wall,
+         bucket=4608, route="graph", seconds=wall,
+         pairs_per_s=N_PAIRS / wall,
          worst_rot_deg=rot, median_rot_deg=float(np.median(errs)),
          worst_trans=tra, reciprocal=stats["reciprocal"],
          kept_correspondences=stats["kept_correspondences"],
-         launches=launches, peak_mem_gb=peak)
+         launches=launches, peak_mem_gb=peak, program=hold)
     # where the call's time goes: its stages on the same packed clouds,
     # each ended by a synchronize; their features are the D = 33 kernel
     # case's inputs
@@ -3232,19 +3298,30 @@ def pairs_mesh_runs(total):
 
 def points_run(tag, src, n_src, tgt, n_tgt, cfg, algorithm, total,
                setup_launches, problems):
-    """The points route on the world-1 NCCL group against the eager
-    loop on the same tensors (bits; every pair within 2 deg / 0.25), and
-    against ``register_arrays`` (the captured program) for time; ms a
-    call and launches."""
-    from se3_icp_tpu_torch.models import registration as reg
+    """The points route on the world-1 NCCL group, a replay of its
+    captured program with the all_gathers inside, against the eager
+    loop on the same tensors (bits, loop steps, no host sync; every pair
+    within 2 deg / 0.25), and for time against the points route's eager
+    loop and ``register_arrays`` (the one-device program); ms a call
+    and launches."""
+    import torch.distributed as dist
+    from se3_icp_tpu_torch.models import program, registration as reg
     from se3_icp_tpu_torch.parallel import points
     from se3_icp_tpu_torch.utils.config import parse_algorithm
     mode, variant = parse_algorithm(algorithm)
     args = (src, n_src, tgt, n_tgt, cfg)
-    ref = reg.register_arrays_eager(*args, mode, variant)
-    got = points.register_arrays_points_sharded(*args, algorithm)
+    se, sg = {}, {}
+    ref = reg.register_arrays_eager(*args, mode, variant, stats=se)
+    got = points.register_arrays_points_sharded(*args, algorithm, stats=sg)
     check(all(torch.equal(a, b) for a, b in zip(got, ref)),
           f"points route ({tag}): other bits than the eager loop")
+    check(sg["host_syncs"] == 0 and sg["loop_steps"] == se["loop_steps"],
+          f"points route ({tag}): {sg} captured, {se} eager")
+    PROGRAM_HOLDS.append(dict(
+        path=f"points route ({tag})", route="graph", same_bits=True,
+        loop_steps=sg["loop_steps"], host_syncs=sg["host_syncs"],
+        eager_loop_steps=se["loop_steps"],
+        eager_host_syncs=se["host_syncs"]))
     T = got[0].double().cpu().numpy()
     check(np.isfinite(T).all(), f"points route ({tag}): not finite")
     gate(problems, [types.SimpleNamespace(transformation=Ti) for Ti in T],
@@ -3260,10 +3337,20 @@ def points_run(tag, src, n_src, tgt, n_tgt, cfg, algorithm, total,
     sum_launches(total, launches)
     sharded = lambda: points.register_arrays_points_sharded(*args,
                                                             algorithm)
+    entry = [e for e in program.info()["cached"]
+             if e.get("points_group") == 1 and e["pairs"] == src.shape[0]
+             and e["source_width"] == src.shape[1]]
     return dict(case=tag, algorithm=algorithm, shape=list(src.shape),
+                route="graph",
+                pool_bytes_added=[e["pool_bytes_added"] for e in entry],
                 same_bits_as_eager=True, iterations=got[1].tolist()[:4],
-                loop_steps=stats["loop_steps"], launches=launches,
+                loop_steps=stats["loop_steps"],
+                host_syncs=stats["host_syncs"], launches=launches,
                 ms_points_route=time_ms(sharded, reps=3),
+                ms_points_route_eager=time_ms(
+                    lambda: reg.register_arrays_eager(
+                        *args, mode, variant, group=dist.group.WORLD),
+                    reps=3),
                 ms_eager_loop=time_ms(
                     lambda: reg.register_arrays_eager(*args, mode, variant),
                     reps=3),
@@ -3285,6 +3372,7 @@ def scaleout_phase():
     mesh_runs, checksum = pairs_mesh_runs(total)
     cases = slice_phase_cases()
     multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    pairs_group = points_group = None
     try:
         check(dist.get_backend() == "nccl", "the world group is not NCCL")
         from se3_icp_tpu_torch.models import registration as reg
@@ -3313,6 +3401,8 @@ def scaleout_phase():
         batch = [torch.as_tensor(a, device="cuda") for a in
                  pairs.pack_pairs([(p.source, p.target) for p in road])]
         ref = reg.register_arrays_eager(*batch, KITTI_SE3, "se3", "pt2pl")
+        points.register_batch_2d(*batch, KITTI_SE3, "se3_pt2pl",
+                                 pairs_group, points_group)   # the capture
         stats = {}
         zero_launches()
         got = points.register_batch_2d(*batch, KITTI_SE3, "se3_pt2pl",
@@ -3329,7 +3419,8 @@ def scaleout_phase():
              "register_batch_2d on the road")
         grid = dict(layout="1 x 1", pairs=len(road),
                     shape=list(batch[0].shape), same_bits_as_eager=True,
-                    loop_steps=stats["loop_steps"], launches=launches)
+                    loop_steps=stats["loop_steps"],
+                    host_syncs=stats["host_syncs"], launches=launches)
         # the multi-process route, one process
         pl = [(p.source, p.target) for p in golden_pairs(N_PAIRS)]
         want = pairs.register_pairs(pl, "se3_pt2pl", GOLDEN, mesh=False)
@@ -3340,6 +3431,9 @@ def scaleout_phase():
               "register_pairs_multihost (world 1): other bits than "
               "register_pairs")
     finally:
+        from se3_icp_tpu_torch.models import program
+        for g in (pairs_group, points_group, dist.group.WORLD):
+            program.release_group(g)
         dist.destroy_process_group()
     emit("scaleout", seconds=time.perf_counter() - t_start,
          pairs_mesh=mesh_runs, **checksum,
@@ -3368,30 +3462,44 @@ def main() -> int:
         return smoke()
 
 
+PHASE_SECONDS = {}
+
+
+def timed_phase(fn, *a, **kw):
+    """``fn(*a, **kw)``, its wall time kept under its name for the
+    ``total`` line."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    PHASE_SECONDS[fn.__name__] = time.perf_counter() - t0
+    return out
+
+
 def smoke() -> int:
     t_start = time.perf_counter()
-    device = device_phase()
-    build_phase()
-    k1_cases, k2_cases, k3_cases = setup_kernels_phase()
-    k4_cases, k5_cases = kernels_phase()
-    launches, results = main_path_phase()
-    serving_phase()
-    cli_phase()
+    device = timed_phase(device_phase)
+    timed_phase(build_phase)
+    k1_cases, k2_cases, k3_cases = timed_phase(setup_kernels_phase)
+    k4_cases, k5_cases = timed_phase(kernels_phase)
+    launches, results = timed_phase(main_path_phase)
+    timed_phase(serving_phase)
+    timed_phase(cli_phase)
     # the paths of the 1-NN kernels, each with its own launch counts
-    ms_launches = multistart_phase(with_profile="--profile" in sys.argv[1:])
-    program_phase()
-    fgr_launches, feats = fgr_phase()
-    metrics_launches = metrics_phase(results)
-    ops_launches = ops_phase()
-    cli_slice3_phase()
-    proto_launches, proto_cases = protocols_phase()
-    bunny_launches = bunny_phase()
-    scaleout_launches, slice_cases = scaleout_phase()
+    ms_launches = timed_phase(multistart_phase,
+                              with_profile="--profile" in sys.argv[1:])
+    fgr_launches, feats = timed_phase(fgr_phase)
+    metrics_launches = timed_phase(metrics_phase, results)
+    ops_launches = timed_phase(ops_phase)
+    timed_phase(cli_slice3_phase)
+    proto_launches, proto_cases = timed_phase(protocols_phase)
+    bunny_launches = timed_phase(bunny_phase)
+    scaleout_launches, slice_cases = timed_phase(scaleout_phase)
+    timed_phase(program_phase)
     for cases, key in ((k1_cases, "k1"), (k2_cases, "k2"), (k3_cases, "k3"),
                        (k4_cases, "k4"), (k5_cases, "k5")):
         cases.extend(proto_cases[key])
         cases.extend(slice_cases.get(key, []))
-    k6_cases, k7_cases, k8_cases, k9_cases = nn_kernels_phase(feats)
+    k6_cases, k7_cases, k8_cases, k9_cases = timed_phase(nn_kernels_phase,
+                                                         feats)
     del feats
 
     def entry(cases, key, source, replaces, counts=None):
@@ -3439,7 +3547,8 @@ def smoke() -> int:
               "se3_icp_tpu/ops/pallas_knn.py:49",
               {"metrics": metrics_launches, "protocols": proto_launches}),
     ]
-    emit("total", seconds=time.perf_counter() - t_start)
+    emit("total", seconds=time.perf_counter() - t_start,
+         phase_seconds=PHASE_SECONDS)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -169,7 +169,23 @@ def register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
     ``bwd`` (int [B,Ns] / [B,Nt]), the tuple test on ``raw`` random
     integers [tuple_trials, 3] (default ``raw_triples(cfg)``), scale
     normalisation, the GNC loop and the denormalisation.  Returns T
-    [B,4,4] (identity for pairs with fewer than 3 correspondences)."""
+    [B,4,4] (identity for pairs with fewer than 3 correspondences).
+    ``stats`` (optional dict) receives the per-pair counts as lists."""
+    if cfg.tuple_test and raw is None:
+        raw = raw_triples(cfg, src.device)
+    T, recip, kept = _register_from_matches(src, n_src, tgt, n_tgt, fwd,
+                                            bwd, cfg, raw)
+    if stats is not None:
+        stats["reciprocal"] = recip.tolist()
+        stats["kept_correspondences"] = kept.tolist()
+    return T
+
+
+def _register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
+                           cfg: FGRConfig, raw):
+    """``register_from_matches`` with the per-pair counts as device
+    tensors: (T [B,4,4], reciprocal-set sizes [B], correspondences kept
+    by the tuple test [B]).  Reads nothing back."""
     dtype = src.dtype
     bsz, ns, _ = src.shape
     src_valid = _valid(n_src, ns)
@@ -181,14 +197,10 @@ def register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
              == torch.arange(ns, device=src.device)[None, :]) & src_valid
 
     if cfg.tuple_test:
-        if raw is None:
-            raw = raw_triples(cfg, src.device)
         corr_w = _tuple_test(src, tgt, fwd, recip, cfg, raw.to(src.device))
     else:
         corr_w = recip.to(dtype)
-    if stats is not None:
-        stats["reciprocal"] = recip.sum(-1).tolist()
-        stats["kept_correspondences"] = (corr_w > 0).sum(-1).tolist()
+    kept = (corr_w > 0).sum(-1)
 
     # scale normalisation (original FGR NormalizePoints)
     cen_s = _masked_centroid(src, src_valid, n_src)
@@ -235,14 +247,36 @@ def register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
               + cen_t)
     T_out = se3.rt_to_T(R, t_orig)
     # degenerate correspondence sets fall back to the identity
-    ok = (corr_w > 0).sum(-1) >= 3
-    return torch.where(ok[:, None, None], T_out,
-                       torch.eye(4, dtype=dtype, device=src.device))
+    ok = kept >= 3
+    return (torch.where(ok[:, None, None], T_out,
+                        torch.eye(4, dtype=dtype, device=src.device)),
+            recip.sum(-1), kept)
+
+
+def program_body(inp: dict, cfg: FGRConfig):
+    """The whole of FGR on the buffers ``inp`` (``src``, ``n_src``,
+    ``tgt``, ``n_tgt`` and, with the tuple test, ``raw``), reading
+    nothing back: (T, iters, pure_iters, reciprocal [B], kept [B]).  The
+    eager function runs it as it stands; on the card
+    ``models/program.run_fgr`` captures it."""
+    src, n_src, tgt, n_tgt = inp["src"], inp["n_src"], inp["tgt"], \
+        inp["n_tgt"]
+    feat_s = features(src, n_src, cfg)
+    feat_t = features(tgt, n_tgt, cfg)
+    fwd, bwd = reciprocal_matches(feat_s, n_src, feat_t, n_tgt)
+    del feat_s, feat_t
+    T, recip, kept = _register_from_matches(src, n_src, tgt, n_tgt, fwd,
+                                            bwd, cfg, inp.get("raw"))
+    iters = torch.full((src.shape[0],), cfg.iteration_number,
+                       dtype=torch.int32, device=src.device)
+    return T, iters, torch.zeros_like(iters), recip, kept
 
 
 def fgr_register_arrays(src, n_src, tgt, n_tgt, cfg: FGRConfig,
                         raw=None, stats: dict | None = None):
-    """FGR of a batch of padded pairs on the tensors' device.
+    """FGR of a batch of padded pairs on the tensors' device, eagerly:
+    the CPU's route, and on the card the reference of the captured
+    program (``dispatch_arrays``).
 
     src [B,Ns,3], n_src [B], tgt [B,Nt,3], n_tgt [B].  Returns (T
     [B,4,4], iters [B], pure_iters [B]) with the contract of
@@ -251,24 +285,35 @@ def fgr_register_arrays(src, n_src, tgt, n_tgt, cfg: FGRConfig,
     ``raw_triples``).  ``stats`` (optional dict) receives the per-pair
     reciprocal-set sizes (``reciprocal``) and correspondences kept by the
     tuple test (``kept_correspondences``)."""
+    inp = dict(src=src, n_src=n_src, tgt=tgt, n_tgt=n_tgt)
+    if cfg.tuple_test:
+        inp["raw"] = raw_triples(cfg, src.device) if raw is None else raw
     with torch.no_grad(), knn.full_precision():
-        feat_s = features(src, n_src, cfg)
-        feat_t = features(tgt, n_tgt, cfg)
-        fwd, bwd = reciprocal_matches(feat_s, n_src, feat_t, n_tgt)
-        del feat_s, feat_t
-        T = register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd, cfg,
-                                  raw, stats)
-    bsz = src.shape[0]
-    iters = torch.full((bsz,), cfg.iteration_number, dtype=torch.int32,
-                       device=src.device)
-    return T, iters, torch.zeros_like(iters)
+        T, iters, pure, recip, kept = program_body(inp, cfg)
+    if stats is not None:
+        stats["reciprocal"] = recip.tolist()
+        stats["kept_correspondences"] = kept.tolist()
+    return T, iters, pure
+
+
+def dispatch_arrays(src, n_src, tgt, n_tgt, cfg: FGRConfig, raw=None,
+                    stats: dict | None = None):
+    """``fgr_register_arrays`` without waiting for the card: on the card
+    the captured program (``models/program.run_fgr``), on the CPU the
+    eager function.  Returns a ``registration.Dispatched``."""
+    from se3_icp_tpu_torch.models import registration as reg
+    if src.device.type == "cuda":
+        from se3_icp_tpu_torch.models import program
+        return program.run_fgr(src, n_src, tgt, n_tgt, cfg, raw, stats)
+    return reg.Dispatched(fgr_register_arrays(src, n_src, tgt, n_tgt, cfg,
+                                              raw, stats))
 
 
 def fgr_register(source_points, target_points,
                  cfg: FGRConfig | None = None, dtype=torch.float32,
                  device="cuda"):
     """Host-facing FGR of one pair (``RegistrationResult`` contract).
-    Runs on the card unless ``device='cpu'``."""
+    Runs on the card (the captured program) unless ``device='cpu'``."""
     from se3_icp_tpu_torch.models.registration import (RegistrationResult,
                                                        _bucket,
                                                        resolve_device,
@@ -284,10 +329,10 @@ def fgr_register(source_points, target_points,
     src_p[0, :ns] = src
     tgt_p = np.zeros((1, _bucket(nt), 3))
     tgt_p[0, :nt] = tgt
-    T, it, pure = fgr_register_arrays(
+    T, it, pure = dispatch_arrays(
         torch.as_tensor(src_p, dtype=dtype, device=dev),
         torch.tensor([ns], dtype=torch.int32, device=dev),
         torch.as_tensor(tgt_p, dtype=dtype, device=dev),
-        torch.tensor([nt], dtype=torch.int32, device=dev), cfg)
+        torch.tensor([nt], dtype=torch.int32, device=dev), cfg).settle()
     return RegistrationResult(T[0].double().cpu().numpy(), int(it[0]),
                               int(pure[0]))

@@ -25,7 +25,8 @@ Mechanics:
     always take that route, with their own radius neighbourhoods;
   * each iteration is two hand-written kernels -- the fused match
     (``ops/cuda_knn.py``) and the fused epilogue (``ops/cuda_loop.py``)
-    -- plus a 6x6 solve or 3x3 SVD, and with ``anderson_m`` >= 2 an
+    -- plus a 6x6 solve or pt2pt's Kabsch rotation (``solve.kabsch3``,
+    no SVD), and with ``anderson_m`` >= 2 an
     Anderson-accelerated step in se(3) twist coordinates
     (``anderson_step``);
   * every state update is masked by a per-pair ``done`` flag, so a step
@@ -36,8 +37,7 @@ Mechanics:
     device once every pair is done: no host sync between upload and
     download.  The eager loop (``run_loop``: the same ``loop_step``,
     with the host reading ``done.all()`` every ``_POLL_EVERY`` steps) is
-    the CPU route, the route of the pt2pt variants on the card (see
-    ``loop_route``) and the captured program's reference
+    the CPU route and the captured program's reference
     (``register_arrays_eager``);
   * float hyperparameters travel as one device vector (``split_cfg``,
     ``Hyper``), so one captured program serves every value of a sweep;
@@ -52,8 +52,10 @@ Mechanics:
     replicated on the full rows (the JAX package's points route turns
     its fused epilogue off and takes its XLA epilogue), so the route
     keeps the unsharded bits and the exact-count trim, and every rank
-    reaches the same stop decision, which the collectives need.  It runs
-    the eager polled loop (``run_loop``), not the captured program.
+    reaches the same stop decision, which the collectives need.  On an
+    NCCL group the route is a captured program too, its all_gathers
+    inside the graph (``models/program.py``); on a gloo group (the CPU)
+    it runs the eager polled loop.
 
 Behavioural parity notes, all reproduced:
   * the 12-D match uses alpha/beta-weighted frames, but trimming/MSE use
@@ -862,13 +864,9 @@ def check_supported(cfg: RegistrationConfig) -> None:
 def loop_route(device, mode: str, variant: str) -> str:
     """Which loop a registration takes: ``"graph"`` -- the captured
     program of ``models/program.py``, setup and loop as one CUDA graph
-    that stops on the device -- on the card, ``"eager"`` (``run_loop``,
-    polled) on the CPU.  The pt2pt variants (``pt2pt``, ``se3_pt2pt``,
-    ``se3_pure_pt2pt``) stay eager on the card: their step's 3x3 SVD
-    (``torch.linalg.svd``) checks its input on the host, a sync that a
-    capture cannot hold."""
-    eff_variant = "gicp" if mode == "se3_cf" else variant
-    if torch.device(device).type != "cuda" or eff_variant == "pt2pt":
+    that stops on the device -- on the card, for every mode and
+    estimator; ``"eager"`` (``run_loop``, polled) on the CPU."""
+    if torch.device(device).type != "cuda":
         return "eager"
     return "graph"
 
@@ -891,18 +889,28 @@ class Dispatched:
     """A registration's results while the device may still compute them:
     ``out`` = (T, it, pure_it[, hist]) on the device.  A captured
     program also leaves ``steps``, its device count of the loop steps it
-    ran; ``settle`` reads it (or takes the value a caller fetched with
-    the results), adds it to ``stats`` with no host sync, and returns
-    ``out``."""
+    ran, and ``per_pair``, {stats key: [B] device tensor} (FGR's counts).
+    ``settle`` reads them (or takes the values a caller fetched with the
+    results), puts them in ``stats`` -- ``steps`` added to
+    ``loop_steps`` with no host sync, ``per_pair`` as lists -- and
+    returns ``out``."""
 
-    def __init__(self, out: tuple, steps=None, stats: dict | None = None):
+    def __init__(self, out: tuple, steps=None, stats: dict | None = None,
+                 per_pair: dict | None = None):
         self.out, self.steps, self._stats = out, steps, stats
+        self.per_pair = per_pair or {}
 
-    def settle(self, steps: int | None = None) -> tuple:
-        if self.steps is not None and self._stats is not None:
-            n = int(self.steps) if steps is None else int(steps)
-            self._stats["loop_steps"] = self._stats.get("loop_steps", 0) + n
-            self._stats["host_syncs"] = self._stats.get("host_syncs", 0)
+    def settle(self, steps: int | None = None,
+               per_pair: dict | None = None) -> tuple:
+        if self._stats is not None:
+            if self.steps is not None:
+                n = int(self.steps) if steps is None else int(steps)
+                self._stats["loop_steps"] = (self._stats.get("loop_steps", 0)
+                                             + n)
+                self._stats["host_syncs"] = self._stats.get("host_syncs", 0)
+            for key, val in self.per_pair.items():
+                self._stats[key] = (val.tolist() if per_pair is None
+                                    else per_pair[key])
             self._stats = None
         return self.out
 
@@ -913,11 +921,11 @@ def register_arrays_eager(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
                           stats: dict | None = None,
                           exact_knn: bool = False, group=None):
     """``register_arrays`` on the eager route on any device: setup, then
-    ``run_loop`` polling every ``_POLL_EVERY`` steps.  The CPU's route and
-    the pt2pt variants' on the card; on the card also the reference the
-    captured program is held against, bit for bit.  ``group``: the
-    points route over that process group (every rank calls this with the
-    same arguments; see the module docstring)."""
+    ``run_loop`` polling every ``_POLL_EVERY`` steps.  The CPU's route;
+    on the card the reference the captured program is held against, bit
+    for bit.  ``group``: the points route over that process group (every
+    rank calls this with the same arguments; see the module
+    docstring)."""
     check_supported(cfg)
     is_se3 = mode != "icp"
     with torch.no_grad(), knn.full_precision():
@@ -938,18 +946,23 @@ def register_arrays_eager(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
 def dispatch_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,
                     mode: str, variant: str, record_history: bool = False,
                     initial_T=None, stats: dict | None = None,
-                    exact_knn: bool = False) -> Dispatched:
+                    exact_knn: bool = False, group=None) -> Dispatched:
     """``register_arrays`` without waiting for the card: the route of
-    ``loop_route``; the captured program reads nothing back."""
+    ``loop_route``; the captured program reads nothing back.  ``group``:
+    the points route over that process group (NCCL on the card, gloo on
+    the CPU; ``check_group``)."""
+    if group is not None:
+        check_group(group, src.device)
     if loop_route(src.device, mode, variant) == "eager":
         return Dispatched(register_arrays_eager(
             src, n_src, tgt, n_tgt, cfg, mode, variant, record_history,
-            initial_T, stats, exact_knn))
+            initial_T, stats, exact_knn, group))
     check_supported(cfg)
     from se3_icp_tpu_torch.models import program
     return program.run(src, n_src, tgt, n_tgt, cfg, mode, variant,
                        exact_knn=exact_knn, initial_T=initial_T,
-                       record_history=record_history, stats=stats)
+                       record_history=record_history, stats=stats,
+                       group=group)
 
 
 def register_arrays(src, n_src, tgt, n_tgt, cfg: RegistrationConfig,

@@ -208,8 +208,10 @@ def gicp_covariances_dense(points: torch.Tensor, d2sorted: torch.Tensor,
     ``normals_dense``)."""
     normals = normals_dense(points, d2sorted, k_use, n_valid, rows)
     Rx = rotation_from_e1_to_x(normals)
-    C = torch.diag(torch.tensor([epsilon, 1.0, 1.0], dtype=points.dtype,
-                                device=points.device))
+    # made by fills: a copy from the host could not be captured
+    diag = torch.ones(3, dtype=points.dtype, device=points.device)
+    diag[:1].fill_(epsilon)
+    C = torch.diag(diag)
     return Rx @ C @ Rx.mT
 
 

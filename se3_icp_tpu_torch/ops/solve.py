@@ -18,10 +18,12 @@ Every estimator takes a full-length 0/1 (or confidence) mask instead of
 a compacted subset.  Operands are feature-major ``[B,3,N]`` / ``[B,6,N]``
 like the loop's payload.  The ``solve_*_T`` functions do the whole step;
 ``solve_from_normal`` / ``solve_pt2pt_from_moments`` finish a step whose
-reduction already ran in the fused loop epilogue.  The 6x6 solve and the
-3x3 SVD are ``torch.linalg`` calls.  Failure (singular / non-finite /
-under-determined) degrades to identity like Open3D's
-``SolveJacobianSystemAndObtainExtrinsicMatrix``.
+reduction already ran in the fused loop epilogue.  The 6x6 solve is
+``torch.linalg.solve_ex`` (no check on the host); the pt2pt step's
+rotation is ``kabsch3``, a fixed sequence of elementwise ops and 4x4
+products in place of a 3x3 SVD, which on the card checks its input on
+the host.  Failure (singular / non-finite / under-determined) degrades
+to identity like Open3D's ``SolveJacobianSystemAndObtainExtrinsicMatrix``.
 """
 
 from __future__ import annotations
@@ -59,18 +61,71 @@ def solve_from_normal(JTJ, JTr, wsum):
     return _safe_transform(solve_normal_equations(JTJ, JTr), wsum > 5.5)
 
 
+# squarings of the shifted 4x4 matrix in ``kabsch3``: after k of them
+# the runner-up eigenvalue's share is r^(2^k), r = |l_2 + s| / (l_1 + s),
+# so the quaternion is exact to rounding wherever rounding leaves the
+# answer defined (1 - r down to ~eps: 2^24 in float32; 2^32 keeps
+# float64 at rounding for sigma2 / sigma1 down to ~1e-8)
+_SQUARINGS = {torch.float32: 24, torch.float64: 32}
+_RESCALE_EVERY = 4     # a PSD trace falls at most 2^30-fold in 4 squarings
+
+
+def kabsch3(H: torch.Tensor) -> torch.Tensor:
+    """The rotation R [B,3,3] maximising tr(R^T H) for H [B,3,3]: the
+    Kabsch/Umeyama rotation U diag(1, 1, sign det(U V^T)) V^T of the SVD
+    H = U S V^T, reflection fix included, without an SVD.
+
+    Horn's quaternion form: tr(R^T H) = q^T N q for the unit quaternion
+    q of R and the symmetric traceless 4x4 N built linearly from H, whose
+    eigenvalues are the sums +-s1 +- s2 +- s3 of the singular values with
+    an even number of minus signs (odd when det H < 0).  Its top
+    eigenvector is the answer.  With s = |H|_F (>= s1 >= s3) the top
+    eigenvalue of N + s I is the largest in magnitude, so its repeated
+    square, rescaled by its trace (4 s before the first square),
+    converges to the projector on that eigenvector; the projector's
+    column of largest diagonal is q up to sign.  A fixed count of
+    squarings (``_SQUARINGS``) and no ``torch.linalg`` call, so nothing
+    is read back on the host.  Where R is unique (rank H >= 2 and
+    the smallest singular value simple when det H < 0) it is LAPACK's R
+    to rounding; rank 1 gives one of the optimal rotations; H = 0 gives
+    the identity (LAPACK's U = V = I)."""
+    dtype = H.dtype
+    # Sab = sum s_a t_b of H = sum t s^T
+    (xx, yx, zx), (xy, yy, zy), (xz, yz, zz) = (
+        [H[:, i, j] for j in range(3)] for i in range(3))
+    a, b, c = yz - zy, zx - xz, xy - yx
+    N = torch.stack([
+        xx + yy + zz, a, b, c,
+        a, xx - yy - zz, xy + yx, zx + xz,
+        b, xy + yx, yy - xx - zz, yz + zy,
+        c, zx + xz, yz + zy, zz - xx - yy], -1).view(-1, 4, 4)
+    shift = torch.sqrt((H * H).sum((1, 2)))
+    M = N + torch.diag_embed(shift[:, None].expand(-1, 4))
+    tiny = torch.finfo(dtype).tiny
+    for k in range(_SQUARINGS[dtype]):
+        if k % _RESCALE_EVERY == 0:
+            tr = M.diagonal(dim1=1, dim2=2).sum(-1)
+            M = M / tr.clamp_min(tiny)[:, None, None]
+        M = M @ M
+    j = M.diagonal(dim1=1, dim2=2).argmax(-1)
+    q = M.gather(2, j[:, None, None].expand(-1, 4, 1))[..., 0]
+    nq = torch.sqrt((q * q).sum(-1, keepdim=True))
+    ident = torch.zeros_like(q)
+    ident[:, 0] = 1.0
+    q = torch.where(nq > 0, q / nq.clamp_min(tiny), ident)
+    # R = (2 w^2 - 1) I + 2 (v v^T + w [v]x), q = (w, v)
+    w, v = q[:, :1, None], q[:, 1:]
+    outer = v[:, :, None] * v[:, None, :] + w * se3.skew(v)
+    return torch.diag_embed((2.0 * w * w - 1.0)[:, 0].expand(-1, 3)) \
+        + 2.0 * outer
+
+
 def solve_pt2pt_from_moments(H, mu_s, mu_t, wsum):
     """Finish a pt2pt (Umeyama) step from the weighted moments
     H = sum w (t - mu_t)(s - mu_s)^T [B,3,3] and the weighted means
     [B,3]; wsum [B]."""
     ok = (wsum > 2.5) & torch.isfinite(H).flatten(1).all(-1)
-    # a non-finite H would make the SVD raise; such pairs are identity
-    Hs = torch.where(ok[:, None, None], H, torch.zeros_like(H))
-    U, _, Vt = torch.linalg.svd(Hs)
-    d = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
-    D = torch.diag_embed(torch.stack(
-        [torch.ones_like(d), torch.ones_like(d), d], -1))
-    R = U @ D @ Vt
+    R = kabsch3(H)
     t = mu_t - (R @ mu_s[..., None])[..., 0]
     return _safe_transform(se3.rt_to_T(R, t), ok)
 

@@ -18,7 +18,8 @@ pinned staging buffer and padded to the 512-point bucket on the card
 caller's arrays (``_device_clouds``).
 
 ``algorithm="fgr"`` runs Fast Global Registration (``models/fgr.py``)
-on the same batch contract, eagerly.
+on the same batch contract; on the card it too is one captured program
+(``program.run_fgr``), its per-pair counts fetched with the results.
 
 A pairs mesh (``default_mesh``: a tuple of devices, every visible card
 by default) shards the pair axis with no communication, the JAX
@@ -142,8 +143,8 @@ def _dispatch_batch(src, n_src, tgt, n_tgt, cfg, algorithm: str,
     if algorithm == "fgr":
         from se3_icp_tpu_torch.models import fgr
         fcfg = cfg if isinstance(cfg, fgr.FGRConfig) else fgr.FGRConfig()
-        return reg.Dispatched(fgr.fgr_register_arrays(
-            src, n_src, tgt, n_tgt, fcfg, stats=stats))
+        return fgr.dispatch_arrays(src, n_src, tgt, n_tgt, fcfg,
+                                   stats=stats)
     mode, variant = parse_algorithm(algorithm)
     return reg.dispatch_arrays(src, n_src, tgt, n_tgt, cfg, mode, variant,
                                initial_T=initial_T, stats=stats,
@@ -403,10 +404,11 @@ class PendingBatch:
 
     Holds the batch's results on the device; ``result()`` waits for the
     card with ONE device-to-host fetch of the transforms, iteration
-    counts and the loop's step count, and builds the RegistrationResult
-    list.  A serving loop packs and dispatches batch N+1 while the card
-    still runs batch N (its queue runs in order), hiding host packing
-    and the upload behind compute -- see
+    counts and the loop's step count (FGR: its per-pair counts), and
+    builds the RegistrationResult list.  A serving loop packs and
+    dispatches batch N+1 while the card still runs batch N (its queue
+    runs in order), hiding host packing and the upload behind compute --
+    see
     ``examples/streaming_registration.py`` of the JAX package, whose
     ``PendingBatch`` this is.  Over a mesh it holds each shard's
     results and fetches them one transfer a shard.
@@ -430,8 +432,11 @@ class PendingBatch:
                         pure[:, None].double()]
                 if d.steps is not None:
                     cols.append(d.steps.double().expand(T.shape[0], 1))
+                cols += [v[:, None].double() for v in d.per_pair.values()]
                 flat = torch.cat(cols, dim=1).cpu().numpy()  # one fetch
-                d.settle(int(flat[0, 18]) if d.steps is not None else None)
+                extra = flat[:, 18:].T.astype(np.int64).tolist()
+                steps = extra.pop(0)[0] if d.steps is not None else None
+                d.settle(steps, dict(zip(d.per_pair, extra)))
                 self._results += [
                     reg.RegistrationResult(row[:16].reshape(4, 4).copy(),
                                            int(row[16]), int(row[17]))

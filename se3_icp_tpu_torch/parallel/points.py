@@ -22,10 +22,13 @@ replicated on every rank:
 
 Every rank calls the entry points with the same arguments; the padded
 widths must divide by the group's size.  Tensors on the card need an
-NCCL group and CPU tensors a gloo group: nothing falls back.  The route
-runs the eager polled loop; it is for clouds too large for one card, and
-many small pairs shard better over a pairs mesh (``parallel/pairs.py``),
-which needs no communication.
+NCCL group and CPU tensors a gloo group: nothing falls back.  On an
+NCCL group the route replays a captured program (``models/program.py``)
+with its all_gathers inside the graph, as the JAX package runs it as one
+``jit(shard_map(...))``; on a gloo group it runs the eager polled loop.
+It is for clouds too large for one card; many small pairs shard better
+over a pairs mesh (``parallel/pairs.py``), which needs no
+communication.
 
 A 2-D layout (``mesh_2d``, ``register_batch_2d``) shards a batch of
 large pairs both ways: the ranks are laid out pairs x points, each row
@@ -63,14 +66,14 @@ def register_arrays_points_sharded(src, n_src, tgt, n_tgt,
     device (the same values on every rank); Ns and Nt must divide by the
     group's size (``ValueError``).  Returns (T [B,4,4], iters [B],
     pure_iters [B]), the same on every rank.  ``stats`` (optional dict)
-    receives ``loop_steps`` and ``host_syncs``."""
+    receives ``loop_steps`` and ``host_syncs``.  On the card this replays
+    the group's captured program."""
     if algorithm == "fgr":
         raise ValueError("fgr has no points route")
     mode, variant = parse_algorithm(algorithm)
-    return reg.register_arrays_eager(src, n_src, tgt, n_tgt, cfg, mode,
-                                     variant, stats=stats,
-                                     exact_knn=exact_knn,
-                                     group=points_mesh(group))
+    return reg.dispatch_arrays(src, n_src, tgt, n_tgt, cfg, mode, variant,
+                               stats=stats, exact_knn=exact_knn,
+                               group=points_mesh(group)).settle()
 
 
 def register_pair_model_parallel(source_points, target_points,

@@ -4,16 +4,22 @@ serving surface on the card.  These tests need a CUDA device and
 on a GPU machine with ``python -m pytest tests/test_torch_gpu_program.py
 -q --noconftest``.
 
-Held: every mode and estimator on the captured program gives the eager
+Held: every mode and estimator on the captured program -- the pt2pt
+variants too, their rotation from ``solve.kabsch3`` -- gives the eager
 loop's bits (``registration.register_arrays_eager``) at 8 pairs, with
 the eager loop's step count and no host sync, the loop kernels' launches
-counted on the card once a step that ran, and the pt2pt variants run the
-eager route; configs that differ in a traced float share one
-program and each gets its own eager bits; a second dispatched batch
+counted on the card once a step that ran; configs that differ in a
+traced float share one program and each gets its own eager bits; a
+second dispatched batch
 leaves the first one's results alone; a failing capture raises and
 nothing runs eagerly in its place; SHOT frames (exact and capped) and
 Anderson acceleration (``anderson_m`` 3 and 5) give the eager loop's
-bits on the captured program with no host sync.
+bits on the captured program with no host sync; FGR's captured program
+(``program.run_fgr``) gives ``fgr_register_arrays``' transforms and
+per-pair counts bit for bit, on a second batch of other clouds too (the
+inputs reloaded), with a caller's own triples and with the default ones
+after them (the triples buffer reloaded); the exact route with GICP
+covariances captures and gives the eager bits.
 """
 
 import numpy as np
@@ -42,6 +48,8 @@ ALGORITHMS = [
     ("gicp", GOLDEN, fixtures.SMALL_POSE),
     ("se3_pt2pt", GOLDEN, {}),
     ("pt2pt", GOLDEN, fixtures.SMALL_POSE),
+    ("se3_pure_pt2pt", GOLDEN.replace(alpha_rot=0.1,
+                                      max_num_se3_iterations=30), {}),
 ]
 
 
@@ -69,9 +77,7 @@ def _same(a, b):
 def test_the_captured_program_gives_the_eager_bits(card, alg, cfg, kw):
     _, (src, n_src, tgt, n_tgt) = _batch(card, **kw)
     mode, variant = parse_algorithm(alg)
-    route = reg.loop_route(card, mode, variant)
-    assert route == ("eager" if variant == "pt2pt" else "graph")
-    captures = program.info()["captures"]
+    assert reg.loop_route(card, mode, variant) == "graph"
     st, se = {}, {}
     got = reg.register_arrays(src, n_src, tgt, n_tgt, cfg, mode, variant,
                               stats=st)
@@ -79,21 +85,16 @@ def test_the_captured_program_gives_the_eager_bits(card, alg, cfg, kw):
                                     variant, stats=se)
     assert _same(got, ref)
     assert st["loop_steps"] == se["loop_steps"] > 0
-    if route == "graph":
-        assert st["host_syncs"] == 0 and se["host_syncs"] > 0
-        # a second call replays the same program; its loop kernels count
-        # one launch a step that ran on the card
-        before = program.info()["captures"]
-        _build.zero_launches()
-        again = reg.register_arrays(src, n_src, tgt, n_tgt, cfg, mode,
-                                    variant)
-        n = _build.launches()
-        assert _same(again, ref) and program.info()["captures"] == before
-        assert (n["nn_match_affine"] == n["loop_epilogue_batched"]
-                == se["loop_steps"])
-    else:
-        assert st["host_syncs"] > 0
-        assert program.info()["captures"] == captures
+    assert st["host_syncs"] == 0 and se["host_syncs"] > 0
+    # a second call replays the same program; its loop kernels count
+    # one launch a step that ran on the card
+    before = program.info()["captures"]
+    _build.zero_launches()
+    again = reg.register_arrays(src, n_src, tgt, n_tgt, cfg, mode, variant)
+    n = _build.launches()
+    assert _same(again, ref) and program.info()["captures"] == before
+    assert (n["nn_match_affine"] == n["loop_epilogue_batched"]
+            == se["loop_steps"])
 
 
 def test_history_and_warm_start_on_the_captured_program(card):
@@ -189,5 +190,45 @@ def test_shot_and_anderson_on_the_captured_program(card, name, cfg, kw):
     ref = reg.register_arrays_eager(src, n_src, tgt, n_tgt, cfg, "se3",
                                     "pt2pl", stats=se)
     assert program.info()["captures"] == captures + 1
+    assert _same(got, ref)
+    assert st["host_syncs"] == 0 and st["loop_steps"] == se["loop_steps"]
+
+
+def test_fgr_program_gives_the_eager_bits(card):
+    from se3_icp_tpu_torch.models import fgr
+    cfg = fgr.FGRConfig(iteration_number=32)        # a program of its own
+    _, first = _batch(card)
+    _, moved = _batch(card, **fixtures.SMALL_POSE)
+    captures = program.info()["captures"]
+    outs = []
+    for arrs in (first, moved):
+        se, sg = {}, {}
+        ref = fgr.fgr_register_arrays(*arrs, cfg, stats=se)
+        got = pairs.register_batch(*arrs, cfg, "fgr", stats=sg)
+        assert _same(got, ref) and se == sg
+        assert len(sg["reciprocal"]) == first[0].shape[0]
+        outs.append(got)
+    assert program.info()["captures"] == captures + 1
+    assert not torch.equal(outs[0][0], outs[1][0])
+    # a caller's own triples, then the default ones again
+    raw = torch.randint(0, 1 << 30, (cfg.tuple_trials, 3),
+                        generator=torch.Generator().manual_seed(5))
+    own = fgr.dispatch_arrays(*first, cfg, raw=raw).settle()
+    assert _same(own, fgr.fgr_register_arrays(*first, cfg,
+                                              raw=raw.to(card)))
+    assert not torch.equal(own[0], outs[0][0])
+    assert _same(fgr.dispatch_arrays(*first, cfg).settle(), outs[0])
+    assert program.info()["captures"] == captures + 1
+
+
+def test_the_exact_route_with_gicp_on_the_captured_program(card):
+    # the GICP covariances' constant is made by fills on the card, so the
+    # exact route's setup holds no copy from the host
+    _, (src, n_src, tgt, n_tgt) = _batch(card)
+    st, se = {}, {}
+    got = reg.register_arrays(src, n_src, tgt, n_tgt, GOLDEN, "se3", "gicp",
+                              stats=st, exact_knn=True)
+    ref = reg.register_arrays_eager(src, n_src, tgt, n_tgt, GOLDEN, "se3",
+                                    "gicp", stats=se, exact_knn=True)
     assert _same(got, ref)
     assert st["host_syncs"] == 0 and st["loop_steps"] == se["loop_steps"]

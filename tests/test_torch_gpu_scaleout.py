@@ -11,11 +11,13 @@ them its iteration count, can follow its batch's size on the card,
 PERF.md §7);
 K1-K3 on 2 and 3 row slices of 8 x 4608 clouds, concatenated, give the
 whole call's bits (K1 each slice its plain version's bits), K4 on
-slices of ``feat16`` likewise; the points route on the golden pair, the
-2-D layout on 1 x 1 ranks and ``register_pairs_multihost`` give the
-eager loop's or the one-process call's bits; a gloo group asked to serve
-card tensors raises.  Several cards are not needed: the collectives
-across ranks are held on the CPU (``test_torch_scaleout_*.py``).
+slices of ``feat16`` likewise; the points route on the golden pair (a
+replay of its captured program, the all_gathers inside the graph, no
+host sync), the 2-D layout on 1 x 1 ranks and
+``register_pairs_multihost`` give the eager loop's or the one-process
+call's bits; a gloo group asked to serve card tensors raises.  Several
+cards are not needed: the collectives across ranks are held on the CPU
+(``test_torch_scaleout_*.py``).
 """
 
 import copy
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 from se3_icp_tpu_torch.datasets import fixtures
-from se3_icp_tpu_torch.models import registration as reg
+from se3_icp_tpu_torch.models import program, registration as reg
 from se3_icp_tpu_torch.ops import cuda_knn, cuda_moments as cm, knn, lrf
 from se3_icp_tpu_torch.parallel import multihost, pairs, points
 from se3_icp_tpu_torch.utils.config import GOLDEN
@@ -54,6 +56,7 @@ def world():
         port = sock.getsockname()[1]
     multihost.initialize(f"127.0.0.1:{port}", 1, 0)
     yield dist.group.WORLD
+    program.release_group(dist.group.WORLD)
     dist.destroy_process_group()
 
 
@@ -133,10 +136,21 @@ def test_setup_and_match_slices_give_the_whole_call_bits(card, n_slices):
 
 def test_points_route_gives_the_eager_bits(card, world):
     batch = _batch(card, _problems(1))
-    want = reg.register_arrays_eager(*batch, GOLDEN, "se3", "pt2pl")
+    se, sg = {}, {}
+    want = reg.register_arrays_eager(*batch, GOLDEN, "se3", "pt2pl",
+                                     stats=se)
     got = points.register_arrays_points_sharded(*batch, GOLDEN, "se3_pt2pl",
-                                                 world)
+                                                 world, stats=sg)
     assert _same(got, want)
+    assert sg["host_syncs"] == 0 and se["host_syncs"] > 0
+    assert sg["loop_steps"] == se["loop_steps"]
+    # the eager points route, its all_gathers polled step by step, too
+    assert _same(reg.register_arrays_eager(*batch, GOLDEN, "se3", "pt2pl",
+                                           group=world), want)
+    captures = program.info()["captures"]
+    assert _same(points.register_arrays_points_sharded(
+        *batch, GOLDEN, "se3_pt2pl", world), want)
+    assert program.info()["captures"] == captures
     pg, qg = points.mesh_2d(1, 1)
     batch = _batch(card, _problems(4))
     assert _same(points.register_batch_2d(*batch, GOLDEN, "se3_gicp", pg, qg),

@@ -11,8 +11,9 @@ plain versions, for every mode and estimator of ``torch_port_cases``:
   (c) the program's own body (``program._program``: groups of
       ``_POLL_EVERY`` steps copied into the state buffers, the device
       step counter), with every group run, gives the eager route's bits;
-  (d) which loop each variant takes on the card (``loop_route``): the
-      pt2pt variants stay eager.
+  (d) which loop each algorithm takes (``loop_route``): the captured
+      program on the card for every one, the pt2pt variants too, the
+      eager loop on the CPU.
 
 Two pairs of ~450 points a case, float32, a loop cap of 40.
 """
@@ -25,7 +26,8 @@ import torch
 import torch_port_cases as cases
 from se3_icp_tpu_torch.models import program, registration as reg
 from se3_icp_tpu_torch.parallel import pairs
-from se3_icp_tpu_torch.utils.config import RegistrationConfig, parse_algorithm
+from se3_icp_tpu_torch.utils.config import (ALGORITHMS, RegistrationConfig,
+                                            parse_algorithm)
 
 torch.set_num_threads(1)
 
@@ -116,13 +118,9 @@ def test_the_programs_body_gives_the_eager_bits(case):
                              cfg.max_num_se3_iterations) + 1
 
 
-def test_the_pt2pt_variants_stay_eager_on_the_card():
-    want = {"pt2pt": "eager", "pt2pl": "graph", "gicp": "graph",
-            "se3_pt2pt": "eager", "se3_pt2pl": "graph", "se3_gicp": "graph",
-            "se3_gicp_with_cf": "graph", "se3_pure_pt2pt": "eager",
-            "se3_pure_pt2pl": "graph", "se3_pure_gicp": "graph"}
-    for alg, route in want.items():
+def test_every_algorithm_takes_the_graph_on_the_card():
+    for alg in ALGORITHMS:
         mode, variant = parse_algorithm(alg)
-        assert reg.loop_route("cuda", mode, variant) == route, alg
-        assert reg.loop_route("cuda:0", mode, variant) == route, alg
+        assert reg.loop_route("cuda", mode, variant) == "graph", alg
+        assert reg.loop_route("cuda:0", mode, variant) == "graph", alg
         assert reg.loop_route("cpu", mode, variant) == "eager", alg

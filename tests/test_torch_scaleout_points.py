@@ -11,7 +11,10 @@ bits (transform, iterations, pure iterations); on the exact route in
 float64 the result equals the JAX package's points route over the same
 number of virtual devices to 1e-8 with equal iteration counts, and the
 port's unsharded exact route bit for bit; a padded width the group does
-not divide raises, and so does a gloo group asked to serve CUDA tensors.
+not divide raises, and so does a gloo group asked to serve CUDA tensors;
+the captured program's body (``program._program``) with every group of
+steps run on the group gives the eager points route's bits
+(``se3_pt2pt``: the rotation from ``solve.kabsch3``).
 """
 
 import numpy as np
@@ -94,3 +97,11 @@ def test_the_route_refuses_what_it_cannot_shard(ranks):
         f"padded cloud size 513 must be divisible by the points group's "
         f"size {world}")
     assert "needs a nccl process group" in refused["cuda_on_gloo"]
+
+
+def test_program_body_gives_the_eager_points_route_bits(ranks):
+    _, got = ranks
+    body, eager = got[0]["program_body"], got[0]["program_body_eager"]
+    assert _same(body, eager)
+    assert body[3] == max(worker.BASE["max_num_iterations"],
+                          worker.BASE["max_num_se3_iterations"]) + 1

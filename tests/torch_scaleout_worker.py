@@ -9,12 +9,15 @@ a rank.  Scenarios:
 
   points     the points route (``parallel/points.py``) on the tests'
              problems: threshold route float32 for four configurations,
-             exact route float64, and the refusals;
+             exact route float64, the refusals, and the captured
+             program's body (``program._program``) on the group with
+             every group of steps run, beside the eager loop;
   grid       ``register_batch_2d`` on a 2 x 2 layout of four ranks;
   multihost  ``register_pairs_multihost`` with uneven per-process
              counts, with a process holding none, and FGR.
 """
 
+import contextlib
 import os
 import sys
 
@@ -87,6 +90,25 @@ def points(world):
     except ValueError as e:
         refused["cuda_on_gloo"] = str(e)
     out["refused"] = refused
+    # the points route's program body (models/program.py) with every
+    # group of steps run: the all_gathers of the setup and of each step
+    from se3_icp_tpu_torch.models import program
+    from se3_icp_tpu_torch.parallel import pairs
+    p = problem(seed=2)
+    src, n_src, tgt, n_tgt = (torch.as_tensor(a) for a in
+                              pairs.pack_pairs([(p.source, p.target)]))
+    cfg = RegistrationConfig(**BASE)
+    floats, scfg = reg.split_cfg(cfg, torch.float32, "cpu")
+    inp = dict(src=src, n_src=n_src, tgt=tgt, n_tgt=n_tgt, floats=floats)
+    with torch.no_grad():
+        T, it, pure, _, steps = program._program(
+            inp, scfg, "se3", "pt2pt", False, False,
+            lambda pred: contextlib.nullcontext(), group=mp.points_mesh())
+    eager = reg.register_arrays_eager(src, n_src, tgt, n_tgt, cfg, "se3",
+                                      "pt2pt", group=mp.points_mesh())
+    out["program_body"] = (T[0], int(it[0]), int(pure[0]), int(steps))
+    out["program_body_eager"] = (eager[0][0], int(eager[1][0]),
+                                 int(eager[2][0]))
     return out
 
 
