@@ -288,7 +288,14 @@ def build_phase() -> None:
              f"balls={k.split('moments_kernelILi')[1][0]}": v
              for k, v in res.items() if "moments_kernelILi" in k},
          axis_sums_batched={k: v for k, v in res.items()
-                            if "axis_kernel" in k})
+                            if "axis_kernel" in k},
+         frame_inputs={f"mode={k.split('frame_inputs_kernelILi')[1][0]}": v
+                       for k, v in res.items()
+                       if "frame_inputs_kernelILi" in k},
+         frame_assembly={k: v for k, v in res.items()
+                         if "frame_assembly_kernel" in k},
+         step_update={("pt2pt" if "kernelILb1" in k else "6x6"): v
+                      for k, v in res.items() if "step_update_kernel" in k})
 
 
 def golden_pairs(n_pairs, **kw):
@@ -835,6 +842,155 @@ def kernels_phase():
     return k4_cases, k5_cases
 
 
+def glue_bits(got, want) -> int:
+    """Entries of two tensors (or tuples, dicts of them) whose bits
+    differ, NaN against NaN counted equal."""
+    if isinstance(got, dict):
+        return sum(glue_bits(got[k], want[k]) for k in got)
+    if isinstance(got, tuple):
+        return sum(glue_bits(a, b) for a, b in zip(got, want))
+    if got is None or want is None:
+        return 0 if got is None and want is None else 1
+    want = want.contiguous()
+    differ = got != want
+    if got.is_floating_point():
+        differ &= ~(torch.isnan(got) & torch.isnan(want))
+    return int(differ.sum())
+
+
+def glue_case(name, fn, plain, tag, ops, nbytes, shape):
+    """A glue kernel against its plain version on the same inputs: the
+    same bits or it fails; ms through the wrapper, the kernel alone
+    (torch.profiler), the plain version's ms and the bound."""
+    got = fn()
+    torch.cuda.synchronize()
+    differ = glue_bits(got, plain())
+    check(differ == 0, f"{name}: {differ} entries differ from the plain "
+          "version's bits")
+    return dict(name=name, max_abs_err=0.0, bit_equal=True,
+                entries_differing=differ, ms=time_ms(fn),
+                kernel_alone_ms=alone_ms(fn, tag),
+                plain_ms=time_ms(plain, reps=3),
+                **bound(ops, nbytes, op_rate=PEAK_F32_OPS_NO_FMA),
+                library_ms=None, shape=shape)
+
+
+def frame_glue_cases(tag, pts, nv, fuse):
+    """G1 (TOLDI inputs, the fused normal with ``fuse``; the one-ball
+    normals and GICP covariances of count 20) and G2 at the inputs the
+    setup gives them on one cloud batch."""
+    from se3_icp_tpu_torch.ops import cuda_frames, cuda_moments as cm
+    bsz, n, _ = pts.shape
+    cloud = cm.setup_cloud(pts, nv)
+    cc = torch.tensor([90, 31, 30, 20], dtype=torch.int32,
+                      device=pts.device).expand(bsz, -1)
+    thr = cm.neighborhood_thresholds_batched(pts, nv, cc, cloud=cloud)
+    raw = cm.moments_raw(pts, nv, (thr[:, 2], thr[:, 1], thr[:, 0]), cloud)
+    nk = 30 if fuse else None
+    args = (raw, pts, cloud.tn, thr[:, 0], 30, nk)
+    queries = float(nv.sum())
+    shape = dict(B=bsz, N=n)
+    # G1: ~300 operations a query for the covariance and its eigenvector
+    # (the fused normal as many again); reads the covariance ball's 10
+    # sums, the centroid ball's 3 (10 fused), the query, |q|^2 and its
+    # threshold (5), writes 6 rows (9 fused)
+    g1 = [glue_case(f"frame_inputs[{tag}{', fused normal' if fuse else ''}]",
+                    lambda: cuda_frames.frame_inputs(*args),
+                    lambda: cuda_frames.frame_inputs_plain(*args),
+                    "frame_inputs_kernel", (600 if fuse else 300) * queries,
+                    4 * bsz * n * (25 + 9 if fuse else 18 + 6), shape)]
+    normal_t, aux, fused = cuda_frames.frame_inputs(*args)
+    w = cm.axis_sums_aux(pts, nv, normal_t, aux, cloud)
+    a2 = (raw, pts, normal_t, w, fused)
+    g2 = [glue_case(f"frame_assembly[{tag}]",
+                    lambda: cuda_frames.frame_assembly(*a2),
+                    lambda: cuda_frames.frame_assembly_plain(*a2),
+                    "frame_assembly_kernel", 60 * queries,
+                    4 * bsz * n * (14 + 18 + (6 if fuse else 0)), shape)]
+    one = cm.moments_raw(pts, nv, (thr[:, 3],), cloud)
+    for eps in (None, 1e-3):
+        a1 = (one, pts, 20, 0, eps)
+        g1.append(glue_case(
+            f"frame_inputs[{tag}, one ball, "
+            f"{'normals' if eps is None else 'gicp covariances'}]",
+            lambda _a=a1: cuda_frames.ball_normals(*_a),
+            lambda _a=a1: cuda_frames.ball_normals_plain(*_a),
+            "frame_inputs_kernel", 300 * queries,
+            4 * bsz * n * (13 + (3 if eps is None else 6)), shape))
+    return g1, g2
+
+
+def step_glue_case(name, problems, alg, cfg):
+    """G3 against ``cuda_step.step_update_plain`` two steps into the
+    loop, a fifth of the pairs done; beside it the torch glue it replaced
+    (``registration.torch_glue_update``) on the same inputs."""
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.ops import cuda_step
+    from se3_icp_tpu_torch.utils.config import parse_algorithm
+    mode, _ = parse_algorithm(alg)
+    ms, pre = match_state(problems, cfg, alg)
+    with torch.no_grad():
+        s, c = reg.init_loop(ms, pre.scaling, cfg, mode, hyper_on(cfg),
+                             record_history=True)
+        for _ in range(2):
+            s = reg.loop_step(s, ms, c)
+        s.done[::5] = True
+        A, b, st = reg._match_and_epilogue(s, ms, c, s.W, s.ph2, s.pf)
+        keys = cuda_step.STATE + ("hist", "W", "ph2", "pf")
+        state = {k: getattr(s, k) for k in keys}
+        kw = dict(variant=ms.variant, is_se3=ms.is_se3, hybrid=c.hybrid,
+                  do_trim=c.ep_kw["do_trim"], max_iters=c.max_iters,
+                  max_se3_iters=cfg.max_num_se3_iterations)
+        work = {k: v.clone() for k, v in state.items()}
+
+        def run(fn, st_=None):
+            return {k: v for k, v in fn(
+                A, b, st, st_ or {k: v.clone() for k, v in state.items()},
+                c.hv, c.stop_thresh, c.n_src_f, **kw).items() if k in keys}
+        bsz = A.shape[0]
+        # per pair: the 6x6 elimination, retraction and update ~600
+        # operations, pt2pt's 24 squarings ~1,900; reads A, b, st and the
+        # state (~80 floats), writes the state, the history row, W, ph2
+        # and pf (~320)
+        ops = (1900 if ms.variant == "pt2pt" else 600) * bsz
+        case = glue_case(name, lambda: run(cuda_step.step_update, work),
+                         lambda: run(cuda_step.step_update_plain),
+                         "step_update_kernel", ops, 4 * bsz * 400,
+                         dict(B=bsz, variant=ms.variant, hybrid=c.hybrid))
+        case["replaced_glue_ms"] = time_ms(
+            lambda: reg.torch_glue_update(s, A, b, st, ms, c), reps=3)
+        case["done_pairs"] = int(s.done.sum())
+    return case
+
+
+def glue_kernels_phase():
+    """G1-G3 against their plain versions, bit for bit, at the main
+    path's shapes (both sides of its 64 golden-shape pairs, the target's
+    TOLDI pass with the fused pt2pl normal) and at the KITTI road's
+    bucket (1 x 15872); G3 for pt2pl, GICP and pt2pt at 64 pairs."""
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    problems = golden_pairs(N_PAIRS)
+    g1, g2, g3 = [], [], []
+    for side, (pts, nv) in zip(("64x4608", "64x4608, target"),
+                               setup_clouds(problems)):
+        a, b = frame_glue_cases(side, pts, nv, fuse=bool("target" in side))
+        g1.extend(a)
+        g2.extend(b)
+    (pts, nv), _ = setup_clouds(golden_pairs(1, n=15500))
+    a, b = frame_glue_cases(f"1x{pts.shape[1]}", pts, nv, fuse=False)
+    g1.extend(a)
+    g2.extend(b)
+    for alg, cfg in (("se3_pt2pl", GOLDEN),
+                     ("se3_gicp", GOLDEN.replace(estimated_overlap=0.75)),
+                     ("se3_pt2pt", GOLDEN)):
+        g3.append(step_glue_case(
+            f"step_update[{alg}, 64 pairs"
+            f"{', trimmed' if cfg.estimated_overlap < 1 else ''}]",
+            problems, alg, cfg))
+    torch.cuda.empty_cache()
+    return g1, g2, g3
+
+
 def protocol_kernel_cases(folder, max_index):
     """K1-K5 against their plain versions at the KITTI protocol's own
     shapes, on its scans: the batched run's first chunk (32 pairs packed
@@ -918,15 +1074,20 @@ class SetupSplit:
     the wrappers are wrapped (within the ``with`` block only) so that
     each call is bracketed by synchronizations."""
 
-    NAMES = ("neighborhood_thresholds_batched", "moments_batched",
-             "axis_sums_batched")
+    NAMES = (("cuda_moments", "neighborhood_thresholds_batched"),
+             ("cuda_moments", "moments_raw"),
+             ("cuda_moments", "axis_sums_aux"),
+             ("cuda_frames", "frame_inputs"),
+             ("cuda_frames", "ball_normals"),
+             ("cuda_frames", "frame_assembly"))
 
     def __enter__(self):
-        from se3_icp_tpu_torch.ops import cuda_moments as cm
-        self.cm, self.orig, self.seconds = cm, {}, dict.fromkeys(
-            self.NAMES, 0.0)
-        for name in self.NAMES:
-            fn = self.orig[name] = getattr(cm, name)
+        from se3_icp_tpu_torch.ops import cuda_frames, cuda_moments
+        mods = dict(cuda_moments=cuda_moments, cuda_frames=cuda_frames)
+        self.orig = {}
+        self.seconds = {name: 0.0 for _, name in self.NAMES}
+        for mod, name in self.NAMES:
+            fn = self.orig[(mods[mod], name)] = getattr(mods[mod], name)
 
             def timed(*a, _fn=fn, _name=name, **kw):
                 torch.cuda.synchronize()
@@ -935,12 +1096,12 @@ class SetupSplit:
                 torch.cuda.synchronize()
                 self.seconds[_name] += time.perf_counter() - t0
                 return out
-            setattr(cm, name, timed)
+            setattr(mods[mod], name, timed)
         return self
 
     def __exit__(self, *exc):
-        for name, fn in self.orig.items():
-            setattr(self.cm, name, fn)
+        for (mod, name), fn in self.orig.items():
+            setattr(mod, name, fn)
 
 
 def phases_line(problems):
@@ -1027,8 +1188,9 @@ def phases_line(problems):
          setup_split=dict(
              seconds=split_s,
              thresholds_seconds=sec["neighborhood_thresholds_batched"],
-             moments_axis_seconds=(sec["moments_batched"]
-                                   + sec["axis_sums_batched"]),
+             moments_axis_seconds=sec["moments_raw"] + sec["axis_sums_aux"],
+             glue_kernels_seconds=(sec["frame_inputs"] + sec["ball_normals"]
+                                   + sec["frame_assembly"]),
              glue_seconds=split_s - kernels_s),
          setup_exact_seconds=exact_s, setup_exact_knn_seconds=knn_s,
          loop_seconds=loop_s, loop_steps=stats["loop_steps"],
@@ -1072,7 +1234,9 @@ def profile_line(call, phase="profile", emit_line=True):
                      calls=sum(r[1] for r in rows if tag in r[2]))
            for tag in ("thresholds_kernel", "moments_kernel", "axis_kernel",
                        "match_affine_kernel", "epilogue_kernel", "nn_kernel",
-                       "nn_tiled_kernel", "set_if_kernel")}
+                       "nn_tiled_kernel", "set_if_kernel",
+                       "frame_inputs_kernel", "frame_assembly_kernel",
+                       "step_update_kernel")}
     busy = device_busy_ms(prof)
     line = dict(device_ms_total=total / 1e3, device_busy_ms=busy,
                 wall_ms_profiled=1e3 * wall,
@@ -1156,10 +1320,23 @@ def read_launches() -> dict:
     return _build.launches()
 
 
+def check_glue_launches(what, launches, steps):
+    """The glue kernels went with their neighbours: G1 once after each
+    K2 launch (its sums' frame inputs, normals or covariances), G2 once
+    after each K3 launch (the frames), G3 ``steps`` times (once a loop
+    step; 0 on the Anderson route, whose step is torch glue)."""
+    for name, n in (("frame_inputs", launches["moments_batched"]),
+                    ("frame_assembly", launches["axis_sums_batched"]),
+                    ("step_update", steps)):
+        check(launches[name] == n,
+              f"{what} launched {name} {launches[name]} times, not {n}")
+
+
 def check_launches(what, launches, loop_steps, setup):
-    """The loop kernels launch once per loop step; the setup kernels
-    ``setup`` = (K1, K2, K3) times, as the count sets give."""
-    for name in ("nn_match_affine", "loop_epilogue_batched"):
+    """The loop kernels launch once per loop step (K4, K5, G3); the setup
+    kernels ``setup`` = (K1, K2, K3) times, as the count sets give, and
+    G1, G2 with K2, K3."""
+    for name in ("nn_match_affine", "loop_epilogue_batched", "step_update"):
         check(launches[name] == loop_steps > 0,
               f"{what} launched {name} {launches[name]} times in "
               f"{loop_steps} loop steps")
@@ -1168,6 +1345,7 @@ def check_launches(what, launches, loop_steps, setup):
     for name, n in want.items():
         check(launches[name] == n,
               f"{what} launched {name} {launches[name]} times, not {n}")
+    check_glue_launches(what, launches, loop_steps)
 
 
 def main_path_run(pair_list, problems, exact_knn):
@@ -1333,7 +1511,10 @@ def replayed_launches_line(pair_list):
                epilogue_kernel="loop_epilogue_batched",
                thresholds_kernel="neighborhood_thresholds_batched",
                moments_kernel="moments_batched",
-               axis_kernel="axis_sums_batched")
+               axis_kernel="axis_sums_batched",
+               frame_inputs_kernel="frame_inputs",
+               frame_assembly_kernel="frame_assembly",
+               step_update_kernel="step_update")
     tries = []
     for _ in range(3):
         st = {}
@@ -1357,9 +1538,61 @@ def replayed_launches_line(pair_list):
           "differ from the device-counted ones")
     PROGRAM_PROFILE.update(tries=tries, device_loop_steps=st["loop_steps"],
                            host_syncs=st["host_syncs"])
+    before = glue_as_torch_profile(pair_list)
     emit("profile", route="graph", device_loop_steps=st["loop_steps"],
          host_syncs=st["host_syncs"], launches=counted, launches_agree=True,
-         profiled_tries=len(tries), **line)
+         profiled_tries=len(tries), glue_as_torch_ops=before,
+         device_ms_vs_torch_glue=line["device_ms_total"]
+         / before["device_ms_total"],
+         launches_vs_torch_glue=line["device_kernel_launches"]
+         / before["device_kernel_launches"], **line)
+
+
+class GlueAsTorch:
+    """Within the block the main path runs its glue as torch ops, as the
+    port did before G1-G3: G1's and G2's plain versions (the same torch
+    code, the same bits) and ``registration.torch_glue_loop_step`` (the
+    operands by ``loop_inputs``, the 6x6 by ``torch.linalg.
+    solve_ex``, ``T_i @ T``, ``linalg.norm``).  The program cache is
+    cleared on entry and exit, so neither route replays the other's
+    capture."""
+
+    NAMES = ("frame_inputs", "ball_normals", "frame_assembly")
+
+    def __enter__(self):
+        from se3_icp_tpu_torch.models import program, registration as reg
+        from se3_icp_tpu_torch.ops import cuda_frames
+        self.cf, self.reg, self.program = cuda_frames, reg, program
+        self.orig = {n: getattr(cuda_frames, n) for n in self.NAMES}
+        self.step = reg.loop_step
+        program.clear()
+        for n in self.NAMES:
+            setattr(cuda_frames, n, getattr(cuda_frames, n + "_plain"))
+        reg.loop_step = reg.torch_glue_loop_step
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.cf, n, fn)
+        self.reg.loop_step = self.step
+        self.program.clear()
+
+
+def glue_as_torch_profile(pair_list):
+    """The main path's replayed call (captured, as ``register_pairs``
+    runs it) with its glue as torch ops (``GlueAsTorch``), under the
+    profiler: the device time and launches the glue kernels took away."""
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    with GlueAsTorch():
+        pairs.register_pairs(pair_list, "se3_pt2pl", GOLDEN)   # capture
+        st = {}
+        line = profile_line(lambda: pairs.register_pairs(
+            pair_list, "se3_pt2pl", GOLDEN, stats=st), emit_line=False)
+    return dict({k: line[k] for k in (
+        "device_ms_total", "device_busy_ms", "wall_ms_profiled",
+        "idle_share", "device_kernel_launches")},
+        device_loop_steps=st["loop_steps"], top=line["top"][:5])
 
 
 def serving_phase():
@@ -2217,6 +2450,7 @@ def check_registration_launches(what, launches):
     check(launches["nn_match_affine"]
           == launches["loop_epilogue_batched"] > 0,
           f"{what}: loop kernels {launches}")
+    check_glue_launches(what, launches, launches["nn_match_affine"])
     only_launched(what, launches, {})
 
 
@@ -2928,6 +3162,8 @@ def engine_option_run(what, pair_list, problems, cfg, survey_name, total,
     prof["top"] = prof["top"][:6]
     check(launches["nn_match_affine"] == launches["loop_epilogue_batched"]
           == st["loop_steps"] > 0, f"{what}: loop launches {launches}")
+    check_glue_launches(what, launches,
+                        0 if cfg.anderson_m else st["loop_steps"])
     if setup_route == "exact":
         check(all(launches[k] == 0 for k in (
             "neighborhood_thresholds_batched", "moments_batched",
@@ -3480,6 +3716,7 @@ def smoke() -> int:
     timed_phase(build_phase)
     k1_cases, k2_cases, k3_cases = timed_phase(setup_kernels_phase)
     k4_cases, k5_cases = timed_phase(kernels_phase)
+    g1_cases, g2_cases, g3_cases = timed_phase(glue_kernels_phase)
     launches, results = timed_phase(main_path_phase)
     timed_phase(serving_phase)
     timed_phase(cli_phase)
@@ -3546,6 +3783,13 @@ def smoke() -> int:
               "se3_icp_tpu_torch/csrc/nn_argmin.cu",
               "se3_icp_tpu/ops/pallas_knn.py:49",
               {"metrics": metrics_launches, "protocols": proto_launches}),
+        # the glue kernels: no TPU kernel, the JAX package's XLA glue
+        entry(g1_cases, "frame_inputs", "se3_icp_tpu_torch/csrc/frames.cu",
+              "se3_icp_tpu/ops/lrf.py:579"),
+        entry(g2_cases, "frame_assembly", "se3_icp_tpu_torch/csrc/frames.cu",
+              "se3_icp_tpu/ops/lrf.py:599"),
+        entry(g3_cases, "step_update", "se3_icp_tpu_torch/csrc/step_update.cu",
+              "se3_icp_tpu/models/registration.py:651"),
     ]
     emit("total", seconds=time.perf_counter() - t_start,
          phase_seconds=PHASE_SECONDS)

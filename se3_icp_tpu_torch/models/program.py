@@ -3,10 +3,10 @@ the JAX package's ``_register_arrays_jit``, ``_compiled_batch``, FGR's
 one jitted program and the points route's ``jit(shard_map(...))``.
 
 On the card ``registration.register_arrays`` replays a CUDA graph that
-holds the whole registration: the setup (K1-K3 and their glue), every
-step of the loop (K4, K5, the solve and the state update) and the way
-back to original coordinates, for every mode and estimator (the pt2pt
-step's rotation is ``solve.kabsch3``, which reads nothing back).  The
+holds the whole registration: the setup (K1-K3 and their glue kernels
+G1, G2), every step of the loop (K4, K5 and G3: the solve and the state
+update, written in place) and the way back to original coordinates, for
+every mode and estimator (nothing in them reads back).  The
 loop's ``hist_len`` steps are captured in groups of
 ``registration._POLL_EVERY``, each group inside a conditional "if" node
 (``csrc/graph_cond.cu``) on "some pair is not done": once every pair is
@@ -195,7 +195,7 @@ def _program(inp: dict, cfg, mode, variant, exact_knn, record_history,
                              record_history)
     steps = torch.zeros((), dtype=torch.int32, device=src.device)
     pred = torch.logical_not(state.done.all())
-    bufs = state.tensors()
+    bufs = state.buffers()
     starts = range(0, c.hist_len, reg._POLL_EVERY)
     for g0 in starts[:groups]:
         n = min(reg._POLL_EVERY, c.hist_len - g0)
@@ -203,8 +203,8 @@ def _program(inp: dict, cfg, mode, variant, exact_knn, record_history,
             s = state
             for _ in range(n):
                 s = reg.loop_step(s, ms, c)
-            for buf, new in zip(bufs, s.tensors()):
-                buf.copy_(new)
+            for buf, new in zip(bufs, s.buffers()):
+                buf.copy_(new)      # no-op where a kernel wrote in place
             steps.add_(n)
             torch.logical_not(s.done.all(), out=pred)
     T = reg.to_original(state.T, pre, is_se3)

@@ -19,16 +19,18 @@ Mechanics:
     takes on its accelerator -- one threshold kernel call per cloud
     (``ops/cuda_moments.py``, K1) gives every consumer (TOLDI k, normals
     30, GICP 20) its ball, and the frames, normals and covariances are
-    sums over those balls (K2, K3, glue in ``ops/lrf.py``);
+    sums over those balls (K2, K3, and the glue kernels G1, G2 of
+    ``ops/cuda_frames.py`` around them);
     ``exact_knn=True`` takes ONE exact sorted kNN per cloud instead,
     prefix-sliced by every consumer; SHOT frames (``lrf_method="shot"``)
     always take that route, with their own radius neighbourhoods;
-  * each iteration is two hand-written kernels -- the fused match
-    (``ops/cuda_knn.py``) and the fused epilogue (``ops/cuda_loop.py``)
-    -- plus a 6x6 solve or pt2pt's Kabsch rotation (``solve.kabsch3``,
-    no SVD), and with ``anderson_m`` >= 2 an
-    Anderson-accelerated step in se(3) twist coordinates
-    (``anderson_step``);
+  * each iteration is three hand-written kernels -- the fused match
+    (``ops/cuda_knn.py``), the fused epilogue (``ops/cuda_loop.py``) and
+    the step (``ops/cuda_step.py``: the 6x6 solve or pt2pt's Kabsch
+    rotation, no SVD, the tests, the masked update and the next step's
+    operands) --; with ``anderson_m`` >= 2 the step after the epilogue
+    is torch glue around an Anderson-accelerated step in se(3) twist
+    coordinates (``torch_glue_loop_step``, ``anderson_step``);
   * every state update is masked by a per-pair ``done`` flag, so a step
     after a pair converged is a no-op for it.  On the card the whole
     registration -- setup, loop, back to original coordinates -- runs
@@ -77,8 +79,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from se3_icp_tpu_torch.ops import (cuda_knn, cuda_loop, cuda_moments, knn,
-                                   lrf, solve)
+from se3_icp_tpu_torch.ops import (cuda_knn, cuda_loop, cuda_moments,
+                                   cuda_step, knn, lrf, solve)
 from se3_icp_tpu_torch.utils import se3
 from se3_icp_tpu_torch.utils.config import (RegistrationConfig,
                                             parse_algorithm)
@@ -406,17 +408,19 @@ def _setup_thr(src_c, n_src, tgt_c, n_tgt, cfg, is_se3, need_tgt_nrm,
     rz = k // 3
     nrm_t = None
     if is_se3:
-        out["rot_src"] = lrf.rot_t9_to_rot(gather_rows(lrf.toldi_frames_thr_t(
+        # the frames point-major ([B,N,9]), the layout the packing reads
+        _, fr_s = lrf.toldi_frames_thr_t(
             src_c, thr_s[rz], thr_s[rz + 1], thr_s[k], k, n_src,
-            cloud=cloud_s, rows=rows_s), group, 2))
+            cloud=cloud_s, rows=rows_s, point_major=True)
+        out["rot_src"] = lrf.frames_to_rot(gather_rows(fr_s, group, 1))
         fuse = need_tgt_nrm and cfg.normals_knn == rz
-        fr = gather_rows(lrf.toldi_frames_thr_t(
+        rows_tt, fr_t = lrf.toldi_frames_thr_t(
             tgt_c, thr_t[rz], thr_t[rz + 1], thr_t[k], k, n_tgt,
             cloud=cloud_t, normals_k=cfg.normals_knn if fuse else None,
-            rows=rows_t), group, 2)
-        out["rot_tgt"] = lrf.rot_t9_to_rot(fr[:, :9])
+            rows=rows_t, point_major=True)
+        out["rot_tgt"] = lrf.frames_to_rot(gather_rows(fr_t, group, 1))
         if fuse:
-            nrm_t = fr[:, 9:12]
+            nrm_t = gather_rows(rows_tt[:, 9:12], group, 2)
     if need_tgt_nrm:
         if nrm_t is None:
             nrm_t = gather_rows(lrf.normals_thr_t(
@@ -572,43 +576,13 @@ def epilogue_options(ms: MatchState, cfg: RegistrationConfig) -> dict:
 def iteration_inputs(ms: MatchState, cfg: RegistrationConfig, T, switched,
                      done, h: Hyper):
     """Per-iteration operands of the two kernels at pose T [B,4,4]:
-
-      W [B,16,16]  the affine that turns ``feat16`` into the 12-D query:
-                   q = feat16 @ W, from (R, t, alpha, beta, phase);
-      ph2 [B,2]    int32 [phase, done]: done pairs skip the match
-                   kernel's compute, their (unspecified) outputs are
-                   discarded by the done-masked state update;
-      pf [B,24]    the epilogue's scalars (``cuda_loop.PF_*`` layout).
-    """
+    ``cuda_step.step_inputs_plain`` (W [B,16,16], ph2 [B,2] int32, pf
+    [B,24]) from the config and ``Hyper`` of a loop."""
     dtype, dev = ms.feat16.dtype, ms.feat16.device
-    bsz = T.shape[0]
-    R = T[:, :3, :3]
-    tvec = T[:, :3, 3]
-    Rt = R.mT
-    swf = switched.to(dtype)
-    W = torch.zeros((bsz, 16, 16), dtype=dtype, device=dev)
-    if ms.is_se3:
-        blk = ((1.0 - swf) * h.alpha_rot)[:, None, None] * Rt
-        c_s = swf + (1.0 - swf) * h.beta_transl
-        W[:, 0:3, 0:3] = blk
-        W[:, 3:6, 3:6] = blk
-        W[:, 6:9, 6:9] = blk
-        W[:, 9:12, 9:12] = c_s[:, None, None] * Rt
-    else:
-        W[:, 9:12, 9:12] = Rt
-    W[:, 12, 9:12] = tvec
-    ph2 = torch.stack([switched, done], 1).to(torch.int32)
-    n_src_f = ms.n_src.to(dtype)
-    cnt_f = (torch.floor(h.estimated_overlap * n_src_f)
-             if cfg.estimated_overlap < 1.0 else n_src_f)
-    pf = torch.zeros((bsz, cuda_loop.PF_WIDTH), dtype=dtype, device=dev)
-    pf[:, cuda_loop.PF_T:cuda_loop.PF_T + 3] = tvec
-    pf[:, cuda_loop.PF_BETA] = h.beta_transl
-    pf[:, cuda_loop.PF_SWITCHED] = swf
-    pf[:, cuda_loop.PF_NSRC] = n_src_f
-    pf[:, cuda_loop.PF_COUNT] = cnt_f
-    pf[:, cuda_loop.PF_R:cuda_loop.PF_R + 9] = R.reshape(bsz, 9)
-    return W, ph2, pf
+    hv = _scalars([getattr(h, f) for f in cuda_step.HV], dtype, dev)
+    return cuda_step.step_inputs_plain(
+        T, switched, done, hv, ms.n_src.to(dtype), is_se3=ms.is_se3,
+        do_trim=cfg.estimated_overlap < 1.0)
 
 
 @dataclass
@@ -630,12 +604,24 @@ class LoopState:
     aa_F: torch.Tensor | None = None      # [B,m,6]
     aa_n: torch.Tensor | None = None      # [B] int32
     aa_fprev: torch.Tensor | None = None  # [B]
+    # the next step's kernel operands (``loop_inputs``), made by the
+    # step before it (``cuda_step.step_update``); None with Anderson,
+    # whose step makes its own
+    W: torch.Tensor | None = None         # [B,16,16]
+    ph2: torch.Tensor | None = None       # [B,2] int32
+    pf: torch.Tensor | None = None        # [B,24]
 
     def tensors(self) -> list:
         return [t for t in (self.T, self.it, self.pure_it, self.mse_prev,
                             self.mse_cur, self.switched, self.done,
                             self.hist, self.aa_X, self.aa_F, self.aa_n,
                             self.aa_fprev) if t is not None]
+
+    def buffers(self) -> list:
+        """``tensors()`` and the next step's operands: everything a step
+        carries to the next."""
+        return self.tensors() + [t for t in (self.W, self.ph2, self.pf)
+                                 if t is not None]
 
 
 @dataclass
@@ -647,9 +633,19 @@ class LoopConsts:
     max_iters: int
     hybrid: bool
     hist_len: int                 # steps at most
-    stop_thresh: torch.Tensor     # [B] (or [] for icp)
+    stop_thresh: torch.Tensor     # [B]
     ep_kw: dict                   # ``epilogue_options``
     ar: torch.Tensor              # [B] pair indices
+    hv: torch.Tensor              # [4] ``cuda_step.HV`` of ``h``
+    n_src_f: torch.Tensor         # [B] valid source counts as floats
+
+
+def _scalars(values, dtype, device) -> torch.Tensor:
+    """[len(values)]: 0-dim tensors (views of the traced vector) and
+    Python floats as one vector, by device ops and fills only."""
+    return torch.cat([v.reshape(1).to(dtype) if isinstance(v, torch.Tensor)
+                      else torch.full((1,), v, dtype=dtype, device=device)
+                      for v in values])
 
 
 def init_loop(ms: MatchState, scaling: torch.Tensor,
@@ -690,26 +686,32 @@ def init_loop(ms: MatchState, scaling: torch.Tensor,
         state.aa_F = torch.zeros_like(state.aa_X)
         state.aa_n = torch.zeros_like(it)
         state.aa_fprev = mse_cur.clone()
+    if not isinstance(stop_thresh, torch.Tensor) or stop_thresh.dim() == 0:
+        stop_thresh = _scalars([stop_thresh], dtype, dev).expand(bsz)
     consts = LoopConsts(
         cfg=cfg, h=h, max_iters=max_iters, hybrid=mode in ("se3", "se3_cf"),
-        hist_len=hist_len, stop_thresh=stop_thresh,
+        hist_len=hist_len, stop_thresh=stop_thresh.contiguous(),
         ep_kw=epilogue_options(ms, cfg),
-        ar=torch.arange(bsz, device=dev))
+        ar=torch.arange(bsz, device=dev),
+        hv=_scalars([getattr(h, f) for f in cuda_step.HV], dtype, dev),
+        n_src_f=ms.n_src.to(dtype).contiguous())
+    if not cfg.anderson_m:
+        state.W, state.ph2, state.pf = (x.contiguous() for x in
+                                        loop_inputs(state, ms, consts))
     return state, consts
 
 
-def loop_step(s: LoopState, ms: MatchState, c: LoopConsts) -> LoopState:
-    """One iteration for every pair: match, epilogue, solve, the phase
-    switch and stop tests, and the done-masked update.  A pure function
-    of tensors that reads nothing back to the host, so a step after every
-    pair is done changes nothing and any number of steps can be
-    captured."""
-    cfg = c.cfg
-    it1 = s.it + 1
+def loop_inputs(s: LoopState, ms: MatchState, c: LoopConsts):
+    """(W, ph2, pf) of the step at ``s`` (``cuda_step.
+    step_inputs_plain``)."""
+    return cuda_step.step_inputs_plain(
+        s.T, s.switched, s.done, c.hv, c.n_src_f, is_se3=ms.is_se3,
+        do_trim=c.ep_kw["do_trim"])
 
-    # --- correspondence search + fused epilogue (trim, MSE, the
-    #     estimator's reduction)
-    W, ph2, pf = iteration_inputs(ms, cfg, s.T, s.switched, s.done, c.h)
+
+def _match_and_epilogue(s: LoopState, ms: MatchState, c: LoopConsts, W,
+                        ph2, pf):
+    """K4 at the step's operands, then K5: (A66, b8, st)."""
     if ms.group is None:
         _, matched_T = cuda_knn.nn_match_affine(ms.feat16, W, ms.targets,
                                                 ph2)
@@ -717,8 +719,53 @@ def loop_step(s: LoopState, ms: MatchState, c: LoopConsts) -> LoopState:
         _, matched_T = cuda_knn.nn_match_affine(ms.feat16_rows, W,
                                                 ms.targets, ph2)
         matched_T = gather_rows(matched_T, ms.group, 2)
-    A66, b8, st = cuda_loop.loop_epilogue_batched(
+    return cuda_loop.loop_epilogue_batched(
         ms.src_cT, matched_T, pf, ms.cov_src6, ms.conf_src, **c.ep_kw)
+
+
+def loop_step(s: LoopState, ms: MatchState, c: LoopConsts) -> LoopState:
+    """One iteration for every pair: match (K4), epilogue (K5), then
+    ``cuda_step.step_update`` (G3): the solve, the phase switch and stop
+    tests, the done-masked update and the next step's operands.  A pure
+    function of tensors that reads nothing back to the host, so a step
+    after every pair is done changes nothing and any number of steps can
+    be captured.  On the card the kernels update the state's tensors in
+    place.  With ``anderson_m`` >= 2 the step takes the route of that
+    option, decided from the config: ``torch_glue_loop_step``."""
+    if c.cfg.anderson_m:
+        return torch_glue_loop_step(s, ms, c)
+    A66, b8, st = _match_and_epilogue(s, ms, c, s.W, s.ph2, s.pf)
+    state = {k: getattr(s, k) for k in cuda_step.STATE + ("hist", "W",
+                                                          "ph2", "pf")}
+    out = cuda_step.step_update(
+        A66, b8, st, state, c.hv, c.stop_thresh, c.n_src_f,
+        variant=ms.variant, is_se3=ms.is_se3, hybrid=c.hybrid,
+        do_trim=c.ep_kw["do_trim"], max_iters=c.max_iters,
+        max_se3_iters=c.cfg.max_num_se3_iterations)
+    return LoopState(**{k: out[k] for k in cuda_step.STATE + (
+        "hist", "W", "ph2", "pf")})
+
+
+def torch_glue_loop_step(s: LoopState, ms: MatchState,
+                         c: LoopConsts) -> LoopState:
+    """The loop step with its glue as torch ops: the operands from
+    ``loop_inputs``, K4, K5, then ``torch_glue_update``.  The route
+    of ``anderson_m`` >= 2 (the Anderson step and its window are torch
+    ops around it); without Anderson, the step as the port ran it before
+    ``cuda_step`` (``chip_smoke.py`` profiles it beside ``loop_step``)."""
+    A66, b8, st = _match_and_epilogue(s, ms, c, *loop_inputs(s, ms, c))
+    return torch_glue_update(s, A66, b8, st, ms, c)
+
+
+def torch_glue_update(s: LoopState, A66, b8, st, ms: MatchState,
+                      c: LoopConsts) -> LoopState:
+    """The step after K5 as torch glue: the 6x6 solve
+    (``solve.solve_from_normal``) or pt2pt's
+    ``solve.solve_pt2pt_from_moments``, ``T_i @ T``, with ``anderson_m``
+    >= 2 ``anderson_step``, the tests and the done-masked update, the
+    window's included."""
+    cfg = c.cfg
+    it1 = s.it + 1
     mse_val, wsum = st[:, 0], st[:, 1]
     if ms.variant == "pt2pt":
         T_i = solve.solve_pt2pt_from_moments(
@@ -768,6 +815,9 @@ def loop_step(s: LoopState, ms: MatchState, c: LoopConsts) -> LoopState:
             old = getattr(s, name)
             keep = active.view((-1,) + (1,) * (old.dim() - 1))
             setattr(out, name, torch.where(keep, new, old))
+    # this route makes its operands at each step's start: a caller's
+    # carried ones go through as they are
+    out.W, out.ph2, out.pf = s.W, s.ph2, s.pf
     return out
 
 

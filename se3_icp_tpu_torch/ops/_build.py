@@ -82,6 +82,15 @@ SIGNATURES = {
     # q, emb, tn, payload, n_tgt, phase, idx, d2, matched,
     # B, Nq, Nt, P, split, stream
     "se3icp_nn_match_packed": [_P] * 9 + [_I] * 5 + [_P],
+    # raw, pts, tn, thr, out0, out1, out2, B, N, C, r0, thr_bstride, mode,
+    # fuse, c0, c2, c3 (float bits), stream: G1 (csrc/frames.cu)
+    "se3icp_frame_inputs": [_P] * 7 + [_I] * 10 + [_P],
+    # raw, pts, normal, w, fused, out_t, frames, B, N, C, r0, stream: G2
+    "se3icp_frame_assembly": [_P] * 7 + [_I] * 4 + [_P],
+    # A, b, st, T, it, pure_it, mse_prev, mse_cur, switched, done, hist,
+    # W, ph2, pf, hv, stop_thresh, n_src_f, B, H, pt2pt, is_se3, hybrid,
+    # do_trim, max_iters, max_se3_iters, stream: G3 (csrc/step_update.cu)
+    "se3icp_step_update": [_P] * 17 + [_I] * 8 + [_P],
     # parent stream, child stream, pred: an "if" node (csrc/graph_cond.cu)
     "se3icp_cond_begin": [_P] * 3,
     # child stream
@@ -186,7 +195,8 @@ def check(code: int, what: str) -> None:
 COUNTED = ("neighborhood_thresholds_batched", "moments_batched",
            "axis_sums_batched", "nn_match_affine", "loop_epilogue_batched",
            "nn_argmin_batched", "nn_argmin_unbatched", "nn_match_batched",
-           "nn_match_packed")
+           "nn_match_packed", "frame_inputs", "frame_assembly",
+           "step_update")
 _counts: dict = {}      # device index -> int64 [len(COUNTED)] on the card
 _slots: dict = {}       # device index -> {name: 0-dim view of its slot}
 

@@ -461,11 +461,23 @@ def moments_one_ball(points, n_valid, thr, cloud=None, rows=None):
 
 def _moments(points, n_valid, thrs, cloud, rows):
     """K2 over the balls of ``thrs`` (three, or one serving all three)."""
+    raw = moments_raw(points, n_valid, thrs, cloud, rows)
+    r0 = row_span(rows, points.shape[1])[0]
+    return _moments_dict(raw, points[:, r0:r0 + raw.shape[2]])
+
+
+def moments_raw(points, n_valid, thrs, cloud=None, rows=None):
+    """K2's sums before ``_moments_dict``: [B,10 M,C] float32 for the M
+    balls whose thresholds [B,C] of the query rows ``rows`` are ``thrs``
+    (a tuple; one ball is K2's one-ball instance): per ball, rows 10 m ..
+    10 m + 9 = sums of x y z, xx xy xz yy yz zz, 1 over its members, the
+    query itself included.  The setup glue's kernels
+    (``ops/cuda_frames.py``) read these; the launches count as
+    ``moments_batched``'s."""
     cloud, thr_s = _moments_inputs(points, n_valid, thrs, cloud, rows)
     r0, nq = row_span(rows, points.shape[1])[0], thr_s.shape[2]
     if not cloud.pts_t.is_cuda:
-        return _moments_dict(_moments_raw_plain(cloud, thr_s, r0),
-                             points[:, r0:r0 + nq])
+        return _moments_raw_plain(cloud, thr_s, r0)
     bsz, n, dev = _check_cloud(cloud)
     balls = thr_s.shape[1]
     _check(thr_s, "thresholds", (bsz, balls, nq), torch.float32, dev)
@@ -480,7 +492,7 @@ def _moments(points, n_valid, thrs, cloud, rows):
             nq, balls, _stream(dev))
     _build.check(code, "moments_batched")
     _build.count_launch("moments_batched", dev)
-    return _moments_dict(raw, points[:, r0:r0 + nq])
+    return raw
 
 
 
@@ -548,10 +560,20 @@ def axis_sums_batched(points, n_valid, normal_t, ndotq, radius, thr_all,
     """
     cloud, nrm, aux = _axis_inputs(points, n_valid, normal_t, ndotq,
                                    radius, thr_all, cloud, rows)
+    out = axis_sums_aux(points, n_valid, nrm, aux, cloud, rows)
+    return out[:, :3], out[:, 3]
+
+
+def axis_sums_aux(points, n_valid, normal_t, aux, cloud=None, rows=None):
+    """``axis_sums_batched`` on its per-query operands as K3 reads them:
+    ``normal_t`` [B,3,C] and aux = (thr_all - |q|^2, radius, n.q)
+    [B,3,C] float32 (``cuda_frames.frame_inputs`` writes both).  Returns
+    K3's [B,4,C] (sum_j W p_j, sum_j W)."""
+    cloud = _cloud(points, n_valid, cloud)
     r0 = row_span(rows, points.shape[1])[0]
+    nrm = normal_t.to(torch.float32).contiguous()
     if not cloud.pts_t.is_cuda:
-        out = _axis_raw_plain(cloud, nrm, aux, r0)
-        return out[:, :3], out[:, 3]
+        return _axis_raw_plain(cloud, nrm, aux, r0)
     bsz, n, dev = _check_cloud(cloud)
     nq = aux.shape[2]
     _check(nrm, "normal_t", (bsz, 3, nq), torch.float32, dev)
@@ -566,6 +588,4 @@ def axis_sums_batched(points, n_valid, normal_t, ndotq, radius, thr_all,
             out.data_ptr(), bsz, n, r0, nq, _stream(dev))
     _build.check(code, "axis_sums_batched")
     _build.count_launch("axis_sums_batched", dev)
-    return out[:, :3], out[:, 3]
-
-
+    return out

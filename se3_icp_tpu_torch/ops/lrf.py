@@ -25,9 +25,10 @@ distance block stays bounded.
 The THRESHOLD route (``*_thr_t``, the default setup) takes one
 squared-distance threshold per query and self-inclusive count from
 ``cuda_moments.neighborhood_thresholds_batched`` and reduces the balls
-in the kernels of ``ops/cuda_moments.py``; the glue here is the JAX
-package's ``_toldi_fused_from_thr`` / ``_normals_fused_batched`` /
-``gicp_cov6_from_normals_t``, COMPONENT-MAJOR throughout ([B,C,N]).
+in the kernels of ``ops/cuda_moments.py``; the glue around them, the
+JAX package's ``_toldi_fused_from_thr`` / ``_normals_fused_batched`` /
+``gicp_cov6_from_normals_t``, COMPONENT-MAJOR throughout ([B,C,N]), is
+two kernels of its own with their plain versions (``ops/cuda_frames.py``).
 
 Row slices: every function of both routes but SHOT's takes
 ``rows=(r0, r1)`` and computes the query rows [r0, r1) only, against the
@@ -50,7 +51,11 @@ from __future__ import annotations
 
 import torch
 
-from se3_icp_tpu_torch.ops import cuda_moments, eigh3, knn
+from se3_icp_tpu_torch.ops import cuda_frames, cuda_moments, eigh3, knn
+# the threshold route's glue, whose plain versions live beside its
+# kernels (G1, G2) in ``ops/cuda_frames.py``
+from se3_icp_tpu_torch.ops.cuda_frames import (  # noqa: F401
+    gicp_cov6_from_normals_t, toldi_axis_inputs)
 from se3_icp_tpu_torch.utils.se3 import skew
 
 _CHUNK_BYTES = 400_000_000    # one [B, chunk, N] block of the reductions
@@ -242,50 +247,9 @@ def rot_t9_to_rot(rot_t9: torch.Tensor) -> torch.Tensor:
     return rot_t9.reshape(bsz, 3, 3, n).permute(0, 3, 2, 1)
 
 
-def _p9self(q_t: torch.Tensor) -> torch.Tensor:
-    return torch.cat([q_t * q_t[:, i:i + 1] for i in range(3)], 1)
-
-
-def _pca_normal_t(mom, k_use: int, key: str) -> torch.Tensor:
-    """PCA normal [B,3,N] from the ``key`` ball's sums with the self term
-    added back (self INCLUDED, as ``normals_dense``), mean over k_use."""
-    q_t = mom["q_t"]
-    s1 = mom[key + "_sum"] + q_t
-    s2 = mom[key + "_p9"] + _p9self(q_t)
-    m = mom[key + "_cnt"] + 1.0
-    kinv = 1.0 / k_use
-    mean = s1 * kinv
-
-    def covc(i, j):
-        return (s2[:, 3 * i + j] - s1[:, i] * mean[:, j]
-                - mean[:, i] * s1[:, j] + m * mean[:, i] * mean[:, j]) * kinv
-    return torch.stack(eigh3.smallest_eigvec3_c(
-        covc(0, 0), covc(0, 1), covc(0, 2), covc(1, 1), covc(1, 2),
-        covc(2, 2)), 1)
-
-
-def toldi_axis_inputs(mom, thr_k, rz: int):
-    """What the TOLDI x-axis sums (K3) take from the moments (K2): the
-    unsigned normal [B,3,N] of the covariance ball about the quirky
-    centroid (the rz-ball's sum over rz), n.q [B,N], and the radius
-    sqrt(thr_k) [B,N]."""
-    q_t = mom["q_t"]
-    cen = mom["cen_sum"] / float(rz)
-    s1, s2, m = mom["cov_sum"], mom["cov_p9"], mom["cov_cnt"]
-
-    def covc(i, j):
-        return (s2[:, 3 * i + j] - s1[:, i] * cen[:, j]
-                - cen[:, i] * s1[:, j] + m * cen[:, i] * cen[:, j])
-    nx, ny, nz = eigh3.smallest_eigvec3_c(
-        covc(0, 0), covc(0, 1), covc(0, 2), covc(1, 1), covc(1, 2),
-        covc(2, 2))
-    ndotq = nx * q_t[:, 0] + ny * q_t[:, 1] + nz * q_t[:, 2]
-    radius = torch.sqrt(torch.clamp_min(thr_k, 0.0))
-    return torch.stack([nx, ny, nz], 1), ndotq, radius
-
-
 def toldi_frames_thr_t(points, thr_cen, thr_cov, thr_k, k: int, n_valid,
-                       cloud=None, normals_k: int | None = None, rows=None):
+                       cloud=None, normals_k: int | None = None, rows=None,
+                       point_major: bool = False):
     """TOLDI frames from neighbourhood thresholds, TRANSPOSED.
 
     points [B,N,3]; thr_cen / thr_cov / thr_k [B,N] squared-distance
@@ -299,70 +263,58 @@ def toldi_frames_thr_t(points, thr_cen, thr_cov, thr_k, k: int, n_valid,
     then the normals' moments, and three rows (n0,n1,n2) are appended
     ([B,12,N]): no separate normals pass.  ``rows=(r0, r1)``: the rows
     [r0, r1) only (thresholds and result r1 - r0 wide).
+    ``point_major``: return (rows, frames [B,N,9]), the frames also
+    point-major (``frames.view(B,N,3,3).mT`` is the rotation with axis j
+    in column j).
+
+    Four launches on the card: K2 (``cuda_moments.moments_raw``), G1
+    (``cuda_frames.frame_inputs``), K3 (``cuda_moments.axis_sums_aux``),
+    G2 (``cuda_frames.frame_assembly``).
     """
-    dtype = points.dtype
     rz = k // 3
     if normals_k is not None and normals_k != rz:
         raise ValueError(f"normals_k={normals_k} must equal k//3={rz}")
-    mom = cuda_moments.moments_batched(points, n_valid, thr_cen, thr_cov,
-                                       thr_k, cloud=cloud, rows=rows)
-    q_t = mom["q_t"]                                          # [B,3,N]
-    normal_t, ndotq, radius = toldi_axis_inputs(mom, thr_k, rz)
-    arrow = mom["all_sum"] - mom["all_cnt"][:, None] * q_t
-    w_p, w_sum = cuda_moments.axis_sums_batched(
-        points, n_valid, normal_t, ndotq, radius, thr_k, cloud=cloud,
-        rows=rows)
-    scaled = w_p.to(dtype) - w_sum.to(dtype)[:, None] * q_t   # [B,3,N]
+    cloud = cuda_moments._cloud(points, n_valid, cloud)
+    r0 = cuda_moments.row_span(rows, points.shape[1])[0]
+    raw = cuda_moments.moments_raw(points, n_valid, (thr_cen, thr_cov, thr_k),
+                                   cloud, rows)
+    normal_t, aux, fused = cuda_frames.frame_inputs(
+        raw, points, cloud.tn, thr_k, rz, normals_k, r0)
+    w = cuda_moments.axis_sums_aux(points, n_valid, normal_t, aux, cloud,
+                                   rows)
+    out_t, frames = cuda_frames.frame_assembly(raw, points, normal_t, w,
+                                               fused, r0)
+    return (out_t, frames) if point_major else out_t
 
-    flip = torch.sum(normal_t * arrow, 1) < 0.0
-    z = torch.where(flip[:, None], -normal_t, normal_t)
-    x = scaled - torch.sum(scaled * z, 1, keepdim=True) * z
-    xn = torch.sqrt(torch.sum(x * x, 1, keepdim=True))
-    x = x / torch.clamp_min(xn, 1e-30)
-    y = torch.stack([z[:, 1] * x[:, 2] - z[:, 2] * x[:, 1],
-                     z[:, 2] * x[:, 0] - z[:, 0] * x[:, 2],
-                     z[:, 0] * x[:, 1] - z[:, 1] * x[:, 0]], 1)
-    rows = [x, y, z]
-    if normals_k is not None:
-        rows.append(_pca_normal_t(mom, normals_k, "cen"))
-    return torch.cat(rows, 1)
+
+def frames_to_rot(frames: torch.Tensor) -> torch.Tensor:
+    """[B,N,9] point-major frames (``toldi_frames_thr_t(...,
+    point_major=True)``) -> [B,N,3,3] rotations with axis j in COLUMN j
+    (a view)."""
+    bsz, n, _ = frames.shape
+    return frames.view(bsz, n, 3, 3).mT
 
 
 def normals_thr_t(points, thr, k_use: int, n_valid, cloud=None,
                   rows=None) -> torch.Tensor:
     """PCA normals [B,3,N] from one threshold per query: the ball of the
     self-inclusive count ``k_use`` (the mean still divides by k_use, as
-    ``normals_dense``); of the rows ``rows`` only."""
-    mom = cuda_moments.moments_one_ball(points, n_valid, thr, cloud=cloud,
-                                        rows=rows)
-    return _pca_normal_t(mom, k_use, "cov")
-
-
-def gicp_cov6_from_normals_t(normals_t: torch.Tensor,
-                             epsilon: float = 1e-3) -> torch.Tensor:
-    """GICP covariance init from unit normals [B,3,N]: the closed form
-    C = I - (1 - eps) n n^T of Rx diag(eps,1,1) Rx^T, INCLUDING the
-    reference's c < -0.99 -> identity-rotation quirk (C = diag(eps,1,1)
-    there).  Returns [B,6,N] rows (xx, xy, xz, yy, yz, zz)."""
-    nx, ny, nz = normals_t.unbind(1)
-    f = 1.0 - epsilon
-    one = torch.ones_like(nx)
-    zero = torch.zeros_like(nx)
-    comps = [one - f * nx * nx, -f * nx * ny, -f * nx * nz,
-             one - f * ny * ny, -f * ny * nz, one - f * nz * nz]
-    quirk_comps = [torch.full_like(nx, epsilon), zero, zero, one, zero, one]
-    quirk = nx < -0.99
-    return torch.stack([torch.where(quirk, qc, c)
-                        for c, qc in zip(comps, quirk_comps)], 1)
+    ``normals_dense``); of the rows ``rows`` only.  K2's one-ball
+    instance, then G1 (``cuda_frames.ball_normals``)."""
+    raw = cuda_moments.moments_raw(points, n_valid, (thr,), cloud, rows)
+    r0 = cuda_moments.row_span(rows, points.shape[1])[0]
+    return cuda_frames.ball_normals(raw, points, k_use, r0)
 
 
 def gicp_covariances_thr_t(points, thr, k_use: int, epsilon: float,
                            n_valid, cloud=None, rows=None) -> torch.Tensor:
     """GICP covariance init [B,6,N] from one threshold per query (of the
-    rows ``rows`` only)."""
-    return gicp_cov6_from_normals_t(
-        normals_thr_t(points, thr, k_use, n_valid, cloud=cloud, rows=rows),
-        epsilon)
+    rows ``rows`` only): the normals of ``normals_thr_t`` and
+    ``gicp_cov6_from_normals_t`` in one G1 pass."""
+    raw = cuda_moments.moments_raw(points, n_valid, (thr,), cloud, rows)
+    r0 = cuda_moments.row_span(rows, points.shape[1])[0]
+    return cuda_frames.ball_normals(raw, points, k_use, r0,
+                                    gicp_epsilon=epsilon)
 
 
 # ---------------------------------------------------------------------

@@ -18,12 +18,16 @@ Every estimator takes a full-length 0/1 (or confidence) mask instead of
 a compacted subset.  Operands are feature-major ``[B,3,N]`` / ``[B,6,N]``
 like the loop's payload.  The ``solve_*_T`` functions do the whole step;
 ``solve_from_normal`` / ``solve_pt2pt_from_moments`` finish a step whose
-reduction already ran in the fused loop epilogue.  The 6x6 solve is
-``torch.linalg.solve_ex`` (no check on the host); the pt2pt step's
-rotation is ``kabsch3``, a fixed sequence of elementwise ops and 4x4
-products in place of a 3x3 SVD, which on the card checks its input on
-the host.  Failure (singular / non-finite / under-determined) degrades
-to identity like Open3D's ``SolveJacobianSystemAndObtainExtrinsicMatrix``.
+reduction already ran in the fused loop epilogue (FGR's Gauss-Newton
+steps and the Anderson route's loop step take them).  Their 6x6 solve
+is ``torch.linalg.solve_ex`` (no check on the host).  The registration
+loop's step (``ops/cuda_step.py``) takes the component-wise forms below
+instead -- ``solve6_c`` (Gaussian elimination with partial pivoting),
+``euler_zyx_c``, ``kabsch3_c`` --, which its kernel repeats bit for bit.
+The pt2pt rotation ``kabsch3`` is a fixed sequence of elementwise ops
+in place of a 3x3 SVD, which on the card checks its input on the host.
+Failure (singular / non-finite / under-determined) degrades to identity
+like Open3D's ``SolveJacobianSystemAndObtainExtrinsicMatrix``.
 """
 
 from __future__ import annotations
@@ -70,6 +74,137 @@ _SQUARINGS = {torch.float32: 24, torch.float64: 32}
 _RESCALE_EVERY = 4     # a PSD trace falls at most 2^30-fold in 4 squarings
 
 
+# ---------------------------------------------------------------------
+# Component-wise forms: every function below works on per-pair [B]
+# tensors (lists of them for vectors and matrices) with one elementwise
+# torch op per step, in a fixed order, and no ``torch.linalg`` call,
+# matrix product or reduction: the arithmetic of the loop step that the
+# CUDA kernel ``csrc/step_update.cu`` repeats operation for operation
+# (``ops/cuda_step.py``).  Sums run left to right.
+
+def solve6_c(A: torch.Tensor, rhs: list):
+    """Solve A x = rhs for A [B,6,6] and rhs six [B] tensors by Gaussian
+    elimination with partial pivoting (LAPACK's ``getrf`` choice: the
+    first row of largest magnitude in the column), unrolled, the row
+    swap made by ``torch.where``.  Returns (x, ok): x six [B] tensors
+    with non-finite entries set to 0, ok [B] where every pivot is
+    nonzero and finite and every entry of x finite."""
+    a = [[A[:, r, c] for c in range(6)] + [rhs[r]] for r in range(6)]
+    ok = torch.ones_like(rhs[0], dtype=torch.bool)
+    for k in range(6):
+        best = a[k][k].abs()
+        idx = torch.full_like(rhs[0], k, dtype=torch.int32)
+        for r in range(k + 1, 6):
+            v = a[r][k].abs()
+            take = v > best
+            best = torch.where(take, v, best)
+            idx = torch.where(take, torch.full_like(idx, r), idx)
+        for r in range(k + 1, 6):
+            sel = idx == r
+            for c in range(k, 7):
+                ak, ar = a[k][c], a[r][c]
+                a[k][c] = torch.where(sel, ar, ak)
+                a[r][c] = torch.where(sel, ak, ar)
+        piv = a[k][k]
+        ok = ok & (piv != 0) & torch.isfinite(piv)
+        for r in range(k + 1, 6):
+            f = a[r][k] / piv
+            for c in range(k + 1, 7):
+                a[r][c] = a[r][c] - f * a[k][c]
+    x = [None] * 6
+    for r in range(5, -1, -1):
+        acc = a[r][6]
+        for c in range(r + 1, 6):
+            acc = acc - a[r][c] * x[c]
+        x[r] = acc / a[r][r]
+    for r in range(6):
+        fin = torch.isfinite(x[r])
+        ok = ok & fin
+        x[r] = torch.where(fin, x[r], torch.zeros_like(x[r]))
+    return x, ok
+
+
+def euler_zyx_c(xi: list):
+    """Open3D's ``TransformVector6dToMatrix4d`` on six [B] tensors
+    (rx, ry, rz, tx, ty, tz): (R, t), R = Rz(rz) Ry(ry) Rx(rx) as nine
+    [B] tensors R[i][j], t three."""
+    cx, sx = torch.cos(xi[0]), torch.sin(xi[0])
+    cy, sy = torch.cos(xi[1]), torch.sin(xi[1])
+    cz, sz = torch.cos(xi[2]), torch.sin(xi[2])
+    czsy, szsy = cz * sy, sz * sy
+    R = [[cz * cy, czsy * sx - sz * cx, czsy * cx + sz * sx],
+         [sz * cy, szsy * sx + cz * cx, szsy * cx - cz * sx],
+         [-sy, cy * sx, cy * cx]]
+    return R, list(xi[3:6])
+
+
+def kabsch3_c(H: torch.Tensor):
+    """``kabsch3`` on H [B,3,3], component-wise: R as nine [B] tensors
+    R[i][j].  The 4x4 matrix is symmetric and stays so exactly (its
+    square's (i, j) and (j, i) entries sum the same products), so ten
+    entries are kept."""
+    dtype = H.dtype
+    tiny = torch.finfo(dtype).tiny
+    h = [[H[:, i, j] for j in range(3)] for i in range(3)]
+    # Sab = sum s_a t_b of H = sum t s^T
+    (xx, yx, zx), (xy, yy, zy), (xz, yz, zz) = h
+    a, b, c = yz - zy, zx - xz, xy - yx
+    shift2 = h[0][0] * h[0][0]
+    for i in range(3):
+        for j in range(3):
+            if i or j:
+                shift2 = shift2 + h[i][j] * h[i][j]
+    shift = torch.sqrt(shift2)
+    # m[(i, j)], i <= j: the upper triangle of N + shift I
+    m = {(0, 0): ((xx + yy) + zz) + shift, (0, 1): a, (0, 2): b,
+         (0, 3): c, (1, 1): ((xx - yy) - zz) + shift, (1, 2): xy + yx,
+         (1, 3): zx + xz, (2, 2): ((yy - xx) - zz) + shift,
+         (2, 3): yz + zy, (3, 3): ((zz - xx) - yy) + shift}
+
+    def at(i, j):
+        return m[(i, j) if i <= j else (j, i)]
+    for k in range(_SQUARINGS[dtype]):
+        if k % _RESCALE_EVERY == 0:
+            tr = ((m[(0, 0)] + m[(1, 1)]) + m[(2, 2)]) + m[(3, 3)]
+            tr = torch.clamp_min(tr, tiny)
+            m = {key: v / tr for key, v in m.items()}
+        sq = {}
+        for (i, j) in m:
+            acc = at(i, 0) * at(0, j)
+            for l in range(1, 4):
+                acc = acc + at(i, l) * at(l, j)
+            sq[(i, j)] = acc
+        m = sq
+    # the column of the largest diagonal entry (the first on a tie)
+    best, col = m[(0, 0)], torch.zeros_like(m[(0, 0)], dtype=torch.int32)
+    for i in range(1, 4):
+        take = m[(i, i)] > best
+        best = torch.where(take, m[(i, i)], best)
+        col = torch.where(take, torch.full_like(col, i), col)
+    q = []
+    for r in range(4):
+        v = at(r, 3)
+        for j in (2, 1, 0):
+            v = torch.where(col == j, at(r, j), v)
+        q.append(v)
+    nq = torch.sqrt(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2])
+                    + q[3] * q[3])
+    pos = nq > 0
+    nqc = torch.clamp_min(nq, tiny)
+    one, zero = torch.ones_like(nq), torch.zeros_like(nq)
+    q = [torch.where(pos, q[r] / nqc, one if r == 0 else zero)
+         for r in range(4)]
+    # R = (2 w^2 - 1) I + 2 (v v^T + w [v]x), q = (w, v)
+    w, v = q[0], q[1:]
+    d = (w * 2.0) * w - 1.0
+    return [[d + (v[0] * v[0]) * 2.0, (v[0] * v[1] - w * v[2]) * 2.0,
+             (v[0] * v[2] + w * v[1]) * 2.0],
+            [(v[1] * v[0] + w * v[2]) * 2.0, d + (v[1] * v[1]) * 2.0,
+             (v[1] * v[2] - w * v[0]) * 2.0],
+            [(v[2] * v[0] - w * v[1]) * 2.0,
+             (v[2] * v[1] + w * v[0]) * 2.0, d + (v[2] * v[2]) * 2.0]]
+
+
 def kabsch3(H: torch.Tensor) -> torch.Tensor:
     """The rotation R [B,3,3] maximising tr(R^T H) for H [B,3,3]: the
     Kabsch/Umeyama rotation U diag(1, 1, sign det(U V^T)) V^T of the SVD
@@ -84,40 +219,14 @@ def kabsch3(H: torch.Tensor) -> torch.Tensor:
     square, rescaled by its trace (4 s before the first square),
     converges to the projector on that eigenvector; the projector's
     column of largest diagonal is q up to sign.  A fixed count of
-    squarings (``_SQUARINGS``) and no ``torch.linalg`` call, so nothing
-    is read back on the host.  Where R is unique (rank H >= 2 and
-    the smallest singular value simple when det H < 0) it is LAPACK's R
-    to rounding; rank 1 gives one of the optimal rotations; H = 0 gives
-    the identity (LAPACK's U = V = I)."""
-    dtype = H.dtype
-    # Sab = sum s_a t_b of H = sum t s^T
-    (xx, yx, zx), (xy, yy, zy), (xz, yz, zz) = (
-        [H[:, i, j] for j in range(3)] for i in range(3))
-    a, b, c = yz - zy, zx - xz, xy - yx
-    N = torch.stack([
-        xx + yy + zz, a, b, c,
-        a, xx - yy - zz, xy + yx, zx + xz,
-        b, xy + yx, yy - xx - zz, yz + zy,
-        c, zx + xz, yz + zy, zz - xx - yy], -1).view(-1, 4, 4)
-    shift = torch.sqrt((H * H).sum((1, 2)))
-    M = N + torch.diag_embed(shift[:, None].expand(-1, 4))
-    tiny = torch.finfo(dtype).tiny
-    for k in range(_SQUARINGS[dtype]):
-        if k % _RESCALE_EVERY == 0:
-            tr = M.diagonal(dim1=1, dim2=2).sum(-1)
-            M = M / tr.clamp_min(tiny)[:, None, None]
-        M = M @ M
-    j = M.diagonal(dim1=1, dim2=2).argmax(-1)
-    q = M.gather(2, j[:, None, None].expand(-1, 4, 1))[..., 0]
-    nq = torch.sqrt((q * q).sum(-1, keepdim=True))
-    ident = torch.zeros_like(q)
-    ident[:, 0] = 1.0
-    q = torch.where(nq > 0, q / nq.clamp_min(tiny), ident)
-    # R = (2 w^2 - 1) I + 2 (v v^T + w [v]x), q = (w, v)
-    w, v = q[:, :1, None], q[:, 1:]
-    outer = v[:, :, None] * v[:, None, :] + w * se3.skew(v)
-    return torch.diag_embed((2.0 * w * w - 1.0)[:, 0].expand(-1, 3)) \
-        + 2.0 * outer
+    squarings (``_SQUARINGS``) written out entry by entry
+    (``kabsch3_c``), and no ``torch.linalg`` call, so nothing is read
+    back on the host.  Where R is unique (rank H >= 2 and the smallest
+    singular value simple when det H < 0) it is LAPACK's R to rounding;
+    rank 1 gives one of the optimal rotations; H = 0 gives the identity
+    (LAPACK's U = V = I)."""
+    R = kabsch3_c(H)
+    return torch.stack([torch.stack(row, -1) for row in R], -2)
 
 
 def solve_pt2pt_from_moments(H, mu_s, mu_t, wsum):

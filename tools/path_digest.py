@@ -23,10 +23,12 @@ and GT correspondences, three K9 launches a pair): each once to warm up
 and then ``--reps`` times, all paths in turns.  It saves every pair's
 iteration count and transform (of the last call), the kept starts,
 FGR's transforms and its reciprocal and kept correspondence counts, the
-chamfer distances and correspondence indices of the metrics, and
-the wall time of every timed call (host clock around work that ends in
+chamfer distances and correspondence indices of the metrics, a hash a
+pair of the setup's products that the loop reads for the main path and
+each small batch (``setup_*``), and the wall time of every timed call (host clock around work that ends in
 a synchronize), and prints one JSON line with the medians.  The second form prints whether two such files hold the
-same iteration counts and the same transform bits.  Needs a CUDA
+same iteration counts, the same transform bits and the same setup
+products.  Needs a CUDA
 device.
 """
 
@@ -72,15 +74,17 @@ def run(root: str, out: str, reps: int) -> None:
     ms_fn = lambda: multistart.register_pairs_multistart(
         flip_list, "se3_pt2pl", GOLDEN, n_starts=8, pair_chunk=8)
     small_fns = {}
+    setup_npz = {"setup_main": setup_digest(main_list, "se3_pt2pl", GOLDEN)}
     for alg, cfg, kw in (("se3_gicp", GOLDEN, {}),
                          ("se3_gicp_with_cf", LOUNGE, fixtures.NOISY),
                          ("se3_pt2pt", GOLDEN, {}),
                          ("pt2pl", GOLDEN, fixtures.SMALL_POSE)):
         probs = [fixtures.golden_shape_problem(seed=s, **kw)
                  for s in range(1, 9)]
-        small_fns[alg] = functools.partial(
-            pairs.register_pairs, [(p.source, p.target) for p in probs],
-            alg, cfg)
+        plist = [(p.source, p.target) for p in probs]
+        small_fns[alg] = functools.partial(pairs.register_pairs, plist, alg,
+                                           cfg)
+        setup_npz[f"setup_{alg}"] = setup_digest(plist, alg, cfg)
     fgr_cfg = fgr.FGRConfig()
 
     def fgr_fn():
@@ -152,7 +156,8 @@ def run(root: str, out: str, reps: int) -> None:
              fgr_kept=np.asarray(fgr_stats["kept_correspondences"]),
              fgr_seconds=np.asarray(fgr_s),
              metrics_chamfer=chamfer, metrics_corrs=corrs,
-             metrics_seconds=np.asarray(metrics_s), **small_npz)
+             metrics_seconds=np.asarray(metrics_s), **small_npz,
+             **setup_npz)
     print(json.dumps({
         "phase": "path_digest", "root": os.path.abspath(root),
         "device": torch.cuda.get_device_name(0),
@@ -172,6 +177,36 @@ def run(root: str, out: str, reps: int) -> None:
         "metrics_seconds": metrics_s,
         "metrics_median_seconds": statistics.median(metrics_s)}),
         flush=True)
+
+
+def setup_digest(pair_list, alg: str, cfg) -> np.ndarray:
+    """Per pair, a SHA-1 of the setup's products that the loop reads
+    (``registration.setup`` on the card, threshold route): the query
+    features (the source frames), both phases' target embeddings (the
+    target frames), the payload (normals or covariances) and the source
+    covariances."""
+    import hashlib
+    import torch
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import parse_algorithm
+    src, n_src, tgt, n_tgt = (torch.as_tensor(a, device="cuda")
+                              for a in pairs.pack_pairs(pair_list))
+    mode, variant = parse_algorithm(alg)
+    floats, scfg = reg.split_cfg(cfg, torch.float32, "cuda")
+    with torch.no_grad():
+        ms, _ = reg.setup(src, n_src, tgt, n_tgt, scfg, mode, variant,
+                          reg.hyper(floats))
+    parts = [ms.feat16, ms.targets.emb, ms.targets.payload]
+    if ms.cov_src6 is not None:
+        parts.append(ms.cov_src6)
+    out = []
+    for b in range(src.shape[0]):
+        h = hashlib.sha1()
+        for x in parts:
+            h.update(x[b].contiguous().cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return np.asarray(out)
 
 
 def compare(a: str, b: str) -> bool:
