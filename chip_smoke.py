@@ -10,8 +10,10 @@ It builds the CUDA kernels from ``se3_icp_tpu_torch/csrc`` (printing
 ptxas's registers, spills and shared memory of K4, K1, K2, K3 and the
 tiled 1-NN search of K6/K7/K8 on a ``ptxas`` line), holds each kernel
 against its plain PyTorch version on the card at the main path's shapes
-(64 pairs, 4608-point bucket): the setup kernels K1-K3 of the sort-free
-threshold route (K2 and K3 also bit for bit between the spatial query
+(64 pairs, 4608-point bucket; the glue kernels G1-G4 bit for bit, G4,
+the setup's centring and scaling, also at 1 x 15872): the setup kernels
+K1-K3 of the sort-free threshold route (K2 and K3 also bit for bit
+between the spatial query
 order and the index order, K2's one-ball instance against its three-ball
 block, both also at the KITTI bucket, 8 x 15360) and the loop kernels K4
 (also at 8 x 15360, and with its R3-phase chain held bit for bit against
@@ -77,7 +79,10 @@ held bit for bit against the eager loop with no host sync.  A
 card 2 and 4 times (64 pairs, and 62 padded over 4: every pair the
 unsharded call's bits; the setup checksum sharded against unsharded,
 bitwise; ``bench-scaling``'s ladder, run by the bunny phase over the
-cards present, is quoted), K1-K4's
+cards present, is quoted), holds 8 pairs of ``se3_pt2pl``,
+``se3_gicp``, ``se3_pt2pt`` and ``pt2pl`` whole against shards of 4, 2
+and 1 and against the first 8 of a 64-pair batch (every pair the same
+bits and counts), K1-K4's
 row-slice instances at R = 2, 4 on 64 x 4608 and one KITTI road pair
 (1 x 15872; concatenated the whole call's bits, each slice held against
 its plain version), and on a world-1 NCCL group the points route (the
@@ -295,7 +300,8 @@ def build_phase() -> None:
          frame_assembly={k: v for k, v in res.items()
                          if "frame_assembly_kernel" in k},
          step_update={("pt2pt" if "kernelILb1" in k else "6x6"): v
-                      for k, v in res.items() if "step_update_kernel" in k})
+                      for k, v in res.items() if "step_update_kernel" in k},
+         center_scale={k: v for k, v in res.items() if "prep_kernel" in k})
 
 
 def golden_pairs(n_pairs, **kw):
@@ -875,19 +881,29 @@ def glue_case(name, fn, plain, tag, ops, nbytes, shape):
                 library_ms=None, shape=shape)
 
 
+def frame_glue_inputs(pts, nv, fuse):
+    """What the setup gives G1 and G2 on one cloud batch: (cloud, the
+    thresholds of counts 90, 31, 30 and 20, G1's TOLDI arguments (the
+    fused normal with ``fuse``), G2's arguments)."""
+    from se3_icp_tpu_torch.ops import cuda_frames, cuda_moments as cm
+    cloud = cm.setup_cloud(pts, nv)
+    cc = torch.tensor([90, 31, 30, 20], dtype=torch.int32,
+                      device=pts.device).expand(pts.shape[0], -1)
+    thr = cm.neighborhood_thresholds_batched(pts, nv, cc, cloud=cloud)
+    raw = cm.moments_raw(pts, nv, (thr[:, 2], thr[:, 1], thr[:, 0]), cloud)
+    args = (raw, pts, cloud.tn, thr[:, 0], 30, 30 if fuse else None)
+    normal_t, aux, fused = cuda_frames.frame_inputs(*args)
+    w = cm.axis_sums_aux(pts, nv, normal_t, aux, cloud)
+    return cloud, thr, args, (raw, pts, normal_t, w, fused)
+
+
 def frame_glue_cases(tag, pts, nv, fuse):
     """G1 (TOLDI inputs, the fused normal with ``fuse``; the one-ball
     normals and GICP covariances of count 20) and G2 at the inputs the
     setup gives them on one cloud batch."""
     from se3_icp_tpu_torch.ops import cuda_frames, cuda_moments as cm
     bsz, n, _ = pts.shape
-    cloud = cm.setup_cloud(pts, nv)
-    cc = torch.tensor([90, 31, 30, 20], dtype=torch.int32,
-                      device=pts.device).expand(bsz, -1)
-    thr = cm.neighborhood_thresholds_batched(pts, nv, cc, cloud=cloud)
-    raw = cm.moments_raw(pts, nv, (thr[:, 2], thr[:, 1], thr[:, 0]), cloud)
-    nk = 30 if fuse else None
-    args = (raw, pts, cloud.tn, thr[:, 0], 30, nk)
+    cloud, thr, args, a2 = frame_glue_inputs(pts, nv, fuse)
     queries = float(nv.sum())
     shape = dict(B=bsz, N=n)
     # G1: ~300 operations a query for the covariance and its eigenvector
@@ -899,9 +915,6 @@ def frame_glue_cases(tag, pts, nv, fuse):
                     lambda: cuda_frames.frame_inputs_plain(*args),
                     "frame_inputs_kernel", (600 if fuse else 300) * queries,
                     4 * bsz * n * (25 + 9 if fuse else 18 + 6), shape)]
-    normal_t, aux, fused = cuda_frames.frame_inputs(*args)
-    w = cm.axis_sums_aux(pts, nv, normal_t, aux, cloud)
-    a2 = (raw, pts, normal_t, w, fused)
     g2 = [glue_case(f"frame_assembly[{tag}]",
                     lambda: cuda_frames.frame_assembly(*a2),
                     lambda: cuda_frames.frame_assembly_plain(*a2),
@@ -920,10 +933,20 @@ def frame_glue_cases(tag, pts, nv, fuse):
     return g1, g2
 
 
-def step_glue_case(name, problems, alg, cfg):
-    """G3 against ``cuda_step.step_update_plain`` two steps into the
-    loop, a fifth of the pairs done; beside it the torch glue it replaced
-    (``registration.torch_glue_update``) on the same inputs."""
+def step_glue_configs():
+    """[(algorithm, config)] of the G3 cases: pt2pl, GICP trimmed to
+    0.75, pt2pt."""
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    return [("se3_pt2pl", GOLDEN),
+            ("se3_gicp", GOLDEN.replace(estimated_overlap=0.75)),
+            ("se3_pt2pt", GOLDEN)]
+
+
+def step_glue_inputs(problems, alg, cfg):
+    """G3's inputs two steps into the loop of ``problems`` under ``alg``
+    and ``cfg``, a fifth of the pairs done: (ms, loop state s, loop
+    constants c, A, b, st, the state {name: tensor} in the C entry's
+    order, the step's keyword arguments)."""
     from se3_icp_tpu_torch.models import registration as reg
     from se3_icp_tpu_torch.ops import cuda_step
     from se3_icp_tpu_torch.utils.config import parse_algorithm
@@ -936,11 +959,23 @@ def step_glue_case(name, problems, alg, cfg):
             s = reg.loop_step(s, ms, c)
         s.done[::5] = True
         A, b, st = reg._match_and_epilogue(s, ms, c, s.W, s.ph2, s.pf)
-        keys = cuda_step.STATE + ("hist", "W", "ph2", "pf")
-        state = {k: getattr(s, k) for k in keys}
-        kw = dict(variant=ms.variant, is_se3=ms.is_se3, hybrid=c.hybrid,
-                  do_trim=c.ep_kw["do_trim"], max_iters=c.max_iters,
-                  max_se3_iters=cfg.max_num_se3_iterations)
+    state = {k: getattr(s, k)
+             for k in cuda_step.STATE + ("hist", "W", "ph2", "pf")}
+    kw = dict(variant=ms.variant, is_se3=ms.is_se3, hybrid=c.hybrid,
+              do_trim=c.ep_kw["do_trim"], max_iters=c.max_iters,
+              max_se3_iters=cfg.max_num_se3_iterations)
+    return ms, s, c, A, b, st, state, kw
+
+
+def step_glue_case(name, problems, alg, cfg):
+    """G3 against ``cuda_step.step_update_plain`` two steps into the
+    loop, a fifth of the pairs done; beside it the torch glue it replaced
+    (``registration.torch_glue_update``) on the same inputs."""
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.ops import cuda_step
+    ms, s, c, A, b, st, state, kw = step_glue_inputs(problems, alg, cfg)
+    keys = tuple(state)
+    with torch.no_grad():
         work = {k: v.clone() for k, v in state.items()}
 
         def run(fn, st_=None):
@@ -963,14 +998,49 @@ def step_glue_case(name, problems, alg, cfg):
     return case
 
 
+def prep_glue_case(tag, problems):
+    """G4 against its plain version on the packed pairs, bit for bit;
+    beside it, for context, ``torch.sum`` of the masked source cloud
+    (the centroid's sum alone, in torch's order: no PyTorch call
+    computes the whole function)."""
+    from se3_icp_tpu_torch.ops import cuda_prep
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    src, n_src, tgt, n_tgt = (torch.as_tensor(a, device="cuda")
+                              for a in pairs.pack_pairs(
+                                  [(p.source, p.target) for p in problems]))
+    args = (src, n_src, tgt, n_tgt, hyper_on(GOLDEN).scale_preprocessing)
+    bsz, ns, _ = src.shape
+    nt = tgt.shape[1]
+    # per valid row: 3 sums (centroid); 3 differences, 3 squares, 2
+    # sums, a sqrt and a max (radius); 3 differences and 3 products (the
+    # write): 19.  Reads each cloud's valid rows once (padded rows are
+    # written as 0, never read), the two counts a pair and the scale;
+    # writes both clouds centred at their padded widths and 7 floats a
+    # pair
+    rows = int(n_src.sum() + n_tgt.sum())
+    case = glue_case(f"center_scale[{tag}]",
+                     lambda: cuda_prep.center_scale(*args),
+                     lambda: cuda_prep.center_scale_plain(*args),
+                     "prep_kernel", 19 * rows,
+                     4 * (3 * rows + 3 * bsz * (ns + nt) + 9 * bsz + 1),
+                     dict(B=bsz, Ns=ns, Nt=nt))
+    valid = torch.arange(ns, device="cuda")[None] < n_src[:, None]
+    masked = torch.where(valid[..., None], src, torch.zeros_like(src))
+    case["context_ms_torch_sum_masked_source"] = time_ms(
+        lambda: masked.sum(1))
+    return case
+
+
 def glue_kernels_phase():
-    """G1-G3 against their plain versions, bit for bit, at the main
+    """G1-G4 against their plain versions, bit for bit, at the main
     path's shapes (both sides of its 64 golden-shape pairs, the target's
     TOLDI pass with the fused pt2pl normal) and at the KITTI road's
     bucket (1 x 15872); G3 for pt2pl, GICP and pt2pt at 64 pairs."""
-    from se3_icp_tpu_torch.utils.config import GOLDEN
     problems = golden_pairs(N_PAIRS)
     g1, g2, g3 = [], [], []
+    g4 = [prep_glue_case("64 pairs, 4608", problems),
+          prep_glue_case("1 pair, 15872", golden_pairs(1, n=15500))]
     for side, (pts, nv) in zip(("64x4608", "64x4608, target"),
                                setup_clouds(problems)):
         a, b = frame_glue_cases(side, pts, nv, fuse=bool("target" in side))
@@ -980,15 +1050,13 @@ def glue_kernels_phase():
     a, b = frame_glue_cases(f"1x{pts.shape[1]}", pts, nv, fuse=False)
     g1.extend(a)
     g2.extend(b)
-    for alg, cfg in (("se3_pt2pl", GOLDEN),
-                     ("se3_gicp", GOLDEN.replace(estimated_overlap=0.75)),
-                     ("se3_pt2pt", GOLDEN)):
+    for alg, cfg in step_glue_configs():
         g3.append(step_glue_case(
             f"step_update[{alg}, 64 pairs"
             f"{', trimmed' if cfg.estimated_overlap < 1 else ''}]",
             problems, alg, cfg))
     torch.cuda.empty_cache()
-    return g1, g2, g3
+    return g1, g2, g3, g4
 
 
 def protocol_kernel_cases(folder, max_index):
@@ -1236,7 +1304,7 @@ def profile_line(call, phase="profile", emit_line=True):
                        "match_affine_kernel", "epilogue_kernel", "nn_kernel",
                        "nn_tiled_kernel", "set_if_kernel",
                        "frame_inputs_kernel", "frame_assembly_kernel",
-                       "step_update_kernel")}
+                       "step_update_kernel", "prep_kernel")}
     busy = device_busy_ms(prof)
     line = dict(device_ms_total=total / 1e3, device_busy_ms=busy,
                 wall_ms_profiled=1e3 * wall,
@@ -1332,10 +1400,14 @@ def check_glue_launches(what, launches, steps):
               f"{what} launched {name} {launches[name]} times, not {n}")
 
 
-def check_launches(what, launches, loop_steps, setup):
+def check_launches(what, launches, loop_steps, setup, prep=1):
     """The loop kernels launch once per loop step (K4, K5, G3); the setup
-    kernels ``setup`` = (K1, K2, K3) times, as the count sets give, and
-    G1, G2 with K2, K3."""
+    kernels ``setup`` = (K1, K2, K3) times, as the count sets give, G1,
+    G2 with K2, K3, and G4 ``prep`` times (once a registration call of
+    an SE(3) mode: its centring and scaling)."""
+    check(launches["center_scale"] == prep,
+          f"{what} launched center_scale {launches['center_scale']} times, "
+          f"not {prep}")
     for name in ("nn_match_affine", "loop_epilogue_batched", "step_update"):
         check(launches[name] == loop_steps > 0,
               f"{what} launched {name} {launches[name]} times in "
@@ -1480,7 +1552,8 @@ def main_path_phase():
         iters = [r.num_iterations for r in res]
         check(st["loop_steps"] >= max(iters), f"{alg}: loop steps")
         check_launches(alg, alg_launches, st["loop_steps"],
-                       ALGORITHM_SETUP_LAUNCHES[alg])
+                       ALGORITHM_SETUP_LAUNCHES[alg],
+                       prep=int(parse_algorithm(alg)[0] != "icp"))
         emit("algorithm_run", algorithm=alg, config=cfg_name, pairs=SMALL_BATCH,
              loop_route=route, first_call_seconds=walls[0], seconds=walls[1],
              mean_iterations=float(np.mean(iters)), max_iterations=max(iters),
@@ -1514,7 +1587,8 @@ def replayed_launches_line(pair_list):
                axis_kernel="axis_sums_batched",
                frame_inputs_kernel="frame_inputs",
                frame_assembly_kernel="frame_assembly",
-               step_update_kernel="step_update")
+               step_update_kernel="step_update",
+               prep_kernel="center_scale")
     tries = []
     for _ in range(3):
         st = {}
@@ -1550,30 +1624,33 @@ def replayed_launches_line(pair_list):
 
 class GlueAsTorch:
     """Within the block the main path runs its glue as torch ops, as the
-    port did before G1-G3: G1's and G2's plain versions (the same torch
-    code, the same bits) and ``registration.torch_glue_loop_step`` (the
-    operands by ``loop_inputs``, the 6x6 by ``torch.linalg.
-    solve_ex``, ``T_i @ T``, ``linalg.norm``).  The program cache is
-    cleared on entry and exit, so neither route replays the other's
-    capture."""
+    port did before G1-G4: G1's, G2's and G4's plain versions (G1's and
+    G2's the same torch code, the same bits; G4's its fixed order as
+    elementwise slabs, where the port before it took torch's ``sum`` and
+    ``linalg.norm``) and ``registration.torch_glue_loop_step`` (the
+    operands by ``loop_inputs``, the 6x6 by ``torch.linalg.solve_ex``,
+    ``T_i @ T``, ``linalg.norm``).  The program cache is cleared on entry
+    and exit, so neither route replays the other's capture."""
 
-    NAMES = ("frame_inputs", "ball_normals", "frame_assembly")
+    NAMES = (("cuda_frames", "frame_inputs"), ("cuda_frames", "ball_normals"),
+             ("cuda_frames", "frame_assembly"), ("cuda_prep", "center_scale"))
 
     def __enter__(self):
         from se3_icp_tpu_torch.models import program, registration as reg
-        from se3_icp_tpu_torch.ops import cuda_frames
-        self.cf, self.reg, self.program = cuda_frames, reg, program
-        self.orig = {n: getattr(cuda_frames, n) for n in self.NAMES}
+        from se3_icp_tpu_torch.ops import cuda_frames, cuda_prep
+        self.mods = dict(cuda_frames=cuda_frames, cuda_prep=cuda_prep)
+        self.reg, self.program = reg, program
+        self.orig = {(m, n): getattr(self.mods[m], n) for m, n in self.NAMES}
         self.step = reg.loop_step
         program.clear()
-        for n in self.NAMES:
-            setattr(cuda_frames, n, getattr(cuda_frames, n + "_plain"))
+        for m, n in self.NAMES:
+            setattr(self.mods[m], n, getattr(self.mods[m], n + "_plain"))
         reg.loop_step = reg.torch_glue_loop_step
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.orig.items():
-            setattr(self.cf, n, fn)
+        for (m, n), fn in self.orig.items():
+            setattr(self.mods[m], n, fn)
         self.reg.loop_step = self.step
         self.program.clear()
 
@@ -3501,23 +3578,11 @@ def pairs_mesh_runs(total):
                   "pairs: other bits than the unsharded call")
             check_launches(f"pairs mesh x{n_dev}", launches,
                            stats["loop_steps"],
-                           (2 * n_dev, 2 * n_dev, 2 * n_dev))
+                           (2 * n_dev, 2 * n_dev, 2 * n_dev), prep=n_dev)
             sum_launches(total, launches)
             out.append(dict(pairs=n_pairs, mesh=n_dev, same_bits=True,
                             seconds=wall, loop_steps=stats["loop_steps"],
                             launches=launches))
-    # not a hold: 8 pairs whole against shards of 4, 2 and 1 (a pair's
-    # last bits can follow its batch's size on the card below 16 pairs)
-    small = {}
-    ref = pairs.register_pairs(pl[:8], "se3_pt2pl", GOLDEN, mesh=False)
-    for n_dev in (2, 4, 8):
-        got = pairs.register_pairs(pl[:8], "se3_pt2pl", GOLDEN,
-                                   mesh=pairs.default_mesh(["cuda:0"] * n_dev))
-        small[f"8 pairs in shards of {8 // n_dev}"] = dict(
-            pairs_with_other_bits=[i for i, (a, b) in enumerate(zip(got, ref))
-                                   if not same_results([a], [b])],
-            iterations_moved=sum(abs(a.num_iterations - b.num_iterations)
-                                 for a, b in zip(got, ref)))
     batch = [torch.as_tensor(a, device="cuda")
              for a in pairs.pack_pairs(pl)]
     whole = pairs.setup_checksum_batch(*batch, GOLDEN, "se3_pt2pl")
@@ -3529,7 +3594,74 @@ def pairs_mesh_runs(total):
               "differs from the unsharded one")
     check(bool(torch.isfinite(whole).all()), "setup checksum not finite")
     return out, dict(checksum_bits_equal=True,
-                     checksum_pair0=float(whole[0]), small_shards=small)
+                     checksum_pair0=float(whole[0]),
+                     batch_sizes=batch_size_holds())
+
+
+def batch_size_runs(pair_list, run, sizes, first=8):
+    """Per-pair results of the first ``first`` pairs of ``pair_list``,
+    {name: list}: ``"B={first}"`` the pairs in one batch, ``"B={k}"`` in
+    batches of each size k in ``sizes``, and ``"first {first} of {n}"``
+    as the head of the whole list in one batch.  ``run(pairs, k)``
+    registers ``pairs`` in batches of k and returns one result a pair.
+    The batch-size holds of this script, of
+    ``tests/test_torch_gpu_batch_bits.py`` and of ``tools/path_digest.py
+    --batch-bits`` share it."""
+    head = pair_list[:first]
+    out = {f"B={k}": run(head, k) for k in (first, *sizes)}
+    out[f"first {first} of {len(pair_list)}"] = run(
+        pair_list, len(pair_list))[:first]
+    return out
+
+
+def one_call_a_batch(per_batch):
+    """A ``run`` for ``batch_size_runs``: ``per_batch(pairs)`` (one result
+    a pair) on each batch in turn."""
+    return lambda pl, k: [r for b0 in range(0, len(pl), k)
+                          for r in per_batch(pl[b0:b0 + k])]
+
+
+def pairs_differing(runs, same, first=8):
+    """{name: [pair]} of the pairs whose result in each run of
+    ``batch_size_runs`` is not ``same`` as in one batch of ``first``."""
+    ref = runs[f"B={first}"]
+    return {name: [i for i, (a, b) in enumerate(zip(got, ref))
+                   if not same(a, b)]
+            for name, got in runs.items() if name != f"B={first}"}
+
+
+def batch_size_holds():
+    """A hold: for ``se3_pt2pl`` (the main path), ``se3_gicp``,
+    ``se3_pt2pt`` and ``pt2pl``, 8 golden-shape pairs registered whole,
+    in shards of 4, 2 and 1 (meshes naming the card 2, 4 and 8 times,
+    each shard packed at its own width) and as the first 8 of a 64-pair
+    batch give every pair the same transform bits and counts (G4's fixed
+    order and the component-wise maps in and out of the preprocessed
+    frame; with torch's reductions there, 2-3 iterations moved)."""
+    from se3_icp_tpu_torch.datasets.fixtures import SMALL_POSE
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    out = {}
+    for alg in ("se3_pt2pl", "se3_gicp", "se3_pt2pt", "pt2pl"):
+        probs = golden_pairs(N_PAIRS, **(SMALL_POSE if alg == "pt2pl"
+                                         else {}))
+
+        def sharded(pl, k, alg=alg):
+            mesh = (pairs.default_mesh(["cuda:0"] * (len(pl) // k))
+                    if k < len(pl) else False)
+            return pairs.register_pairs(pl, alg, GOLDEN, mesh=mesh)
+        runs = batch_size_runs([(p.source, p.target) for p in probs],
+                               sharded, sizes=(4, 2, 1))
+        gate(probs[:8], runs["B=8"], f"{alg}, 8 pairs")
+        line = {}
+        for name, other in pairs_differing(
+                runs, lambda a, b: same_results([a], [b])).items():
+            line[name] = dict(pairs_with_other_bits=other)
+            check(not other, f"{alg}: 8 pairs at {name} give pairs {other} "
+                  "other bits or counts than the 8 whole")
+        out[alg] = dict(iterations=[r.num_iterations for r in runs["B=8"]],
+                        **line)
+    return out
 
 
 def points_run(tag, src, n_src, tgt, n_tgt, cfg, algorithm, total,
@@ -3569,7 +3701,7 @@ def points_run(tag, src, n_src, tgt, n_tgt, cfg, algorithm, total,
     points.register_arrays_points_sharded(*args, algorithm, stats=stats)
     launches = read_launches()
     check_launches(f"points route ({tag})", launches, stats["loop_steps"],
-                   setup_launches)
+                   setup_launches, prep=int(algorithm.startswith("se3")))
     sum_launches(total, launches)
     sharded = lambda: points.register_arrays_points_sharded(*args,
                                                             algorithm)
@@ -3716,7 +3848,7 @@ def smoke() -> int:
     timed_phase(build_phase)
     k1_cases, k2_cases, k3_cases = timed_phase(setup_kernels_phase)
     k4_cases, k5_cases = timed_phase(kernels_phase)
-    g1_cases, g2_cases, g3_cases = timed_phase(glue_kernels_phase)
+    g1_cases, g2_cases, g3_cases, g4_cases = timed_phase(glue_kernels_phase)
     launches, results = timed_phase(main_path_phase)
     timed_phase(serving_phase)
     timed_phase(cli_phase)
@@ -3790,6 +3922,8 @@ def smoke() -> int:
               "se3_icp_tpu/ops/lrf.py:599"),
         entry(g3_cases, "step_update", "se3_icp_tpu_torch/csrc/step_update.cu",
               "se3_icp_tpu/models/registration.py:651"),
+        entry(g4_cases, "center_scale", "se3_icp_tpu_torch/csrc/prep.cu",
+              "se3_icp_tpu/models/registration.py:209"),
     ]
     emit("total", seconds=time.perf_counter() - t_start,
          phase_seconds=PHASE_SECONDS)

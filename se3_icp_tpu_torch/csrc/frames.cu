@@ -29,8 +29,10 @@
 // centroid ball's 3 (all 10 with the fused normal; the third ball's
 // none) and 5 floats of the query, and writes 6 (9 fused): 24 (34)
 // floats a query, 28 (40) MB at 64 x 4608; one ball reads 13 and writes
-// 3 (6).  G2 reads 14 (17) and writes 18 (21).  A few hundred operations
-// a query are far from the card's rate.
+// 3 (6).  G2 reads 14 (17) and writes 18 (21), its points and
+// point-major frames staged in shared memory so that every warp access
+// is coalesced.  A few hundred operations a query are far from the
+// card's rate.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -180,64 +182,80 @@ frame_inputs_kernel(const float* __restrict__ raw, const float* __restrict__ pts
 
 // G2.  raw [B, 30, C] (K2's three balls), pts [B, N, 3], normal [B, 3, C]
 // (G1's), w [B, 4, C] (K3's: sum W p, sum W), fused [B, 3, C] or null;
-// out_t [B, 9 (12 with fused), C], frames [B, C, 9].
+// out_t [B, 9 (12 with fused), C], frames [B, C, 9].  A block's queries
+// are consecutive, so their points are one run of 3 floats a query and
+// their point-major frames one run of 9: both go through shared memory,
+// read and written by consecutive threads at consecutive addresses (a
+// thread's own 3 or 9 floats, 12 or 36 bytes apart from its neighbour's,
+// would spread each warp's access over 3 or 9 times the lines).  The
+// component-major rows are read and written a row at a time, coalesced.
 __global__ void __launch_bounds__(kThreads)
 frame_assembly_kernel(const float* __restrict__ raw, const float* __restrict__ pts,
                       const float* __restrict__ normal, const float* __restrict__ w,
                       const float* __restrict__ fused, float* __restrict__ out_t,
                       float* __restrict__ frames, int n, int nq, int r0) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
+  __shared__ float sq[3 * kThreads];
+  __shared__ float sf[9 * kThreads];
+  const int t = threadIdx.x;
+  const int c0 = blockIdx.x * kThreads;
+  const int c = c0 + t;
   const int b = blockIdx.y;
-  if (c >= nq) return;
-  const long long row = static_cast<long long>(b) * n + r0 + c;
-  const float q[3] = {pts[3 * row], pts[3 * row + 1], pts[3 * row + 2]};
-  const float* rb = raw + static_cast<long long>(b) * 3 * kSums * nq + c;
-  const float* wb = w + static_cast<long long>(b) * 4 * nq + c;
-  const long long o3 = static_cast<long long>(b) * 3 * nq + c;
-  // the all-ball's sums without the query, and K3's
-  const float cnt = sub(rb[(2 * kSums + 9) * nq], 1.0f);
-  const float wsum = wb[3 * nq];
-  float nv[3], arrow[3], scaled[3];
+  const int count = nq - c0 < kThreads ? nq - c0 : kThreads;
+  const float* pq = pts + (static_cast<long long>(b) * n + r0 + c0) * 3;
+  for (int i = t; i < 3 * count; i += kThreads) sq[i] = pq[i];
+  __syncthreads();
+  if (c < nq) {
+    const float q[3] = {sq[3 * t], sq[3 * t + 1], sq[3 * t + 2]};
+    const float* rb = raw + static_cast<long long>(b) * 3 * kSums * nq + c;
+    const float* wb = w + static_cast<long long>(b) * 4 * nq + c;
+    const long long o3 = static_cast<long long>(b) * 3 * nq + c;
+    // the all-ball's sums without the query, and K3's
+    const float cnt = sub(rb[(2 * kSums + 9) * nq], 1.0f);
+    const float wsum = wb[3 * nq];
+    float nv[3], arrow[3], scaled[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    nv[k] = normal[o3 + k * nq];
-    const float all_sum = sub(rb[(2 * kSums + k) * nq], q[k]);
-    arrow[k] = sub(all_sum, mul(cnt, q[k]));
-    scaled[k] = sub(wb[k * nq], mul(wsum, q[k]));
+    for (int k = 0; k < 3; ++k) {
+      nv[k] = normal[o3 + k * nq];
+      const float all_sum = sub(rb[(2 * kSums + k) * nq], q[k]);
+      arrow[k] = sub(all_sum, mul(cnt, q[k]));
+      scaled[k] = sub(wb[k * nq], mul(wsum, q[k]));
+    }
+    const bool flip = sum3(mul(nv[0], arrow[0]), mul(nv[1], arrow[1]),
+                           mul(nv[2], arrow[2])) < 0.0f;
+    float z[3], x[3], y[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) z[k] = flip ? -nv[k] : nv[k];
+    const float sz = sum3(mul(scaled[0], z[0]), mul(scaled[1], z[1]),
+                          mul(scaled[2], z[2]));
+#pragma unroll
+    for (int k = 0; k < 3; ++k) x[k] = sub(scaled[k], mul(sz, z[k]));
+    const float xn = __fsqrt_rn(sum3(mul(x[0], x[0]), mul(x[1], x[1]),
+                                     mul(x[2], x[2])));
+    const float xc = clamp_min(xn, 1e-30f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) x[k] = dvd(x[k], xc);
+    y[0] = sub(mul(z[1], x[2]), mul(z[2], x[1]));
+    y[1] = sub(mul(z[2], x[0]), mul(z[0], x[2]));
+    y[2] = sub(mul(z[0], x[1]), mul(z[1], x[0]));
+    const int rows = fused != nullptr ? 12 : 9;
+    float* ot = out_t + static_cast<long long>(b) * rows * nq + c;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      ot[k * nq] = x[k];
+      ot[(3 + k) * nq] = y[k];
+      ot[(6 + k) * nq] = z[k];
+      sf[9 * t + k] = x[k];
+      sf[9 * t + 3 + k] = y[k];
+      sf[9 * t + 6 + k] = z[k];
+    }
+    if (fused != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) ot[(9 + k) * nq] = fused[o3 + k * nq];
+    }
   }
-  const bool flip = sum3(mul(nv[0], arrow[0]), mul(nv[1], arrow[1]),
-                         mul(nv[2], arrow[2])) < 0.0f;
-  float z[3], x[3], y[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) z[k] = flip ? -nv[k] : nv[k];
-  const float sz = sum3(mul(scaled[0], z[0]), mul(scaled[1], z[1]),
-                        mul(scaled[2], z[2]));
-#pragma unroll
-  for (int k = 0; k < 3; ++k) x[k] = sub(scaled[k], mul(sz, z[k]));
-  const float xn = __fsqrt_rn(sum3(mul(x[0], x[0]), mul(x[1], x[1]),
-                                   mul(x[2], x[2])));
-  const float xc = clamp_min(xn, 1e-30f);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) x[k] = dvd(x[k], xc);
-  y[0] = sub(mul(z[1], x[2]), mul(z[2], x[1]));
-  y[1] = sub(mul(z[2], x[0]), mul(z[0], x[2]));
-  y[2] = sub(mul(z[0], x[1]), mul(z[1], x[0]));
-  const int rows = fused != nullptr ? 12 : 9;
-  float* ot = out_t + static_cast<long long>(b) * rows * nq + c;
-  float* fp = frames + (static_cast<long long>(b) * nq + c) * 9;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    ot[k * nq] = x[k];
-    ot[(3 + k) * nq] = y[k];
-    ot[(6 + k) * nq] = z[k];
-    fp[k] = x[k];
-    fp[3 + k] = y[k];
-    fp[6 + k] = z[k];
-  }
-  if (fused != nullptr) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) ot[(9 + k) * nq] = fused[o3 + k * nq];
-  }
+  __syncthreads();
+  float* fp = frames + (static_cast<long long>(b) * nq + c0) * 9;
+  for (int i = t; i < 9 * count; i += kThreads) fp[i] = sf[i];
 }
 
 }  // namespace

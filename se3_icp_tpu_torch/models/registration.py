@@ -9,7 +9,10 @@ One program for the reference's four ``run_*`` methods, selected by
   mode='se3_pure' -> run_se3_pure
 
 Mechanics:
-  * clouds are padded to bucket sizes with per-pair valid counts;
+  * clouds are padded to bucket sizes with per-pair valid counts; the
+    SE(3) modes centre and scale them first (G4, ``ops/cuda_prep.py``),
+    in one order of each pair's own rows, so no bit of a pair's result
+    follows the batch it is registered in;
   * the SE(3)->R3 "switch to vanilla ICP" annealing is not a branch:
     both phases run through the SAME 12-D match kernel, with the
     rotation block of the query/target embeddings zeroed after the
@@ -80,7 +83,7 @@ import numpy as np
 import torch
 
 from se3_icp_tpu_torch.ops import (cuda_knn, cuda_loop, cuda_moments,
-                                   cuda_step, knn, lrf, solve)
+                                   cuda_prep, cuda_step, knn, lrf, solve)
 from se3_icp_tpu_torch.utils import se3
 from se3_icp_tpu_torch.utils.config import (RegistrationConfig,
                                             parse_algorithm)
@@ -202,16 +205,6 @@ def lounge_point_confidence(points: torch.Tensor) -> torch.Tensor:
     return (p1 * min_d + p2 * min_d + p3) / err
 
 
-def _masked_centroid(pts, valid, n):
-    w = valid.to(pts.dtype)[..., None]
-    return (pts * w).sum(1) / n.to(pts.dtype).clamp_min(1.0)[:, None]
-
-
-def _largest_radius(pts, center, valid):
-    d = torch.linalg.norm(pts - center[:, None], dim=-1)
-    return torch.where(valid, d, torch.full_like(d, -1.0)).amax(-1)
-
-
 def _embed12(rot, trans):
     """[B,N,3,3] frame rotations (columns x,y,z) + [B,N,3] translations
     -> [B,N,12] column-major flattening (the reference's layout)."""
@@ -222,29 +215,23 @@ def _embed12(rot, trans):
 def preprocess(src, n_src, tgt, n_tgt, cfg: RegistrationConfig, is_se3,
                h: Hyper):
     """Centre each cloud at its own centroid and scale both by
-    s = scale_preprocessing / max_radius; padded rows go to 0."""
+    s = scale_preprocessing / max_radius; padded rows go to 0.  The SE(3)
+    modes take G4 (``cuda_prep.center_scale``): its sums run in one order
+    that depends on each pair's valid count alone, so a pair's bits do
+    not follow its batch."""
+    if is_se3:
+        src_c, tgt_c, cen_s, cen_t, scaling = cuda_prep.center_scale(
+            src, n_src, tgt, n_tgt, h.scale_preprocessing)
+        return src_c, tgt_c, Preprocess(cen_s, cen_t, scaling)
     dtype = src.dtype
     bsz = src.shape[0]
     src_valid = torch.arange(src.shape[1], device=src.device) < n_src[:, None]
     tgt_valid = torch.arange(tgt.shape[1], device=src.device) < n_tgt[:, None]
-    if is_se3:
-        cen_s = _masked_centroid(src, src_valid, n_src)
-        cen_t = _masked_centroid(tgt, tgt_valid, n_tgt)
-        r_s = _largest_radius(src, cen_s, src_valid)
-        r_t = _largest_radius(tgt, cen_t, tgt_valid)
-        # a Python float over a tensor is its reciprocal times the float
-        # in torch; the vector's scale takes the same steps
-        scaling = torch.maximum(r_s, r_t).clamp_min(
-            1e-30).reciprocal() * h.scale_preprocessing
-        src_c = (src - cen_s[:, None]) * scaling[:, None, None]
-        tgt_c = (tgt - cen_t[:, None]) * scaling[:, None, None]
-    else:
-        cen_s = torch.zeros((bsz, 3), dtype=dtype, device=src.device)
-        cen_t = torch.zeros_like(cen_s)
-        scaling = torch.ones(bsz, dtype=dtype, device=src.device)
-        src_c, tgt_c = src, tgt
-    src_c = torch.where(src_valid[..., None], src_c, torch.zeros_like(src_c))
-    tgt_c = torch.where(tgt_valid[..., None], tgt_c, torch.zeros_like(tgt_c))
+    cen_s = torch.zeros((bsz, 3), dtype=dtype, device=src.device)
+    cen_t = torch.zeros_like(cen_s)
+    scaling = torch.ones(bsz, dtype=dtype, device=src.device)
+    src_c = torch.where(src_valid[..., None], src, torch.zeros_like(src))
+    tgt_c = torch.where(tgt_valid[..., None], tgt, torch.zeros_like(tgt))
     return src_c, tgt_c, Preprocess(cen_s, cen_t, scaling)
 
 
@@ -893,15 +880,29 @@ def to_original(T, pre: Preprocess, is_se3: bool):
     if not is_se3:
         return T
     extra = (None,) * (T.dim() - 3)
-    Rp = T[..., :3, :3]
-    tp = T[..., :3, 3]
     cen_s = pre.cen_s[(slice(None),) + extra]
     cen_t = pre.cen_t[(slice(None),) + extra]
-    sc = pre.scaling[(slice(None),) + extra + (None,)]
-    t_orig = tp / sc - (Rp @ cen_s[..., None])[..., 0] + cen_t
+    sc = pre.scaling[(slice(None),) + extra]
+    # t / s - R c_s + c_t component by component, the product's sums in
+    # torch's order: no batched product, whose split follows the batch
+    rc = _rot_times(T, cen_s)
+    t_orig = [(T[..., i, 3] / sc - rc[i]) + cen_t[..., i] for i in range(3)]
+    return _with_translation(T, t_orig)
+
+
+def _rot_times(T, v) -> list:
+    """[R v]_i = (R_i0 v_0 + R_i1 v_1) + R_i2 v_2 for the rotation block
+    of T [...,4,4] and v [...,3], as three tensors of T's batch shape."""
+    return [(T[..., i, 0] * v[..., 0] + T[..., i, 1] * v[..., 1])
+            + T[..., i, 2] * v[..., 2] for i in range(3)]
+
+
+def _with_translation(T, t: list) -> torch.Tensor:
+    """[...,4,4]: T's rotation block, the translation ``t`` (three
+    tensors), the last row (0, 0, 0, 1)."""
     out = torch.zeros_like(T)
-    out[..., :3, :3] = Rp
-    out[..., :3, 3] = t_orig
+    out[..., :3, :3] = T[..., :3, :3]
+    out[..., :3, 3] = torch.stack(t, -1)
     out[..., 3, 3] = 1.0
     return out
 
@@ -925,14 +926,10 @@ def warm_start(initial_T, pre: Preprocess, dtype):
     """``initial_T`` [B,4,4] of original coordinates in the loop's
     preprocessed frame: the inverse of ``to_original``."""
     T0 = initial_T.to(dtype)
-    R0 = T0[:, :3, :3]
-    tp0 = (T0[:, :3, 3] + (R0 @ pre.cen_s[..., None])[..., 0]
-           - pre.cen_t) * pre.scaling[:, None]
-    T_init = torch.zeros_like(T0)
-    T_init[:, :3, :3] = R0
-    T_init[:, :3, 3] = tp0
-    T_init[:, 3, 3] = 1.0
-    return T_init
+    rc = _rot_times(T0, pre.cen_s)
+    return _with_translation(T0, [
+        ((T0[:, i, 3] + rc[i]) - pre.cen_t[:, i]) * pre.scaling
+        for i in range(3)])
 
 
 class Dispatched:

@@ -91,6 +91,9 @@ SIGNATURES = {
     # W, ph2, pf, hv, stop_thresh, n_src_f, B, H, pt2pt, is_se3, hybrid,
     # do_trim, max_iters, max_se3_iters, stream: G3 (csrc/step_update.cu)
     "se3icp_step_update": [_P] * 17 + [_I] * 8 + [_P],
+    # src, n_src, tgt, n_tgt, scale_pre, src_c, tgt_c, cen_s, cen_t,
+    # scaling, B, Ns, Nt, stream: G4 (csrc/prep.cu)
+    "se3icp_prep": [_P] * 10 + [_I] * 3 + [_P],
     # parent stream, child stream, pred: an "if" node (csrc/graph_cond.cu)
     "se3icp_cond_begin": [_P] * 3,
     # child stream
@@ -196,7 +199,7 @@ COUNTED = ("neighborhood_thresholds_batched", "moments_batched",
            "axis_sums_batched", "nn_match_affine", "loop_epilogue_batched",
            "nn_argmin_batched", "nn_argmin_unbatched", "nn_match_batched",
            "nn_match_packed", "frame_inputs", "frame_assembly",
-           "step_update")
+           "step_update", "center_scale")
 _counts: dict = {}      # device index -> int64 [len(COUNTED)] on the card
 _slots: dict = {}       # device index -> {name: 0-dim view of its slot}
 

@@ -13,7 +13,8 @@
 // buffer between two warp barriers, __shared__ arrays are function
 // statics (one block at a time uses them).  The explicitly rounded float
 // intrinsics are plain IEEE float operations (compile with
-// -ffp-contract=off); __fsqrt_rn is std::sqrt, correctly rounded.  The
+// -ffp-contract=off); __fsqrt_rn is std::sqrt and __frcp_rn 1 / x,
+// both correctly rounded; __syncwarp is the warp's barrier.  The
 // cp.async pipeline calls copy at once: __pipeline_memcpy_async is a
 // memcpy, commit and wait do nothing (the kernels' barriers still order
 // the copies against the reads).
@@ -94,6 +95,7 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline float __frcp_rn(float a) { return 1.0f / a; }
 inline float __int_as_float(int i) {
   float f;
   std::memcpy(&f, &i, sizeof f);
@@ -111,6 +113,8 @@ inline void __pipeline_memcpy_async(void* dst, const void* src,
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(std::size_t) {}
+
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp.bar->arrive_and_wait(); }
 
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int lane = threadIdx.x & 31;

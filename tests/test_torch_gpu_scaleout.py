@@ -5,10 +5,8 @@ routes over a world-1 NCCL group.  These tests need a CUDA device and
 ``python -m pytest tests/test_torch_gpu_scaleout.py -q --noconftest``.
 
 Held: 32 pairs over a mesh naming the card twice (and 62 over it four
-times, padded) give the unsharded bits, and so does the setup checksum
-(shards of 16 pairs or more: below that a pair's last bits, and with
-them its iteration count, can follow its batch's size on the card,
-PERF.md §7);
+times, padded), and 8 pairs over it 2, 4 and 8 times (shards of 4, 2
+and 1), give the unsharded bits, and so does the setup checksum;
 K1-K3 on 2 and 3 row slices of 8 x 4608 clouds, concatenated, give the
 whole call's bits (K1 each slice its plain version's bits), K4 on
 slices of ``feat16`` likewise; the points route on the golden pair (a
@@ -74,7 +72,8 @@ def _same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-@pytest.mark.parametrize("n_pairs,n_dev", [(32, 2), (62, 4)])
+@pytest.mark.parametrize("n_pairs,n_dev", [(32, 2), (62, 4), (8, 2),
+                                           (8, 4), (8, 8)])
 def test_pairs_mesh_gives_the_unsharded_bits(card, n_pairs, n_dev):
     batch = _batch(card, _problems(n_pairs))
     whole = pairs.register_batch(*batch, GOLDEN, "se3_pt2pl")

@@ -186,14 +186,14 @@ def test_kernel_wrappers_count_launches_only_on_the_card():
     nothing; the CUDA sources they would build are in the package."""
     from se3_icp_tpu_torch.ops import (_build, cuda_frames, cuda_knn,
                                        cuda_loop, cuda_moments, cuda_nn,
-                                       cuda_step)
+                                       cuda_prep, cuda_step)
     wrappers = (cuda_knn.nn_match_affine, cuda_loop.loop_epilogue_batched,
                 cuda_moments.neighborhood_thresholds_batched,
                 cuda_moments.moments_batched, cuda_moments.axis_sums_batched,
                 cuda_nn.nn_argmin_batched, cuda_nn.nn_argmin_unbatched,
                 cuda_nn.nn_match_batched, cuda_nn.nn_match_packed,
                 cuda_frames.frame_inputs, cuda_frames.frame_assembly,
-                cuda_step.step_update)
+                cuda_step.step_update, cuda_prep.center_scale)
     assert sorted(w.__name__ for w in wrappers) == sorted(_build.COUNTED)
     before = _build.launches()
     # icp pt2pl reaches K1, K2, K4, K5; se3_pt2pl all five
@@ -205,7 +205,7 @@ def test_kernel_wrappers_count_launches_only_on_the_card():
     names = [s.name for s in _build.sources()]
     assert names == ["frames.cu", "graph_cond.cu", "loop_epilogue.cu",
                      "match_affine.cu", "moments.cu", "nn_argmin.cu",
-                     "step_update.cu", "thresholds.cu"]
+                     "prep.cu", "step_update.cu", "thresholds.cu"]
     for s in _build.sources():
         text = s.read_text()
         assert "torch/extension.h" not in text
@@ -219,5 +219,5 @@ def test_kernel_wrappers_count_launches_only_on_the_card():
         "se3icp_nn_tiled_smem", "se3icp_nn_match_packed",
         "se3icp_nn_match_packed_batched", "se3icp_cond_begin",
         "se3icp_cond_end", "se3icp_frame_inputs", "se3icp_frame_assembly",
-        "se3icp_step_update"}
+        "se3icp_step_update", "se3icp_prep"}
     assert [h.name for h in _build.headers()] == ["dist.cuh", "eigh3_rn.cuh"]

@@ -3,9 +3,11 @@
 (``csrc/thresholds.cu``), K2, K3 (``csrc/moments.cu``) and the tiled 1-NN
 search of K6/K7/K8 (``csrc/nn_argmin.cu``), and the cluster and split
 sizes of K5 (``csrc/loop_epilogue.cu``) and of the one-query-a-thread
-search of K9, measured side by side on one card.
+search of K9, measured side by side on one card; and the glue kernels G2
+(``csrc/frames.cu``) and G3 (``csrc/step_update.cu``) against other
+sources of theirs.
 
-    python3 tools/kernel_tiling_sweep.py [--only k4 k1 moments k5 nn]
+    python3 tools/kernel_tiling_sweep.py [--only k4 k1 moments k5 nn glue]
                                          [--k4 THREADS,R,MINBLOCKS,U,U3 ...]
                                          [--k1 Q,WARPS ...]
                                          [--moments T2,R2,T3,R3 ...]
@@ -17,6 +19,7 @@ search of K9, measured side by side on one card.
                                          [--extra-moments LABEL=FILE.cu ...]
                                          [--extra-k5 LABEL=FILE.cu ...]
                                          [--extra-nn LABEL=FILE.cu ...]
+                                         [--extra-glue LABEL=DIR ...]
 
 Each variant is the committed source with its ``constexpr`` tiling
 factors replaced in a temporary copy (K4: ``kThreads``, ``kR``,
@@ -63,6 +66,15 @@ an ``nn_argmin.cu`` without the tiled entry points runs K6 and K7 through
 ``se3icp_nn_match_packed``, at the S that K9's rule (``split_size``)
 picks.
 The committed sources are not changed.
+``--only glue`` times the committed G2 and G3 beside the
+``frames.cu`` and ``step_update.cu`` of each ``--extra-glue`` directory
+(e.g. another checkout's ``se3_icp_tpu_torch/csrc``) with the same C
+entry points, by device time in turns, and reports whether each gives
+the committed kernel's bits: G2
+on the main path's sources (64 x 4608), its targets with the fused
+normal and the KITTI road's bucket (1 x 15872); G3 two steps into the
+loop of the main path's 64 pairs for pt2pl, GICP trimmed and pt2pt, a
+fifth of the pairs done.
 ``--sass DIR`` also writes each variant's machine code (``cuobjdump
 -sass``) into DIR.  Needs a CUDA device and nvcc; prints one JSON line
 per kernel.
@@ -751,11 +763,110 @@ def sweep_nn(tiles, reps, sass_dir, extras=()):
         return [r for r in rows.values() if r["ms"]]
 
 
+def glue_cases():
+    """[(kernel, name, inputs)] of G2 and G3 as the main path calls them,
+    from the functions that make ``chip_smoke.py``'s glue cases."""
+    import chip_smoke as cs
+    out = []
+    problems = cs.golden_pairs(cs.N_PAIRS)
+    clouds = cs.setup_clouds(problems)
+    for tag, (pts, nv), fuse in (
+            ("64 x 4608 src", clouds[0], False),
+            ("64 x 4608 tgt, fused normal", clouds[1], True),
+            ("1 x 15872", cs.setup_clouds(cs.golden_pairs(1, n=15500))[0],
+             False)):
+        out.append(("G2", tag, cs.frame_glue_inputs(pts, nv, fuse)[3]))
+    for alg, cfg in cs.step_glue_configs():
+        _, _, c, A, b, st, state, kw = cs.step_glue_inputs(problems, alg,
+                                                           cfg)
+        ints = (int(kw["variant"] == "pt2pt"), int(kw["is_se3"]),
+                int(kw["hybrid"]), int(kw["do_trim"]), kw["max_iters"],
+                kw["max_se3_iters"])
+        out.append(("G3", f"64 pairs {alg}", dict(
+            A=A, b=b, st=st, state=state, hv=c.hv, thr=c.stop_thresh,
+            nsf=c.n_src_f, ints=ints)))
+    return out
+
+
+def sweep_glue(reps, sass_dir, extra_dirs=()):
+    from se3_icp_tpu_torch.ops import _build
+    files = {"G2": "frames.cu", "G3": "step_update.cu"}
+    extras = {k: extra_sources([
+        f"{label}={os.path.join(d, f)}"
+        for label, d in (spec.split("=", 1) for spec in extra_dirs)],
+        k.lower()) for k, f in files.items()}
+    entry = {"G2": "se3icp_frame_assembly", "G3": "se3icp_step_update"}
+    kname = {"G2": "frame_assembly_kernel", "G3": "step_update_kernel"}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [(k.lower(), (_build.CSRC / f).read_text())
+                for k, f in files.items()]
+        for k in extras:
+            jobs += [(t, src) for t, _, src in extras[k]]
+        libs = build_all(jobs, tmp, sass_dir)
+        rows = {}
+        for k in files:
+            tags = [k.lower()] + [t for t, _, _ in extras[k]]
+            labels = ["committed"] + [lb for _, lb, _ in extras[k]]
+            for t, lb in zip(tags, labels):
+                fn = getattr(libs[t][0], entry[k])
+                fn.argtypes = _build.SIGNATURES[entry[k]]
+                fn.restype = ctypes.c_int
+                rows[t] = dict(kernel=k, source=lb, ms={}, same_bits={},
+                               ptxas=resources(libs[t][1], kname[k]))
+        for k, name, a in glue_cases():
+            tags = [k.lower()] + [t for t, _, _ in extras[k]]
+            fns, outs = {}, {}
+            for t in tags:
+                fn = getattr(libs[t][0], entry[k])
+                if k == "G2":
+                    raw, pts, normal, w, fused = a
+                    bsz, _, nq = raw.shape
+                    rows_t = 12 if fused is not None else 9
+                    o = (torch.empty((bsz, rows_t, nq), device="cuda"),
+                         torch.empty((bsz, nq, 9), device="cuda"))
+                    args = (raw.data_ptr(), pts.data_ptr(),
+                            normal.data_ptr(), w.data_ptr(),
+                            None if fused is None else fused.data_ptr(),
+                            o[0].data_ptr(), o[1].data_ptr(), bsz,
+                            pts.shape[1], nq, 0)
+                    outs[t] = o
+                    fns[t] = (lambda fn=fn, args=args: _build.check(
+                        fn(*args, stream()), "G2"))
+                else:
+                    bsz = a["A"].shape[0]
+
+                    def state_args(st):
+                        return [None if st[x] is None else st[x].data_ptr()
+                                for x in ("T", "it", "pure_it", "mse_prev",
+                                          "mse_cur", "switched", "done",
+                                          "hist", "W", "ph2", "pf")]
+                    head = (a["A"].data_ptr(), a["b"].data_ptr(),
+                            a["st"].data_ptr())
+                    tail = (a["hv"].data_ptr(), a["thr"].data_ptr(),
+                            a["nsf"].data_ptr(), bsz,
+                            a["state"]["hist"].shape[1], *a["ints"])
+                    once = {x: v.clone() for x, v in a["state"].items()}
+                    _build.check(fn(*head, *state_args(once), *tail,
+                                    stream()), "G3")
+                    outs[t] = tuple(once.values())
+                    work = {x: v.clone() for x, v in a["state"].items()}
+                    fns[t] = (lambda fn=fn, w=state_args(work): _build.check(
+                        fn(*head, *w, *tail, stream()), "G3"))
+            torch.cuda.synchronize()
+            ref = outs[k.lower()]
+            med = time_turns_device(fns, reps, kname[k])
+            for t in tags:
+                rows[t]["ms"][name] = med[t]
+                rows[t]["same_bits"][name] = all(
+                    torch.equal(x, y) for x, y in zip(outs[t], ref))
+        return list(rows.values())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="*",
                     default=["k4", "k1", "moments", "k5", "nn"],
-                    choices=["k4", "k1", "moments", "k5", "nn"])
+                    choices=["k4", "k1", "moments", "k5", "nn", "glue"])
     ap.add_argument("--k4", nargs="*", default=[])
     ap.add_argument("--k1", nargs="*", default=[])
     ap.add_argument("--moments", nargs="*", default=[])
@@ -768,6 +879,7 @@ def main() -> int:
     ap.add_argument("--extra-moments", nargs="*", default=[])
     ap.add_argument("--extra-k5", nargs="*", default=[])
     ap.add_argument("--extra-nn", nargs="*", default=[])
+    ap.add_argument("--extra-glue", nargs="*", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_tiling_sweep: no CUDA device", file=sys.stderr)
@@ -811,6 +923,11 @@ def sweep(args) -> int:
                               "variants": sweep_nn(
                                   [parse(v) for v in args.nn_tile],
                                   args.reps, args.sass, args.extra_nn)}),
+                  flush=True)
+        if "glue" in args.only:
+            print(json.dumps({"kernel": "G2, G3", "card": smi,
+                              "variants": sweep_glue(
+                                  args.reps, args.sass, args.extra_glue)}),
                   flush=True)
     return 0
 

@@ -5,6 +5,7 @@ two checkouts against each other on one card.
 
     python3 tools/path_digest.py [--root DIR] --out FILE.npz [--reps N]
     python3 tools/path_digest.py --compare A.npz B.npz
+    python3 tools/path_digest.py [--root DIR] --batch-bits
 
 The first form imports ``se3_icp_tpu_torch`` from ``--root`` (default:
 the checkout this script lies in) and runs, as ``chip_smoke.py`` does,
@@ -28,7 +29,16 @@ pair of the setup's products that the loop reads for the main path and
 each small batch (``setup_*``), and the wall time of every timed call (host clock around work that ends in
 a synchronize), and prints one JSON line with the medians.  The second form prints whether two such files hold the
 same iteration counts, the same transform bits and the same setup
-products.  Needs a CUDA
+products.  The third form registers the same 8 golden-shape pairs
+of ``se3_pt2pl``, ``se3_gicp``, ``se3_pt2pt`` and ``pt2pl`` in batches
+of 1, 2 and 8 and as the first 8 of a 64-pair batch, each batch packed
+at its own width (``chip_smoke.batch_size_runs``), and hashes each pair's products stage by stage -- the
+preprocessing (centred clouds, centroids, scale), the setup (query
+features, target embeddings, payload, source covariances), the first
+three eager loop steps (K5's A, b, st and the pose after G3) and the
+captured program's results -- and prints, for each stage, the pairs
+whose hash differs between the batch sizes: the first stage that lists
+a pair is where its bits begin to follow its batch.  Needs a CUDA
 device.
 """
 
@@ -209,6 +219,104 @@ def setup_digest(pair_list, alg: str, cfg) -> np.ndarray:
     return np.asarray(out)
 
 
+BATCH_BITS_ALGS = ("se3_pt2pl", "se3_gicp", "se3_pt2pt", "pt2pl")
+
+
+def _hashes(parts) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for x in parts:
+        if x is not None:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def stage_hashes(pair_list, alg: str, cfg, steps: int = 3) -> list:
+    """Per pair, {stage: SHA-1} of one batch (see the module doc)."""
+    import torch
+    from se3_icp_tpu_torch.models import registration as reg
+    from se3_icp_tpu_torch.parallel import pairs
+    from se3_icp_tpu_torch.utils.config import parse_algorithm
+    src, n_src, tgt, n_tgt = (torch.as_tensor(a, device="cuda")
+                              for a in pairs.pack_pairs(pair_list))
+    mode, variant = parse_algorithm(alg)
+    floats, scfg = reg.split_cfg(cfg, torch.float32, "cuda")
+    h = reg.hyper(floats)
+    out = [{} for _ in pair_list]
+    with torch.no_grad():
+        ms, pre = reg.setup(src, n_src, tgt, n_tgt, scfg, mode, variant, h)
+        s, c = reg.init_loop(ms, pre.scaling, scfg, mode, h)
+        rows = {"preprocess": lambda b: [
+                    ms.src_cT[b, :, :int(n_src[b])], pre.cen_s[b],
+                    pre.cen_t[b], pre.scaling[b]],
+                "setup": lambda b: [
+                    ms.feat16[b, :int(n_src[b])], ms.targets.payload[b],
+                    ms.targets.emb[b]]
+                + ([ms.cov_src6[b]] if ms.cov_src6 is not None else [])}
+        for name, fn in rows.items():
+            for b in range(len(pair_list)):
+                out[b][name] = _hashes(fn(b))
+        for k in range(steps):
+            A, bv, st = reg._match_and_epilogue(s, ms, c, s.W, s.ph2, s.pf)
+            for b in range(len(pair_list)):
+                out[b][f"step{k}_epilogue"] = _hashes([A[b], bv[b], st[b]])
+            s = reg.loop_step(s, ms, c)
+            for b in range(len(pair_list)):
+                out[b][f"step{k}_pose"] = _hashes([s.T[b]])
+    res = pairs.register_pairs(pair_list, alg, cfg, mesh=False)
+    for b, r in enumerate(res):
+        out[b]["result"] = _hashes([torch.as_tensor(r.transformation),
+                                    torch.tensor(r.num_iterations)])
+    return out
+
+
+def _this_chip_smoke():
+    """This checkout's ``chip_smoke.py`` (its batch-size helpers), also
+    when ``--root`` names another checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def batch_bits(root: str) -> bool:
+    """The third form: True when every stage of every pair has the same
+    hash in every batch."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("path_digest: no CUDA device")
+    chip_smoke = _this_chip_smoke()
+    from se3_icp_tpu_torch.datasets import fixtures
+    from se3_icp_tpu_torch.ops import knn
+    from se3_icp_tpu_torch.utils.config import GOLDEN
+    report, same = {}, True
+    with knn.full_precision():
+        for alg in BATCH_BITS_ALGS:
+            kw = fixtures.SMALL_POSE if alg == "pt2pl" else {}
+            pl = [(p.source, p.target) for p in
+                  (fixtures.golden_shape_problem(seed=s, **kw)
+                   for s in range(1, 65))]
+            runs = chip_smoke.batch_size_runs(
+                pl, chip_smoke.one_call_a_batch(
+                    lambda b, alg=alg: stage_hashes(b, alg, GOLDEN)),
+                sizes=(1, 2))
+            differ = {stage: chip_smoke.pairs_differing(
+                runs, lambda a, b, st=stage: a[st] == b[st])
+                for stage in runs["B=8"][0]}
+            report[alg] = differ
+            same = same and not any(v for d in differ.values()
+                                    for v in d.values())
+    print(json.dumps({"phase": "path_digest_batch_bits",
+                      "root": os.path.abspath(root),
+                      "device": torch.cuda.get_device_name(0),
+                      "every_stage_same": same,
+                      "pairs_differing_from_B8": report}), flush=True)
+    return same
+
+
 def compare(a: str, b: str) -> bool:
     with np.load(a) as x, np.load(b) as y:
         same = {k: bool(np.array_equal(x[k], y[k])) for k in x.files
@@ -227,9 +335,12 @@ def main() -> int:
     ap.add_argument("--out")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    ap.add_argument("--batch-bits", action="store_true")
     args = ap.parse_args()
     if args.compare:
         return 0 if compare(*args.compare) else 1
+    if args.batch_bits:
+        return 0 if batch_bits(args.root) else 1
     if not args.out:
         ap.error("--out is required without --compare")
     run(args.root, args.out, args.reps)
