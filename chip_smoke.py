@@ -171,16 +171,19 @@ def time_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def alone_ms(fn, tag: str, reps: int = 20) -> float:
+def alone_ms(fn, tag: str, reps: int = 20, tries: int = 5) -> float:
     """Device time of one launch of the kernel whose name holds ``tag``,
     alone: torch.profiler's CUDA time of ``reps`` calls of ``fn`` (each
     launching it once) after a warm-up call, the mean over the launches
-    the profiler recorded (it drops one now and then; at least half)."""
+    the profiler recorded.  It drops records, at times more than half of
+    a round's, so rounds of ``reps`` calls are pooled until at least
+    ``reps`` / 2 launches were recorded, in at most ``tries`` rounds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    calls, total = 0, 0.0
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -188,11 +191,12 @@ def alone_ms(fn, tag: str, reps: int = 20) -> float:
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and tag in e.key]
-        calls = sum(e.count for e in rows)
+        calls += sum(e.count for e in rows)
+        total += sum(e.device_time_total for e in rows)
         if 2 * calls >= reps:
-            return sum(e.device_time_total for e in rows) / calls / 1e3
+            return total / calls / 1e3
     raise RuntimeError(f"chip_smoke: {tag}: {calls} profiled launches of "
-                       f"{reps} in the last of three tries")
+                       f"{tries * reps} in {tries} rounds")
 
 
 def gate(problems, results, what: str):
@@ -465,6 +469,12 @@ def k5_case(name, ms, cfg, matched_T, pf):
     check(rel_A <= rel and rel_b <= rel and rel_mse <= 1e-5,
           f"{name}: A/b/mse differ by {rel_A:.2e}/{rel_b:.2e}/"
           f"{rel_mse:.2e} (limit {rel:.0e}, mse 1e-5)")
+    # the plain version adds in the kernel's order: which outputs keep
+    # its bits (the kernel contracts products into FMAs, the plain
+    # version rounds each)
+    bit_equal = dict(
+        A=int((A_k == A_p).all(0).sum()), b=int((b_k == b_p).all(0).sum()),
+        mse=bool((st_k[:, 0] == st_p[:, 0]).all()))
     # two runs give the same bits (fixed-order sums, no atomics), and a
     # pair on one block (C = 1) the same bits as on the chosen cluster
     again = cuda_loop.loop_epilogue_batched(*args, **kw)
@@ -494,6 +504,7 @@ def k5_case(name, ms, cfg, matched_T, pf):
                 max_abs_err_unscaled=errs,
                 max_rel_err=dict(A=rel_A, b=rel_b, mse=rel_mse),
                 tolerance=dict(A_b_rel=rel, mse_rel=1e-5, wsum="exact"),
+                entries_bit_equal_in_every_pair=bit_equal,
                 bitwise_repeatable=True, cluster=cluster,
                 same_bits_as_cluster_1=True, ms=ms_k, kernel_alone_ms=ms_alone,
                 plain_ms=ms_p, bound_ms=1e3 * max(t_ops, t_bytes),
@@ -998,18 +1009,26 @@ def step_glue_case(name, problems, alg, cfg):
     return case
 
 
-def prep_glue_case(tag, problems):
-    """G4 against its plain version on the packed pairs, bit for bit;
-    beside it, for context, ``torch.sum`` of the masked source cloud
-    (the centroid's sum alone, in torch's order: no PyTorch call
-    computes the whole function)."""
-    from se3_icp_tpu_torch.ops import cuda_prep
+def prep_glue_inputs(problems):
+    """G4's arguments on the packed pairs: (src, n_src, tgt, n_tgt,
+    scale_preprocessing) on the card."""
     from se3_icp_tpu_torch.parallel import pairs
     from se3_icp_tpu_torch.utils.config import GOLDEN
     src, n_src, tgt, n_tgt = (torch.as_tensor(a, device="cuda")
                               for a in pairs.pack_pairs(
                                   [(p.source, p.target) for p in problems]))
-    args = (src, n_src, tgt, n_tgt, hyper_on(GOLDEN).scale_preprocessing)
+    return src, n_src, tgt, n_tgt, hyper_on(GOLDEN).scale_preprocessing
+
+
+def prep_glue_case(tag, problems):
+    """G4 against its plain version on the packed pairs, bit for bit, at
+    the cluster size its wrapper picks and at every other; beside it,
+    for context, ``torch.sum`` of the masked source cloud (the
+    centroid's sum alone, in torch's order: no PyTorch call computes the
+    whole function)."""
+    from se3_icp_tpu_torch.ops import cuda_prep
+    args = prep_glue_inputs(problems)
+    src, n_src, tgt, n_tgt, _ = args
     bsz, ns, _ = src.shape
     nt = tgt.shape[1]
     # per valid row: 3 sums (centroid); 3 differences, 3 squares, 2
@@ -1025,6 +1044,13 @@ def prep_glue_case(tag, problems):
                      "prep_kernel", 19 * rows,
                      4 * (3 * rows + 3 * bsz * (ns + nt) + 9 * bsz + 1),
                      dict(B=bsz, Ns=ns, Nt=nt))
+    case["cluster"] = cuda_prep.cluster_size(bsz, src.device)
+    want = cuda_prep.center_scale_plain(*args)
+    for c in cuda_prep.CLUSTERS:
+        differ = glue_bits(cuda_prep.center_scale(*args, cluster=c), want)
+        check(differ == 0, f"center_scale[{tag}] at C = {c}: {differ} "
+              "entries differ from the plain version's bits")
+    case["clusters_bit_equal"] = list(cuda_prep.CLUSTERS)
     valid = torch.arange(ns, device="cuda")[None] < n_src[:, None]
     masked = torch.where(valid[..., None], src, torch.zeros_like(src))
     case["context_ms_torch_sum_masked_source"] = time_ms(
@@ -1040,7 +1066,8 @@ def glue_kernels_phase():
     problems = golden_pairs(N_PAIRS)
     g1, g2, g3 = [], [], []
     g4 = [prep_glue_case("64 pairs, 4608", problems),
-          prep_glue_case("1 pair, 15872", golden_pairs(1, n=15500))]
+          prep_glue_case("1 pair, 15872", golden_pairs(1, n=15500)),
+          prep_glue_case("1 pair, 4608", problems[:1])]
     for side, (pts, nv) in zip(("64x4608", "64x4608, target"),
                                setup_clouds(problems)):
         a, b = frame_glue_cases(side, pts, nv, fuse=bool("target" in side))
@@ -3201,12 +3228,13 @@ def scaling_run(total):
 
 
 def engine_option_run(what, pair_list, problems, cfg, survey_name, total,
-                      setup_route):
+                      setup_route, exact_knn=False):
     """One option of the engine on the captured program: a call that
     captures, then a counted call, held bit for bit against the eager
     loop with no host sync, every pair gated (against the JAX package's
     survey ``survey_name``, or each within 2 deg / 0.25 where it is
     None); its setup timed eagerly on the card, one replay profiled.
+    ``exact_knn``: the exact sorted-kNN setup (``setup_route`` "exact").
     Returns (results, the line's fields)."""
     from se3_icp_tpu_torch.models import registration as reg
     from se3_icp_tpu_torch.parallel import pairs
@@ -3216,24 +3244,26 @@ def engine_option_run(what, pair_list, problems, cfg, survey_name, total,
           f"{what}: not on the captured program")
     with ProgramKeys() as keys:
         t0 = time.perf_counter()
-        pairs.register_pairs(pair_list, "se3_pt2pl", cfg)
+        pairs.register_pairs(pair_list, "se3_pt2pl", cfg,
+                             exact_knn=exact_knn)
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
         zero_launches()
         torch.cuda.reset_peak_memory_stats()
         st = {}
         t0 = time.perf_counter()
-        res = pairs.register_pairs(pair_list, "se3_pt2pl", cfg, stats=st)
+        res = pairs.register_pairs(pair_list, "se3_pt2pl", cfg, stats=st,
+                                   exact_knn=exact_knn)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
     hold_against_eager(what, lambda s: pairs.register_pairs(
-        pair_list, "se3_pt2pl", cfg, stats=s), res, st)
+        pair_list, "se3_pt2pl", cfg, stats=s, exact_knn=exact_knn), res, st)
     vs_eager = {k: PROGRAM_HOLDS[-1][k] for k in (
         "same_bits", "eager_loop_steps", "eager_host_syncs")}
-    prof = profile_line(lambda: pairs.register_pairs(pair_list, "se3_pt2pl",
-                                                     cfg), emit_line=False)
+    prof = profile_line(lambda: pairs.register_pairs(
+        pair_list, "se3_pt2pl", cfg, exact_knn=exact_knn), emit_line=False)
     prof = {k: prof[k] for k in ("device_ms_total", "idle_share",
                                  "device_kernel_launches", "top")}
     prof["top"] = prof["top"][:6]
@@ -3265,13 +3295,16 @@ def engine_option_run(what, pair_list, problems, cfg, survey_name, total,
         h = reg.hyper(floats)
         torch.cuda.reset_peak_memory_stats()
         setup_ms = time_ms(lambda: reg.setup(src, n_src, tgt, n_tgt, scfg,
-                                             "se3", "pt2pl", h), reps=3)
+                                             "se3", "pt2pl", h, exact_knn),
+                           reps=3)
         setup_peak = torch.cuda.max_memory_allocated() / 1e9
     return res, dict(
         pairs=len(pair_list), bucket=4608, first_call_seconds=first,
         seconds=wall, ms_a_pair=wall * 1e3 / len(pair_list),
         iterations=[r.num_iterations for r in res],
         mean_iterations=float(np.mean([r.num_iterations for r in res])),
+        pairs_at_cap=sum(r.num_iterations >= cfg.max_num_iterations
+                         for r in res),
         loop_steps=st["loop_steps"], host_syncs=st["host_syncs"],
         eager_setup_ms=setup_ms, eager_setup_peak_gb=setup_peak,
         peak_mem_gb=peak, memory_reserved_gb=torch.cuda.memory_reserved()
@@ -3320,11 +3353,33 @@ def anderson_runs(total):
                 base_cfg.replace(anderson_m=m), survey, total, "threshold")
             if m == 0:
                 base = line["iterations"]
+            exact = {}
+            if tag == "noisy":
+                # the exact sorted-kNN setup on the same batch, beside
+                # the threshold route and the JAX package's survey (its
+                # exact route)
+                _, ex = engine_option_run(
+                    f"anderson {tag} m={m} exact", pair_list, problems,
+                    base_cfg.replace(anderson_m=m), survey, total, "exact",
+                    exact_knn=True)
+                its = [r["iterations"] for r in
+                       survey_pairs()[(survey, "exact")].values()]
+                exact = dict(
+                    exact_route=dict(
+                        mean_iterations=ex["mean_iterations"],
+                        pairs_at_cap=ex["pairs_at_cap"],
+                        iterations=ex["iterations"], seconds=ex["seconds"],
+                        vs_eager=ex["vs_eager"], survey=ex["survey"]),
+                    jax_survey=dict(
+                        mean_iterations=float(np.mean(its)),
+                        pairs_at_cap=sum(
+                            i >= base_cfg.max_num_iterations for i in its),
+                        iterations=its))
             emit("anderson", problems=tag, algorithm="se3_pt2pl",
                  config=name, anderson_m=m,
                  pairs_with_other_iterations_than_m0=sum(
                      a != b for a, b in zip(line["iterations"], base)),
-                 mean_iterations_m0=float(np.mean(base)), **line)
+                 mean_iterations_m0=float(np.mean(base)), **line, **exact)
 
 
 def bunny_phase():
@@ -3637,7 +3692,9 @@ def batch_size_holds():
     each shard packed at its own width) and as the first 8 of a 64-pair
     batch give every pair the same transform bits and counts (G4's fixed
     order and the component-wise maps in and out of the preprocessed
-    frame; with torch's reductions there, 2-3 iterations moved)."""
+    frame; with torch's reductions there, 2-3 iterations moved), and so
+    do the eager loop's 8 pairs alone and in batches of 3; FGR the same
+    (``fgr_batch_size_hold``)."""
     from se3_icp_tpu_torch.datasets.fixtures import SMALL_POSE
     from se3_icp_tpu_torch.parallel import pairs
     from se3_icp_tpu_torch.utils.config import GOLDEN
@@ -3659,9 +3716,65 @@ def batch_size_holds():
             line[name] = dict(pairs_with_other_bits=other)
             check(not other, f"{alg}: 8 pairs at {name} give pairs {other} "
                   "other bits or counts than the 8 whole")
+        # the eager polled loop alone and in batches of 3 (the captured
+        # program's reference)
+        with EagerLoop():
+            eager = batch_size_runs(
+                [(p.source, p.target) for p in probs], one_call_a_batch(
+                    lambda b, alg=alg: pairs.register_pairs(
+                        b, alg, GOLDEN, mesh=False)), sizes=(1, 3))
+        check(same_results(eager["B=8"], runs["B=8"]),
+              f"{alg}: the eager loop's 8 pairs differ from the program's")
+        for name, other in pairs_differing(
+                eager, lambda a, b: same_results([a], [b])).items():
+            line[f"eager {name}"] = dict(pairs_with_other_bits=other)
+            check(not other, f"{alg}: the eager loop's 8 pairs at {name} "
+                  f"give pairs {other} other bits than the 8 whole")
         out[alg] = dict(iterations=[r.num_iterations for r in runs["B=8"]],
                         **line)
+    out["fgr"] = fgr_batch_size_hold()
     return out
+
+
+def fgr_batch_size_hold():
+    """FGR's 8 golden-shape pairs whole, in shards of 4, 2 and 1 and as
+    the first 8 of 64 on its captured program, and eagerly
+    (``fgr_register_arrays`` on the card) alone and in batches of 3:
+    every pair the same transform bits and counts."""
+    from se3_icp_tpu_torch.models import fgr
+    from se3_icp_tpu_torch.parallel import pairs
+    cfg = fgr.FGRConfig()
+    probs = golden_pairs(N_PAIRS)
+    pl = [(p.source, p.target) for p in probs]
+
+    def per_pair(T, stats):
+        return [(T[b].tolist(), stats["reciprocal"][b],
+                 stats["kept_correspondences"][b]) for b in range(len(T))]
+
+    def sharded(batch, k):
+        mesh = (pairs.default_mesh(["cuda:0"] * (len(batch) // k))
+                if k < len(batch) else False)
+        st = {}
+        res = pairs.register_pairs(batch, "fgr", cfg, mesh=mesh, stats=st)
+        return per_pair([r.transformation for r in res], st)
+
+    def eager(batch):
+        st = {}
+        T, _, _ = fgr.fgr_register_arrays(
+            *(torch.as_tensor(a, device="cuda")
+              for a in pairs.pack_pairs(batch)), cfg, stats=st)
+        return per_pair(T.double().cpu().numpy(), st)
+    runs = batch_size_runs(pl, sharded, sizes=(4, 2, 1))
+    eager_runs = batch_size_runs(pl, one_call_a_batch(eager), sizes=(1, 3))
+    line = {}
+    for what, r in (("", runs), ("eager ", eager_runs)):
+        for name, other in pairs_differing(r, lambda a, b: a == b).items():
+            line[f"{what}{name}"] = dict(pairs_with_other_bits=other)
+            check(not other, f"fgr: {what}8 pairs at {name} give pairs "
+                  f"{other} other bits or counts than the 8 whole")
+    check(runs["B=8"] == eager_runs["B=8"],
+          "fgr: the eager function's 8 pairs differ from the program's")
+    return dict(kept_correspondences=[r[2] for r in runs["B=8"]], **line)
 
 
 def points_run(tag, src, n_src, tgt, n_tgt, cfg, algorithm, total,

@@ -9,7 +9,8 @@ Zhou, Park, Koltun, "Fast Global Registration", ECCV 2016.
 Static shapes throughout, no KD-trees, no dynamic correspondence lists:
 
   * features: one exact sorted kNN (k = max(fpfh_knn, normals_knn) + 1)
-    per cloud, PCA normals and FPFH (``ops/fpfh.py``);
+    per cloud, PCA normals and FPFH (``ops/fpfh.py``), their
+    neighbourhood sums over the kNN's members in ascending row index;
   * feature matching: exact 33-D nearest neighbours in both directions,
     two launches of K6 (``ops/cuda_nn.py``); the reciprocity test is a
     mask over the fixed-length forward match array;
@@ -21,8 +22,11 @@ Static shapes throughout, no KD-trees, no dynamic correspondence lists:
     line-process weights l = (mu / (mu + r^2))^2, mu divided by 1.4
     every 4 steps from the normalised global scale down to
     ``maximum_correspondence_distance``;
-  * the 6x6 normal-equation solve and Euler-ZYX retraction are the ICP
-    engine's (``ops/solve.py``).
+  * the Gauss-Newton sums run in the fixed order of the setup's
+    centring (``cuda_prep.lane_sums``), the 6x6 solve and Euler-ZYX
+    retraction are the loop step's component-wise forms
+    (``solve.solve6_c``, ``euler_zyx_c``): with the centroids and radii
+    of that order, a pair's result depends on its own clouds alone.
 
 The random triples: the JAX package draws ``jax.random.randint(key(
 seed), (tuple_trials, 3), 0, 1 << 30)`` once, shared by every pair of a
@@ -48,7 +52,7 @@ import numpy as np
 import torch
 
 from se3_icp_tpu_torch.ops import fpfh as fpfh_ops
-from se3_icp_tpu_torch.ops import knn, lrf, solve
+from se3_icp_tpu_torch.ops import cuda_prep, knn, lrf, solve
 from se3_icp_tpu_torch.utils import se3
 
 
@@ -80,26 +84,30 @@ def _valid(n_valid: torch.Tensor, n: int) -> torch.Tensor:
     return torch.arange(n, device=n_valid.device)[None, :] < n_valid[:, None]
 
 
-def _masked_centroid(pts, valid, n):
-    w = valid.to(pts.dtype)[..., None]
-    return torch.sum(pts * w, dim=1) / torch.clamp_min(n.to(pts.dtype),
-                                                       1.0)[:, None]
-
-
 def features(points: torch.Tensor, n_valid: torch.Tensor,
-             cfg: FGRConfig) -> torch.Tensor:
+             cfg: FGRConfig, probe=None) -> torch.Tensor:
     """FPFH [B,N,33] of padded clouds (padded rows zeroed first) on the
     ORIGINAL coordinates, as the reference computes them before any
-    normalisation; padded rows set to 1e6 so they never match."""
+    normalisation; padded rows set to 1e6 so they never match.  The
+    kNN's distances are written out elementwise and the neighbourhood
+    sums (the normals' moments, FPFH's weighted SPFH sum) run over the
+    kNN's members in ascending row index (``knn.neighbor_sums``), so a
+    pair's features do not depend on its batch.  ``probe`` (optional
+    list) receives the stages' products: (idx, d2, normals, spfh,
+    fpfh)."""
     valid = _valid(n_valid, points.shape[1])
     pts = torch.where(valid[..., None], points, torch.zeros_like(points))
     kw = max(cfg.fpfh_knn, cfg.normals_knn) + 1
-    idx, d2 = knn.knn_self(pts, kw, n_valid)
-    nrm = lrf.normals_dense(pts, d2, cfg.normals_knn, n_valid)
+    idx, d2 = knn.knn_self(pts, kw, n_valid, fixed_order=True)
+    nrm = lrf.normals_knn(pts, idx, d2, cfg.normals_knn, n_valid)
     kf = cfg.fpfh_knn
+    mask = fpfh_ops.neighbor_mask(pts.shape[1], kf, n_valid)
+    spfh = fpfh_ops.spfh(pts, nrm, idx[..., :kf], mask)
     feat = fpfh_ops.fpfh_from_neighbors(
-        pts, nrm, idx[..., :kf], d2[..., :kf],
-        fpfh_ops.neighbor_mask(pts.shape[1], kf, n_valid), n_valid=n_valid)
+        pts, nrm, idx[..., :kf], d2[..., :kf], mask, n_valid=n_valid,
+        dense_sum=False, spfh_table=spfh)
+    if probe is not None:
+        probe.append((idx, d2, nrm, spfh, feat))
     return torch.where(valid[..., None], feat,
                        torch.full((), 1e6, dtype=feat.dtype,
                                   device=feat.device))
@@ -142,11 +150,14 @@ def _tuple_test(src, tgt, fwd, recip, cfg: FGRConfig, raw):
     qi = qi.reshape(bsz, -1, 3, 3)
     tri = tri.reshape(bsz, -1, 3)
 
+    def norm(d):
+        dx, dy, dz = d.unbind(-1)
+        return cuda_prep._sqrt_rn((dx * dx + dy * dy) + dz * dz)
+
     def edges(x):
-        return torch.stack([
-            torch.linalg.norm(x[:, :, 0] - x[:, :, 1], dim=-1),
-            torch.linalg.norm(x[:, :, 1] - x[:, :, 2], dim=-1),
-            torch.linalg.norm(x[:, :, 2] - x[:, :, 0], dim=-1)], dim=-1)
+        return torch.stack([norm(x[:, :, 0] - x[:, :, 1]),
+                            norm(x[:, :, 1] - x[:, :, 2]),
+                            norm(x[:, :, 2] - x[:, :, 0])], dim=-1)
 
     li, lj = edges(pi), edges(qi)
     tau = cfg.tuple_scale
@@ -161,6 +172,56 @@ def _tuple_test(src, tgt, fwd, recip, cfg: FGRConfig, raw):
     contrib = accept.to(dtype)[..., None].expand(-1, -1, 3).reshape(bsz, -1)
     w = torch.zeros((bsz, ns), dtype=dtype, device=src.device)
     return w.scatter_add_(1, tri.reshape(bsz, -1), contrib)
+
+
+# the upper triangle of a 6x6 matrix, row by row
+_UPPER = [(a, c) for a in range(6) for c in range(a, 6)]
+
+
+def _normal_equations(pm, r3, w, n_src):
+    """One Gauss-Newton step's normal equations of the pt2pt rows
+    J_k = [-skew(pm)_k | e_k], r_k = pm_k - q_k (k = 0, 1, 2 a point),
+    weighted by w [B,Ns]: (A [B,6,6] = sum w J^T J, rhs six [B] tensors
+    -sum w J^T r).  Each point's 21 + 6 entries, its three rows one
+    after another, are summed over the rows below ``n_src`` in the
+    fixed order of ``cuda_prep.lane_sums``: a pair's bits depend on its
+    own rows alone.  Integer indexing only (a capture takes no index
+    tensor made on the host)."""
+    zero = torch.zeros_like(pm[0])
+    # rows of -skew(pm): (0, pm2, -pm1), (-pm2, 0, pm0), (pm1, -pm0, 0)
+    rot = ((zero, pm[2], -pm[1]), (-pm[2], zero, pm[0]),
+           (pm[1], -pm[0], zero))
+    J = torch.stack([torch.stack(
+        list(rot[k]) + [torch.ones_like(zero) if a == k else zero
+                        for a in range(3)], -1)
+        for k in range(3)], -2)                             # [B,Ns,3,6]
+    Jw = J * w[..., None, None]
+    r = torch.stack(r3, -1)                                 # [B,Ns,3]
+    x = torch.stack([Jw[..., a] * J[..., c] for a, c in _UPPER]
+                    + [Jw[..., a] * r for a in range(6)], -1)  # [B,Ns,3,27]
+    sums = cuda_prep.lane_sums(x, n_src)
+    at = {ac: i for i, ac in enumerate(_UPPER)}
+    A = torch.stack([torch.stack([sums[:, at[min(a, c), max(a, c)]]
+                                  for c in range(6)], -1)
+                     for a in range(6)], -2)
+    return A, [-sums[:, 21 + a] for a in range(6)]
+
+
+def _solve_retract(A, rhs):
+    """A xi = rhs per pair by the component-wise elimination of the loop
+    step (``solve.solve6_c``), retracted by Euler-ZYX
+    (``solve.euler_zyx_c``): (dR, dt) as [B,1] components; the identity
+    where the solve fails or its transform is not finite, the contract
+    of ``solve.solve_normal_equations``."""
+    xi, ok = solve.solve6_c(A, rhs)
+    dR, dt = solve.euler_zyx_c(xi)
+    for v in [x for row in dR for x in row] + dt:
+        ok = ok & torch.isfinite(v)
+    one, zero = torch.ones_like(xi[0]), torch.zeros_like(xi[0])
+    dR = [[torch.where(ok, dR[i][j], one if i == j else zero)[:, None]
+           for j in range(3)] for i in range(3)]
+    dt = [torch.where(ok, v, zero)[:, None] for v in dt]
+    return dR, dt
 
 
 def register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
@@ -182,10 +243,13 @@ def register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
 
 
 def _register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
-                           cfg: FGRConfig, raw):
+                           cfg: FGRConfig, raw, probe=None):
     """``register_from_matches`` with the per-pair counts as device
     tensors: (T [B,4,4], reciprocal-set sizes [B], correspondences kept
-    by the tuple test [B]).  Reads nothing back."""
+    by the tuple test [B]).  Reads nothing back.  ``probe`` (optional
+    dict) receives the stages' products: the tuple test's weights
+    (``weights``), the centring and scale (``centring``) and each
+    Gauss-Newton step's normal equations (``gn``, a list)."""
     dtype = src.dtype
     bsz, ns, _ = src.shape
     src_valid = _valid(n_src, ns)
@@ -201,15 +265,20 @@ def _register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
     else:
         corr_w = recip.to(dtype)
     kept = (corr_w > 0).sum(-1)
+    if probe is not None:
+        probe["weights"] = corr_w
 
-    # scale normalisation (original FGR NormalizePoints)
-    cen_s = _masked_centroid(src, src_valid, n_src)
-    cen_t = _masked_centroid(tgt, tgt_valid, n_tgt)
+    # scale normalisation (original FGR NormalizePoints): the centroids
+    # and radii of the setup's fixed order (``ops/cuda_prep.py``, G4's
+    # plain version); the clouds divided by the radius, as the JAX
+    # package divides
+    cen_s = cuda_prep.centroid(src, n_src)
+    cen_t = cuda_prep.centroid(tgt, n_tgt)
     zero = torch.zeros((), dtype=dtype, device=src.device)
     src_c = torch.where(src_valid[..., None], src - cen_s[:, None], zero)
     tgt_c = torch.where(tgt_valid[..., None], tgt - cen_t[:, None], zero)
-    radius = torch.maximum(torch.linalg.norm(src_c, dim=-1).amax(-1),
-                           torch.linalg.norm(tgt_c, dim=-1).amax(-1))
+    radius = torch.maximum(cuda_prep.radius(src, cen_s, n_src),
+                           cuda_prep.radius(tgt, cen_t, n_tgt))
     if cfg.use_absolute_scale:
         # points stay in metric units, mu starts at the global max radius
         scale = torch.ones_like(radius)
@@ -219,33 +288,44 @@ def _register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
         src_c = src_c / scale[:, None, None]
         tgt_c = tgt_c / scale[:, None, None]
         mu = torch.ones_like(radius)                # normalised StartScale
+    if probe is not None:
+        probe["centring"] = (cen_s, cen_t, scale)
+        probe["gn"] = []
 
-    p = src_c                                                   # [B,Ns,3]
-    q = torch.gather(tgt_c, 1, fwd[..., None].expand(-1, -1, 3))
-    eye3 = torch.eye(3, dtype=dtype, device=src.device)
-    T = torch.eye(4, dtype=dtype, device=src.device).repeat(bsz, 1, 1)
+    p = src_c.unbind(-1)                                     # 3 x [B,Ns]
+    q = torch.gather(tgt_c, 1, fwd[..., None].expand(-1, -1, 3)).unbind(-1)
+    # T as per-pair components [B,1]: R[i][j], t[i]
+    one, nil = torch.ones_like(radius)[:, None], torch.zeros_like(
+        radius)[:, None]
+    R = [[one if i == j else nil for j in range(3)] for i in range(3)]
+    t = [nil, nil, nil]
     for itr in range(cfg.iteration_number):
         if cfg.decrease_mu and itr % 4 == 0:
             mu = torch.where(mu > cfg.maximum_correspondence_distance,
                              mu / cfg.division_factor, mu)
-        pm = p @ T[:, :3, :3].mT + T[:, None, :3, 3]
-        r3 = pm - q
-        r2 = torch.sum(r3 * r3, dim=-1)
+        pm = [((R[i][0] * p[0] + R[i][1] * p[1]) + R[i][2] * p[2]) + t[i]
+              for i in range(3)]
+        r3 = [pm[i] - q[i] for i in range(3)]
+        r2 = (r3[0] * r3[0] + r3[1] * r3[1]) + r3[2] * r3[2]
         w = corr_w * (mu[:, None] / (mu[:, None] + r2)) ** 2
-        # pt2pt GN rows: J_i = [-skew(pm_i) | I], r_i = pm_i - q_i
-        J3 = torch.cat([-se3.skew(pm), eye3.expand(bsz, ns, 3, 3)], dim=-1)
-        J = J3.reshape(bsz, 3 * ns, 6)
-        Jw = (J3 * w[..., None, None]).reshape(bsz, 3 * ns, 6)
-        JTJ = Jw.mT @ J
-        JTr = (Jw.mT @ r3.reshape(bsz, 3 * ns, 1))[..., 0]
-        T = solve.solve_normal_equations(JTJ, JTr) @ T
+        A, rhs = _normal_equations(pm, r3, w, n_src)
+        if probe is not None:
+            probe["gn"].append((A, -torch.stack(rhs, -1)))
+        dR, dt = _solve_retract(A, rhs)
+        R = [[(dR[i][0] * R[0][j] + dR[i][1] * R[1][j]) + dR[i][2] * R[2][j]
+              for j in range(3)] for i in range(3)]
+        t = [((dR[i][0] * t[0] + dR[i][1] * t[1]) + dR[i][2] * t[2])
+             + dt[i] for i in range(3)]
 
     # denormalise: x' = R(x - cen_s)/scale + t
     #   => original: R x + (scale t - R cen_s + cen_t)
-    R = T[:, :3, :3]
-    t_orig = (scale[:, None] * T[:, :3, 3] - (R @ cen_s[..., None])[..., 0]
-              + cen_t)
-    T_out = se3.rt_to_T(R, t_orig)
+    c = cen_s.unbind(-1)
+    t_orig = [(scale * t[i][:, 0]
+               - ((R[i][0][:, 0] * c[0] + R[i][1][:, 0] * c[1])
+                  + R[i][2][:, 0] * c[2])) + cen_t[:, i] for i in range(3)]
+    T_out = se3.rt_to_T(
+        torch.stack([torch.cat(row, -1) for row in R], -2),
+        torch.stack(t_orig, -1))
     # degenerate correspondence sets fall back to the identity
     ok = kept >= 3
     return (torch.where(ok[:, None, None], T_out,
@@ -253,20 +333,27 @@ def _register_from_matches(src, n_src, tgt, n_tgt, fwd, bwd,
             recip.sum(-1), kept)
 
 
-def program_body(inp: dict, cfg: FGRConfig):
+def program_body(inp: dict, cfg: FGRConfig, probe=None):
     """The whole of FGR on the buffers ``inp`` (``src``, ``n_src``,
     ``tgt``, ``n_tgt`` and, with the tuple test, ``raw``), reading
     nothing back: (T, iters, pure_iters, reciprocal [B], kept [B]).  The
     eager function runs it as it stands; on the card
-    ``models/program.run_fgr`` captures it."""
+    ``models/program.run_fgr`` captures it.  ``probe`` (optional dict)
+    receives the features (``features``), the matches (``matches``) and
+    the stages of ``_register_from_matches``."""
     src, n_src, tgt, n_tgt = inp["src"], inp["n_src"], inp["tgt"], \
         inp["n_tgt"]
-    feat_s = features(src, n_src, cfg)
-    feat_t = features(tgt, n_tgt, cfg)
+    stages = [] if probe is not None else None
+    feat_s = features(src, n_src, cfg, stages)
+    feat_t = features(tgt, n_tgt, cfg, stages)
     fwd, bwd = reciprocal_matches(feat_s, n_src, feat_t, n_tgt)
+    if probe is not None:
+        probe["features"] = (feat_s, feat_t)
+        probe["feature_stages"] = stages
+        probe["matches"] = (fwd, bwd)
     del feat_s, feat_t
     T, recip, kept = _register_from_matches(src, n_src, tgt, n_tgt, fwd,
-                                            bwd, cfg, inp.get("raw"))
+                                            bwd, cfg, inp.get("raw"), probe)
     iters = torch.full((src.shape[0],), cfg.iteration_number,
                        dtype=torch.int32, device=src.device)
     return T, iters, torch.zeros_like(iters), recip, kept

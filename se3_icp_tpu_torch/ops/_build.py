@@ -92,8 +92,8 @@ SIGNATURES = {
     # do_trim, max_iters, max_se3_iters, stream: G3 (csrc/step_update.cu)
     "se3icp_step_update": [_P] * 17 + [_I] * 8 + [_P],
     # src, n_src, tgt, n_tgt, scale_pre, src_c, tgt_c, cen_s, cen_t,
-    # scaling, B, Ns, Nt, stream: G4 (csrc/prep.cu)
-    "se3icp_prep": [_P] * 10 + [_I] * 3 + [_P],
+    # scaling, B, Ns, Nt, cluster, stream: G4 (csrc/prep.cu)
+    "se3icp_prep": [_P] * 10 + [_I] * 4 + [_P],
     # parent stream, child stream, pred: an "if" node (csrc/graph_cond.cu)
     "se3icp_cond_begin": [_P] * 3,
     # child stream

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from se3_icp_tpu_torch.ops import _build, eigh3, trim
+from se3_icp_tpu_torch.ops import _build, cuda_prep, eigh3, trim
 from se3_icp_tpu_torch.ops.cuda_knn import _check
 
 # pf row layout (per-pair iteration scalars, one [24] vector)
@@ -35,6 +35,10 @@ PF_NSRC = 5       # valid source count (exact integer-valued float)
 PF_COUNT = 6      # trim keep count = floor(overlap * n_src)
 PF_R = 8          # 8:17  R row-major
 PF_WIDTH = 24
+
+# the kernel's summation order: logical threads a pair, and a warp
+K5_LANES = 512
+K5_WARP = 32
 
 _VARIANT_CODE = {"pt2pt": 0, "pt2pl": 1, "gicp": 2}
 
@@ -106,31 +110,38 @@ def loop_epilogue_plain(srcT, matchedT, pf, cov6=None, conf=None, *,
     colf = torch.arange(n, device=srcT.device).to(dt)[None, :]
     valid = colf < n_src
     kept = _kept_mask(dist, valid, count, n) if do_trim else valid
-    w = kept.to(dt)
-    wsum = w.sum(-1, keepdim=True)
+
+    def fixed_sum(cols):
+        """[B,C]: the kept rows' sums of the columns ([B,N] each, or
+        [B,3,N] for a row's three whitened sub-rows) in the kernel's
+        order: 512 lanes, a tree within each warp of 32, the 16 warp
+        partials in warp order (``cuda_prep.lane_sums``)."""
+        x = torch.stack(cols, -1)
+        if x.dim() == 4:
+            x = x.transpose(1, 2)                             # [B,N,3,C]
+        return cuda_prep.lane_sums(x, kept, K5_LANES, K5_WARP)
+
+    wsum = kept.sum(-1, keepdim=True).to(dt)
     # mse: mean kept distance; with_cf recomputes euclidean
     # moving-vs-target
-    mse = ((d_b if use_cf else dist) * w).sum(-1, keepdim=True) \
-        / wsum.clamp_min(1.0)
+    mse = fixed_sum([d_b if use_cf else dist]) / wsum.clamp_min(1.0)
 
     A = torch.zeros((bsz, 6, 6), dtype=dt, device=srcT.device)
     b = torch.zeros((bsz, 8), dtype=dt, device=srcT.device)
     if variant == "pt2pt":
         wsafe = wsum.clamp_min(1e-30)
-        mu_s = [(s * w).sum(-1, keepdim=True) / wsafe for s in (s0, s1, s2)]
-        mu_t = [(g * w).sum(-1, keepdim=True) / wsafe for g in (g0, g1, g2)]
-        dtw = torch.stack([(g0 - mu_t[0]) * w, (g1 - mu_t[1]) * w,
-                           (g2 - mu_t[2]) * w], 1)
-        ds = torch.stack([s0 - mu_s[0], s1 - mu_s[1], s2 - mu_s[2]], 1)
-        A[:, :3, :3] = dtw @ ds.mT
-        b[:, :6] = torch.cat(mu_s + mu_t, 1)
+        mu = fixed_sum([s0, s1, s2, g0, g1, g2]) / wsafe
+        ds = (s0 - mu[:, 0:1], s1 - mu[:, 1:2], s2 - mu[:, 2:3])
+        dt_ = (g0 - mu[:, 3:4], g1 - mu[:, 4:5], g2 - mu[:, 5:6])
+        H = fixed_sum([dt_[r] * ds[c] for r in range(3) for c in range(3)])
+        A[:, :3, :3] = H.view(bsz, 3, 3)
+        b[:, :6] = mu
     else:
         if variant == "pt2pl":
             n0, n1, n2 = (matchedT[:, off_nrm + i] for i in range(3))
-            r = (dB0 * n0 + dB1 * n1 + dB2 * n2)[:, None]     # [B,1,N]
-            jt = torch.stack([s1 * n2 - s2 * n1, s2 * n0 - s0 * n2,
-                              s0 * n1 - s1 * n0, n0, n1, n2], 1)
-            jw = jt * w[:, None]
+            r = dB0 * n0 + dB1 * n1 + dB2 * n2                # [B,N]
+            jt = [s1 * n2 - s2 * n1, s2 * n0 - s0 * n2,
+                  s0 * n1 - s1 * n0, n0, n1, n2]
         elif variant == "gicp":
             # rotated source covariance R C0 R^T on loop-invariant rows
             c6 = cov6.unbind(1)
@@ -154,19 +165,22 @@ def loop_epilogue_plain(srcT, matchedT, pf, cov6=None, conf=None, *,
             def wdot(row, v):
                 return row[0] * v[0] + row[1] * v[1] + row[2] * v[2]
 
-            ji, ri = [], []
-            for i in range(3):
-                ji.append(torch.stack(
-                    [wdot(Wm[i], cols[a]) for a in range(3)]
-                    + list(Wm[i]), 1))                        # [B,6,N]
-                ri.append(wdot(Wm[i], (dB0, dB1, dB2)))       # [B,N]
-            jt = torch.cat(ji, 2)                             # [B,6,3N]
-            r = torch.cat(ri, 1)[:, None]                     # [B,1,3N]
-            jw = jt * torch.cat([w, w, w], 1)[:, None]
+            # the three whitened rows of a point: [B,3,N] each entry
+            jt = [torch.stack([wdot(Wm[i], cols[a]) for i in range(3)], 1)
+                  for a in range(3)]
+            jt += [torch.stack([Wm[i][a] for i in range(3)], 1)
+                   for a in range(3)]
+            r = torch.stack([wdot(Wm[i], (dB0, dB1, dB2))
+                             for i in range(3)], 1)
         else:
             raise ValueError(f"Invalid ICP variant name: {variant!r}")
-        A = jw @ jt.mT
-        b[:, :6] = (jw @ r.mT)[..., 0]
+        # the upper triangle of j j^T row by row, then j r
+        sums = fixed_sum([jt[a] * jt[c] for a in range(6)
+                          for c in range(a, 6)] + [ja * r for ja in jt])
+        iu = torch.triu_indices(6, 6)
+        A[:, iu[0], iu[1]] = sums[:, :21]
+        A[:, iu[1], iu[0]] = sums[:, :21]
+        b[:, :6] = sums[:, 21:]
     st = torch.zeros((bsz, 8), dtype=dt, device=srcT.device)
     st[:, 0:1] = mse
     st[:, 1:2] = wsum

@@ -20,10 +20,11 @@ one); the scale 1 / max(max(r_s, r_t), 1e-30) times
 0.  Its bits depend neither on the batch, nor on the padded width (a
 zero added to a sum that starts at +0 changes nothing), nor on the
 device; it runs in float32 and float64.  ``center_scale`` launches
-``csrc/prep.cu`` for tensors on the card (one cluster of two blocks a
-pair, every float32 step an explicit ``__f*_rn``): the plain version's
-bits.  A wrapper given CUDA tensors launches the kernel or raises; it
-runs the plain version only for tensors on the CPU.
+``csrc/prep.cu`` for tensors on the card (a pair a cluster of 2C
+blocks, C = ``cluster_size`` a cloud, every float32 step an explicit
+``__f*_rn``): the plain version's bits at every C.  A wrapper given CUDA
+tensors launches the kernel or raises; it runs the plain version only
+for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -48,20 +49,41 @@ def _valid(pts: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return torch.arange(pts.shape[1], device=pts.device)[None] < n[:, None]
 
 
-def lane_sums(pts: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """[B,3]: each pair's sum of its rows below n (pts [B,N,3]) in the
-    fixed order: lane t adds the rows t, t + 256, ... in index order
-    from +0, then the halving tree over the lanes."""
-    bsz, width, _ = pts.shape
-    x = torch.where(_valid(pts, n)[..., None], pts, torch.zeros_like(pts))
-    x = F.pad(x, (0, 0, 0, -width % LANES)).view(bsz, -1, LANES, 3)
-    acc = torch.zeros((bsz, LANES, 3), dtype=pts.dtype, device=pts.device)
+def lane_sums(x: torch.Tensor, n: torch.Tensor, lanes: int = LANES,
+              warp: int | None = None) -> torch.Tensor:
+    """[B,C]: each pair's sum of the rows of x [B,N,C] that ``n`` keeps
+    (a count [B]: the rows below it; or a mask [B,N]), in a fixed order
+    that depends on the pair's own rows alone: lane t adds the rows t,
+    t + lanes, t + 2 lanes, ... in index order from +0 (x [B,N,S,C]: a
+    row's S sub-rows one after another), then a halving tree, lane i + h
+    into lane i: over all the lanes (G4's order, ``warp`` None), or
+    within each warp of ``warp`` lanes, whose partials are then added in
+    warp order from +0 (K5's order, ``csrc/loop_epilogue.cu``).  Rows
+    not kept are never added (the sum starts at +0 and adds +0 for
+    them), so the bits depend neither on the batch nor on the padded
+    width, and a column's bits not on the other columns."""
+    bsz, width = x.shape[:2]
+    keep = n if n.dim() == 2 else _valid(x, n)
+    keep = keep.view(keep.shape + (1,) * (x.dim() - 2))
+    x = torch.where(keep, x, torch.zeros_like(x))
+    pad = [0, 0] * (x.dim() - 2) + [0, -width % lanes]
+    x = F.pad(x, pad).view(bsz, -1, lanes, *x.shape[2:])
+    sub = x.shape[3] if x.dim() == 5 else 0
+    acc = x.new_zeros((bsz, lanes, x.shape[-1]))
     for k in range(x.shape[1]):
-        acc = acc + x[:, k]
-    while acc.shape[1] > 1:
-        h = acc.shape[1] // 2
-        acc = acc[:, :h] + acc[:, h:]
-    return acc[:, 0]
+        for s in range(sub or 1):
+            acc = acc + (x[:, k, :, s] if sub else x[:, k])
+    if warp is not None:
+        acc = acc.view(bsz, lanes // warp, warp, -1)
+    while acc.shape[-2] > 1:
+        h = acc.shape[-2] // 2
+        acc = acc[..., :h, :] + acc[..., h:, :]
+    if warp is None:
+        return acc[:, 0]
+    tot = torch.zeros_like(acc[:, 0, 0])
+    for w in range(lanes // warp):
+        tot = tot + acc[:, w, 0]
+    return tot
 
 
 def centroid(pts: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -96,15 +118,16 @@ def center_scale_plain(src, n_src, tgt, n_tgt, scale_pre):
     return src_c, tgt_c, cen_s, cen_t, scaling
 
 
-def center_scale(src, n_src, tgt, n_tgt, scale_pre):
+def center_scale(src, n_src, tgt, n_tgt, scale_pre, cluster=None):
     """G4: centre each cloud at its own centroid and scale both by
     s = ``scale_pre`` / max radius, padded rows to 0.
 
     src [B,Ns,3] / tgt [B,Nt,3] padded clouds, n_src / n_tgt [B] integer
     valid counts, ``scale_pre`` a 0-dim tensor (``Hyper.
-    scale_preprocessing``).  Returns (src_c, tgt_c, cen_s [B,3], cen_t
-    [B,3], scaling [B]); every pair's bits depend on its own clouds
-    only."""
+    scale_preprocessing``).  ``cluster``: the blocks a cloud runs on (1,
+    2, 4 or 8; default ``cluster_size``); every C gives the same bits.
+    Returns (src_c, tgt_c, cen_s [B,3], cen_t [B,3], scaling [B]); every
+    pair's bits depend on its own clouds only."""
     if not src.is_cuda:
         return center_scale_plain(src, n_src, tgt, n_tgt, scale_pre)
     bsz, ns, _ = src.shape
@@ -120,11 +143,27 @@ def center_scale(src, n_src, tgt, n_tgt, scale_pre):
     src_c, tgt_c = torch.empty_like(src), torch.empty_like(tgt)
     cen = torch.empty((2, bsz, 3), dtype=f32, device=dev)
     scaling = torch.empty(bsz, dtype=f32, device=dev)
+    if cluster is None:
+        cluster = cluster_size(bsz, dev)
+    elif cluster not in CLUSTERS:
+        raise ValueError(f"cluster {cluster}: the kernel takes 1, 2, 4 or "
+                         "8 blocks a cloud")
     code = _build.launch(
         _build.load().se3icp_prep, dev, src.data_ptr(), n_s.data_ptr(),
         tgt.data_ptr(), n_t.data_ptr(), scale_pre.data_ptr(),
         src_c.data_ptr(), tgt_c.data_ptr(), cen[0].data_ptr(),
-        cen[1].data_ptr(), scaling.data_ptr(), bsz, ns, nt)
+        cen[1].data_ptr(), scaling.data_ptr(), bsz, ns, nt, cluster)
     _build.check(code, "center_scale")
     _build.count_launch("center_scale", dev)
     return src_c, tgt_c, cen[0], cen[1], scaling
+
+
+CLUSTERS = (1, 2, 4, 8)
+
+
+def cluster_size(bsz: int, device) -> int:
+    """Blocks a cloud runs on: the smallest C in ``CLUSTERS`` with the
+    ``2 * bsz * C`` blocks of a call at least the SM count of ``device``
+    (8 if none): a 64-pair call on an H100 (132 SMs) takes 2, a pair
+    alone 8 (a cluster of 16 blocks)."""
+    return _build.cluster_for(2 * bsz, torch.device(device).index or 0)

@@ -23,7 +23,8 @@ memory); a histogram is a ``scatter_add_`` of equal weights, which sums
 the same in any order.  The neighbour-SPFH sum has the JAX package's two
 routes: dense (default), a masked [B, rows, N] weight block contracted
 with the SPFH table by ``torch.matmul`` -- a plain product, as the JAX
-package leaves it to XLA -- and gathered (the oracle route).
+package leaves it to XLA -- and gathered (the oracle route; FGR's, its
+sums in a fixed order of the pair's own rows).
 """
 
 from __future__ import annotations
@@ -40,6 +41,13 @@ _ROW_ELEMS = 1 << 24     # [B, rows, k] elements of one pair-feature chunk
 _DENSE_ROWS = 512        # query rows of one dense-sum block
 
 
+def _dot3(a, b):
+    """sum over the last axis of 3, as ((a0 b0 + a1 b1) + a2 b2): a fixed
+    order, where a reduction's split on the card follows its shape."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
+        + a[..., 2] * b[..., 2]
+
+
 def pair_features(p1, n1, p2, n2):
     """Darboux-frame pair features, vectorised over leading dims.
 
@@ -49,10 +57,10 @@ def pair_features(p1, n1, p2, n2):
     """
     eps = 1e-30
     dp = p2 - p1
-    d = torch.linalg.norm(dp, dim=-1)
+    d = torch.sqrt(_dot3(dp, dp))
     dsafe = torch.clamp_min(d, eps)
-    angle1 = torch.sum(n1 * dp, dim=-1) / dsafe
-    angle2 = torch.sum(n2 * dp, dim=-1) / dsafe
+    angle1 = _dot3(n1, dp) / dsafe
+    angle2 = _dot3(n2, dp) / dsafe
     # acos(|a1|) > acos(|a2|)  <=>  |a1| < |a2|: swap roles.  In the
     # swapped branch Open3D sets f3 = -angle2 (the direction vector is
     # negated along with the role swap)
@@ -65,12 +73,11 @@ def pair_features(p1, n1, p2, n2):
     f3 = torch.where(swap, -angle2, angle1)
 
     v = torch.linalg.cross(dpc, n1c, dim=-1)
-    vn = torch.linalg.norm(v, dim=-1)
+    vn = torch.sqrt(_dot3(v, v))
     v = v / torch.clamp_min(vn, eps)[..., None]
     w = torch.linalg.cross(n1c, v, dim=-1)
-    f2 = torch.sum(v * n2c, dim=-1)
-    f1 = torch.atan2(torch.sum(w * n2c, dim=-1),
-                     torch.sum(n1c * n2c, dim=-1))
+    f2 = _dot3(v, n2c)
+    f1 = torch.atan2(_dot3(w, n2c), _dot3(n1c, n2c))
 
     ok = (d > 0) & (vn > 0)
     zero = torch.zeros_like(f1)
@@ -123,7 +130,7 @@ def spfh(points, normals, idx, nb_mask):
 
 
 def fpfh_from_neighbors(points, normals, idx, d2, nb_mask, n_valid=None,
-                        dense_sum: bool = True):
+                        dense_sum: bool = True, spfh_table=None):
     """FPFH [B,N,33] from a precomputed sorted kNN (self at rank 0).
 
     ``d2``: squared neighbour distances (the divisor Open3D uses).  The
@@ -134,11 +141,16 @@ def fpfh_from_neighbors(points, normals, idx, d2, nb_mask, n_valid=None,
     no [B,N,k,33] gather.  A boundary tie may add a member or two.  The
     query itself is left out by its index (the JAX package leaves it out
     by ``d2 > 0`` alone, which its float32 self-distance misses for ~10%
-    of the rows).  ``dense_sum=False``: the gathered route.  ``n_valid``
+    of the rows).  ``dense_sum=False``: the gathered route, over the
+    kNN's own ranks (the query left out by its index), summed in
+    ascending row index whatever the batch (FGR's route).  ``n_valid``
     [B]: valid-row counts for the dense column mask (default all rows).
+    ``spfh_table``: the SPFH [B,N,33] of these neighbourhoods, if the
+    caller has it.
     """
     dtype = points.dtype
-    s = spfh(points, normals, idx, nb_mask)               # [B,N,33]
+    s = (spfh(points, normals, idx, nb_mask) if spfh_table is None
+         else spfh_table)                                 # [B,N,33]
     bsz, n, _ = points.shape
     if dense_sum:
         thr = d2[..., -1]                                 # rank-k radius^2
@@ -166,20 +178,18 @@ def fpfh_from_neighbors(points, normals, idx, d2, nb_mask, n_valid=None,
             acc.append(w @ s)
         acc = torch.cat(acc, dim=1)
     else:
-        nb_idx = idx[..., 1:].to(torch.int64)
-        nb_d2 = d2[..., 1:]
-        mask = nb_mask[..., 1:] & (nb_d2 > 0)
-        inv_d2 = torch.where(mask, 1.0 / torch.clamp_min(nb_d2, 1e-30),
-                             torch.zeros((), dtype=dtype,
-                                         device=points.device))
-        rows = max(1, _ROW_ELEMS // max(bsz * nb_idx.shape[-1] * 8, 1))
-        acc = torch.cat([
-            torch.einsum("bck,bckf->bcf", inv_d2[:, r:r + rows],
-                         _gather_rows(s, nb_idx[:, r:r + rows]))
-            for r in range(0, n, rows)], dim=1)
+        # the kNN's own members, the query left out by its index, summed
+        # in ascending row index (``knn.neighbor_sums``: a pair's bits do
+        # not depend on its batch)
+        own = torch.arange(n, device=points.device)[None, :, None]
+        keep = nb_mask & (d2 > 0) & (idx.to(torch.int64) != own)
+        inv_d2 = 1.0 / torch.clamp_min(d2, 1e-30)
+        acc = knn_ops.neighbor_sums(s, idx, keep, inv_d2)
     # per-block renormalisation to 100, then + own SPFH (Feature.cpp)
     blocks = acc.reshape(bsz, n, 3, _NBINS)
-    bsum = torch.sum(blocks, dim=-1, keepdim=True)
+    bsum = blocks[..., :1]
+    for i in range(1, _NBINS):          # bin by bin, in a fixed order
+        bsum = bsum + blocks[..., i:i + 1]
     scale = torch.where(bsum > 0, 100.0 / torch.clamp_min(bsum, 1e-30),
                         torch.zeros((), dtype=dtype, device=points.device))
     return (blocks * scale).reshape(bsz, n, FPFH_DIM) + s

@@ -60,12 +60,25 @@ def full_precision():
         torch.set_float32_matmul_precision(saved[2])
 
 
-def _pairwise_d2(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+def _pairwise_d2(q: torch.Tensor, t: torch.Tensor,
+                 fixed_order: bool = False) -> torch.Tensor:
     """[...,Cq,D] x [...,Nt,D] -> [...,Cq,Nt] squared distances (matmul
-    form)."""
-    qn = torch.sum(q * q, dim=-1, keepdim=True)
-    tn = torch.sum(t * t, dim=-1)
-    return qn - 2.0 * (q @ t.mT) + tn[..., None, :]
+    form).  ``fixed_order``: the products and sums over D written out
+    elementwise, component after component, so an entry's bits do not
+    depend on the batch (a product's kernel on the card follows the
+    batch's shape)."""
+    if not fixed_order:
+        qn = torch.sum(q * q, dim=-1, keepdim=True)
+        tn = torch.sum(t * t, dim=-1)
+        return qn - 2.0 * (q @ t.mT) + tn[..., None, :]
+    qn, tn, dot = q[..., 0:1] * q[..., 0:1], t[..., 0] * t[..., 0], None
+    for k in range(q.shape[-1]):
+        if k:
+            qn = qn + q[..., k:k + 1] * q[..., k:k + 1]
+            tn = tn + t[..., k] * t[..., k]
+        term = q[..., :, None, k] * t[..., None, :, k]
+        dot = term if dot is None else dot + term
+    return qn - 2.0 * dot + tn[..., None, :]
 
 
 def _mask_cols(d2: torch.Tensor, n_targets: torch.Tensor) -> torch.Tensor:
@@ -90,13 +103,15 @@ def _query_chunk(bsz: int, nq: int, nt: int, itemsize: int,
 
 
 def knn_topk(queries: torch.Tensor, targets: torch.Tensor, k: int,
-             n_targets: torch.Tensor):
+             n_targets: torch.Tensor, fixed_order: bool = False):
     """k smallest-distance neighbours, ascending.
 
     queries [B,Nq,D], targets [B,Nt,D], n_targets [B] ->
     (idx [B,Nq,k] int64, d2 [B,Nq,k]).  Exact (``torch.topk`` on the
     masked distance block); chunked over QUERIES only, so results do not
-    depend on the chunk size.
+    depend on the chunk size.  ``fixed_order``: the distances of
+    ``_pairwise_d2(fixed_order=True)``, whose bits do not depend on the
+    batch.
     """
     bsz, nq, _ = queries.shape
     nt = targets.shape[1]
@@ -106,17 +121,47 @@ def knn_topk(queries: torch.Tensor, targets: torch.Tensor, k: int,
                          queries.device)
     idx_out, d2_out = [], []
     for s in range(0, nq, chunk):
-        d2 = _mask_cols(_pairwise_d2(queries[:, s:s + chunk], targets),
-                        n_targets)
+        d2 = _mask_cols(_pairwise_d2(queries[:, s:s + chunk], targets,
+                                     fixed_order), n_targets)
         val, idx = torch.topk(d2, k, dim=-1, largest=False, sorted=True)
         idx_out.append(idx)
         d2_out.append(val)
     return torch.cat(idx_out, 1), torch.cat(d2_out, 1)
 
 
-def knn_self(points: torch.Tensor, k: int, n_valid: torch.Tensor):
+def knn_self(points: torch.Tensor, k: int, n_valid: torch.Tensor,
+             fixed_order: bool = False):
     """kNN of each cloud against itself (self included at rank 0)."""
-    return knn_topk(points, points, k, n_valid)
+    return knn_topk(points, points, k, n_valid, fixed_order)
+
+
+def neighbor_sums(table: torch.Tensor, idx: torch.Tensor,
+                  keep: torch.Tensor, weight=None) -> torch.Tensor:
+    """[B,Nq,F]: for each query the sum of the rows of ``table`` [B,N,F]
+    at its kept neighbours (idx [B,Nq,k] indices, keep [B,Nq,k] bool),
+    each times its ``weight`` [B,Nq,k] if given, added from +0 in
+    ascending row index: elementwise adds in an order that the pair's
+    own rows fix, where a masked ``[B,Nq,N] x [B,N,F]`` product leaves
+    the order to the library (on the card, cuBLAS splits the sum by the
+    shape of the batch)."""
+    big = table.shape[1]
+    key = torch.where(keep, idx.to(torch.int64), torch.full_like(
+        idx, big, dtype=torch.int64))
+    key, order = torch.sort(key, dim=-1)
+    on = key < big
+    key = torch.where(on, key, torch.zeros_like(key))
+    if weight is not None:
+        weight = torch.gather(weight, -1, order)
+    bsz, nq, k = key.shape
+    acc = table.new_zeros((bsz, nq, table.shape[-1]))
+    for r in range(k):
+        row = torch.gather(table, 1, key[..., r, None].expand(
+            -1, -1, table.shape[-1]))
+        if weight is not None:
+            row = row * weight[..., r, None]
+        acc = acc + torch.where(on[..., r, None], row,
+                                torch.zeros_like(row))
+    return acc
 
 
 def _pad_width(x: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@ membership recovered from the SORTED kNN distances: ranks 1..r ==
 {j : 0 < d2_ij <= d2sorted[i, r]}, at midpoint thresholds so a last-ulp
 difference between the distance block here and the one inside the kNN
 cannot flip boundary membership.  Query rows go in chunks so the
-distance block stays bounded.
+distance block stays bounded.  ``normals_knn`` takes the same members
+from the kNN's own ranks and sums them in ascending row index (FGR's
+normals, whose bits do not depend on the batch).
 
 The THRESHOLD route (``*_thr_t``, the default setup) takes one
 squared-distance threshold per query and self-inclusive count from
@@ -188,6 +190,32 @@ def normals_dense(points: torch.Tensor, d2sorted: torch.Tensor,
         out.append(torch.stack(eigh3.smallest_eigvec3_c(
             *(cc * kinv for cc in cov)), -1))
     return torch.cat(out, dim=1)
+
+
+def normals_knn(points: torch.Tensor, idx: torch.Tensor,
+                d2sorted: torch.Tensor, k_use: int,
+                n_valid: torch.Tensor) -> torch.Tensor:
+    """``normals_dense``'s PCA normals [B,N,3] from the sorted kNN itself
+    (idx / d2sorted [B,N,k], k > k_use): the members are the ranks whose
+    distance is at most the midpoint threshold (``normals_dense``'s set
+    wherever it lies inside the k ranks), their moments summed by
+    ``knn.neighbor_sums`` in ascending row index: a pair's bits do not
+    depend on its batch (FGR's features)."""
+    if d2sorted.shape[2] <= k_use:
+        raise ValueError(f"d2sorted width {d2sorted.shape[2]} must "
+                         f"exceed k_use={k_use}")
+    n = points.shape[1]
+    thr = 0.5 * (d2sorted[..., k_use - 1] + d2sorted[..., k_use])
+    colv = torch.arange(n, device=points.device)[None, :] < n_valid[:, None]
+    keep = (d2sorted <= thr[..., None]) & torch.gather(
+        colv[:, None, :].expand(-1, n, -1), 2, idx.to(torch.int64))
+    S = knn.neighbor_sums(_p12(points), idx, keep)
+    s1 = S[..., :3]
+    kinv = 1.0 / k_use
+    cov = _cov_components(s1, S[..., 3:], s1 * kinv,
+                          keep.sum(-1).to(points.dtype))
+    return torch.stack(eigh3.smallest_eigvec3_c(*(cc * kinv for cc in cov)),
+                       -1)
 
 
 def rotation_from_e1_to_x(x: torch.Tensor) -> torch.Tensor:

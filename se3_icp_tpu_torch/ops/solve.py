@@ -18,12 +18,13 @@ Every estimator takes a full-length 0/1 (or confidence) mask instead of
 a compacted subset.  Operands are feature-major ``[B,3,N]`` / ``[B,6,N]``
 like the loop's payload.  The ``solve_*_T`` functions do the whole step;
 ``solve_from_normal`` / ``solve_pt2pt_from_moments`` finish a step whose
-reduction already ran in the fused loop epilogue (FGR's Gauss-Newton
-steps and the Anderson route's loop step take them).  Their 6x6 solve
+reduction already ran in the fused loop epilogue (the Anderson route's
+loop step takes them).  Their 6x6 solve
 is ``torch.linalg.solve_ex`` (no check on the host).  The registration
 loop's step (``ops/cuda_step.py``) takes the component-wise forms below
 instead -- ``solve6_c`` (Gaussian elimination with partial pivoting),
-``euler_zyx_c``, ``kabsch3_c`` --, which its kernel repeats bit for bit.
+``euler_zyx_c``, ``kabsch3_c`` --, which its kernel repeats bit for bit,
+and so do FGR's Gauss-Newton steps (``models/fgr.py``).
 The pt2pt rotation ``kabsch3`` is a fixed sequence of elementwise ops
 in place of a 3x3 SVD, which on the card checks its input on the host.
 Failure (singular / non-finite / under-determined) degrades to identity

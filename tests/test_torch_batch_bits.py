@@ -21,6 +21,11 @@ sizes and padded widths.
   * The CPU route's setup products (the centred clouds, the query
     features, the target embeddings and payload): three pairs set up
     together and one by one, bit for bit.
+  * ``cuda_prep.lane_sums`` of any width: the three-column bits of G4's
+    plain version, a column's bits whatever the other columns.
+  * The whole CPU registration (``se3_pt2pl``, ``se3_gicp`` trimmed,
+    ``se3_pt2pt``, ``pt2pl``; float32 and float64) and FGR: each pair's
+    transform, counts and history bits alone and in batches of 2 and 3.
 """
 
 import jax
@@ -236,3 +241,103 @@ def test_cpu_setup_gives_a_pair_the_same_bits_in_any_batch():
                      (whole.targets.payload, one.targets.payload),
                      (pre.cen_s, pre1.cen_s), (pre.scaling, pre1.scaling)):
             assert torch.equal(a[i], b[0])
+
+
+# ---------------------------------------------------------------------
+# The CPU route's whole registration and FGR, and the fixed-order sums
+
+def _lane_sums_3(pts, n):
+    """The three-column fixed-order sum as G4's plain version wrote it
+    before ``lane_sums`` took any width: slabs of 256 rows from +0,
+    then the halving tree."""
+    bsz, width, _ = pts.shape
+    x = torch.where(cuda_prep._valid(pts, n)[..., None], pts,
+                    torch.zeros_like(pts))
+    x = torch.nn.functional.pad(x, (0, 0, 0, -width % 256)).view(
+        bsz, -1, 256, 3)
+    acc = torch.zeros((bsz, 256, 3), dtype=pts.dtype)
+    for k in range(x.shape[1]):
+        acc = acc + x[:, k]
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    return acc[:, 0]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_lane_sums_of_any_width_keep_the_three_column_bits(dtype):
+    src, n_src, _, _ = _packed(_clouds(), dtype)
+    assert torch.equal(cuda_prep.lane_sums(src, n_src),
+                       _lane_sums_3(src, n_src))
+    # a column's bits do not depend on the other columns, nor a row's
+    # sub-rows on how many there are
+    rng = np.random.default_rng(16)
+    wide = torch.from_numpy(rng.normal(size=src.shape[:2] + (27,))
+                            .astype(dtype)) * 5.0
+    sums = cuda_prep.lane_sums(wide, n_src)
+    for c in (0, 13, 26):
+        assert torch.equal(cuda_prep.lane_sums(wide[..., c:c + 1], n_src),
+                           sums[:, c:c + 1])
+    sub = wide.view(*wide.shape[:2], 3, 9)
+    mask = cuda_prep._valid(wide, n_src)
+    for warp in (None, 32):
+        got = cuda_prep.lane_sums(sub, mask, 512, warp)
+        assert torch.equal(cuda_prep.lane_sums(sub[..., 4:5], mask, 512,
+                                               warp), got[:, 4:5])
+
+
+def _registered(pair_list, alg, dtype, cfg):
+    src, n_src, tgt, n_tgt = _packed(pair_list, dtype)
+    mode, variant = reg.parse_algorithm(alg)
+    with torch.no_grad():
+        T, it, pure, hist = reg.register_arrays(
+            src, n_src, tgt, n_tgt, cfg, mode, variant, record_history=True)
+    return [(T[b], it[b], pure[b], hist[b, :int(it[b])])
+            for b in range(len(pair_list))]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("alg,overlap", [
+    ("se3_pt2pl", 1.0), ("se3_gicp", 0.8), ("se3_pt2pt", 1.0),
+    ("pt2pl", 1.0)], ids=["se3_pt2pl", "se3_gicp_trimmed", "se3_pt2pt",
+                          "pt2pl"])
+def test_cpu_registration_gives_a_pair_the_same_bits_in_any_batch(
+        alg, overlap, dtype):
+    """Three pairs registered together and one by one on the CPU route
+    (the threshold setup, K4's and K5's plain versions, the
+    component-wise step): each pair's transform, counts and history, bit
+    for bit."""
+    kw = fixtures.SMALL_POSE if alg == "pt2pl" else {}
+    pl = [(p.source, p.target) for p in (
+        fixtures.golden_shape_problem(seed=s, n=200 + 20 * s, **kw)
+        for s in (1, 2, 3))]
+    cfg = GOLDEN.replace(estimated_overlap=overlap)
+    whole = _registered(pl, alg, dtype, cfg)
+    for i, p in enumerate(pl):
+        one = _registered([p], alg, dtype, cfg)[0]
+        for a, b in zip(whole[i], one):
+            assert torch.equal(a, b), (alg, i)
+
+
+def test_fgr_gives_a_pair_the_same_bits_in_any_batch():
+    """FGR on three golden-shape pairs of ~450 points on the CPU: each
+    pair's transform and counts alone, in a batch of 2 and in a batch of
+    3, bit for bit (the centroids of G4's fixed order, the Gauss-Newton
+    sums in it, the component-wise solve)."""
+    from se3_icp_tpu_torch.models import fgr
+    pl = [(p.source, p.target) for p in (
+        fixtures.golden_shape_problem(seed=s, n=440 + 10 * s)
+        for s in (1, 2, 3))]
+    cfg = fgr.FGRConfig(seed=16)
+
+    def run(batch):
+        st = {}
+        T, _, _ = fgr.fgr_register_arrays(*_packed(batch, np.float32), cfg,
+                                          stats=st)
+        return [(T[b], st["reciprocal"][b], st["kept_correspondences"][b])
+                for b in range(len(batch))]
+    whole = run(pl)
+    for size in (1, 2):
+        part = [r for b0 in range(0, 3, size) for r in run(pl[b0:b0 + size])]
+        for i, (a, b) in enumerate(zip(part, whole)):
+            assert torch.equal(a[0], b[0]) and a[1:] == b[1:], (size, i)

@@ -278,11 +278,25 @@ def test_step_kernel_follows_its_plain_version(lib, alg, overlap):
     assert bool(s.it.min() >= 4)
 
 
-def test_center_scale_kernel_gives_its_plain_version_bits(lib):
+def _prep(lib, src, n_src, tgt, n_tgt, scale, cluster):
+    """G4's results on the emulated card, each output filled with 7.0
+    first."""
+    bsz, ns, nt = src.shape[0], src.shape[1], tgt.shape[1]
+    got = (torch.full_like(src, 7.0), torch.full_like(tgt, 7.0),
+           torch.full((bsz, 3), 7.0), torch.full((bsz, 3), 7.0),
+           torch.full((bsz,), 7.0))
+    code = lib.se3icp_prep(_p(src), _p(n_src), _p(tgt), _p(n_tgt),
+                           _p(scale), *map(_p, got), bsz, ns, nt, cluster,
+                           None)
+    return code, got
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_center_scale_kernel_gives_its_plain_version_bits(lib, cluster):
     """G4 on three pairs of other widths (768 and 600: one not a multiple
     of the 256 lanes) and counts (a full cloud, a single row, none), the
-    padded rows NaN: the plain version's bits, and rows past a count are
-    never read."""
+    padded rows NaN, a cloud on C = 1, 2 and 4 blocks: the plain
+    version's bits, and rows past a count are never read."""
     rng = np.random.default_rng(15)
     bsz, ns, nt = 3, 768, 600
     src = torch.from_numpy((rng.normal(size=(bsz, ns, 3)) * [2.0, 0.5, 1.0]
@@ -296,14 +310,34 @@ def test_center_scale_kernel_gives_its_plain_version_bits(lib):
     scale = torch.tensor(3.0)
     with _kernel_functions(lib):
         want = cuda_prep.center_scale_plain(src, n_src, tgt, n_tgt, scale)
-    got = (torch.full_like(src, 7.0), torch.full_like(tgt, 7.0),
-           torch.full((bsz, 3), 7.0), torch.full((bsz, 3), 7.0),
-           torch.full((bsz,), 7.0))
-    code = lib.se3icp_prep(_p(src), _p(n_src), _p(tgt), _p(n_tgt),
-                           _p(scale), *map(_p, got), bsz, ns, nt, None)
+    code, got = _prep(lib, src, n_src, tgt, n_tgt, scale, cluster)
     assert code == 0
     for name, a, b in zip(("src_c", "tgt_c", "cen_s", "cen_t", "scaling"),
                           got, want):
         assert _differ(a, b) == 0, name
     assert bool(torch.isfinite(got[0]).all() & torch.isfinite(got[1]).all())
     assert float(got[3][2].abs().max()) == 0.0     # no row: centroid 0
+    if cluster == 1:     # cluster sizes the kernel does not take
+        for bad in (3, 16):
+            assert _prep(lib, src, n_src, tgt, n_tgt, scale, bad)[0] != 0
+
+
+def test_center_scale_kernel_stages_a_cloud_over_several_tiles(lib):
+    """G4 on one pair of 3500 and 1000 valid rows: at C = 1 a block stages
+    the source's 14 slabs of 256 rows in two tiles, at C = 2 in one;
+    both the plain version's bits."""
+    rng = np.random.default_rng(16)
+    src = torch.from_numpy((rng.normal(size=(1, 3500, 3)) * 3.0
+                            + 5.0).astype(np.float32))
+    tgt = torch.from_numpy(rng.normal(size=(1, 1100, 3)).astype(np.float32))
+    n_src = torch.tensor([3500], dtype=torch.int32)
+    n_tgt = torch.tensor([1000], dtype=torch.int32)
+    scale = torch.tensor(2.0)
+    with _kernel_functions(lib):
+        want = cuda_prep.center_scale_plain(src, n_src, tgt, n_tgt, scale)
+    for cluster in (1, 2):
+        code, got = _prep(lib, src, n_src, tgt, n_tgt, scale, cluster)
+        assert code == 0
+        for name, a, b in zip(("src_c", "tgt_c", "cen_s", "cen_t",
+                               "scaling"), got, want):
+            assert _differ(a, b) == 0, (name, cluster)

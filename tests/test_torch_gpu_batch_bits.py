@@ -9,6 +9,9 @@ no interpret mode).  Run them on a GPU machine with
     ``se3_pt2pl``, ``se3_gicp``, ``se3_pt2pt`` and ``pt2pl`` on the
     captured program (the batchings of ``chip_smoke.batch_size_runs``,
     which ``chip_smoke.py``'s hold runs as shards of a mesh).
+  * FGR's 8 pairs the same way (its own captured program).
+  * G4 at every cluster size (C = 1, 2, 4, 8 blocks a cloud), B = 1, 2
+    and 64, N = 4608 and 15872: its plain version's bits.
   * G4 (``cuda_prep.center_scale``), G2 (``cuda_frames.frame_assembly``)
     and G3 (``cuda_step.step_update``) give their plain versions' bits at
     the main path's 64 x 4608 and the KITTI road's 1 x 15872, each
@@ -89,6 +92,51 @@ def test_center_scale_gives_the_plain_bits(card, n_pairs, n):
         for name, a, c in zip(("src_c", "tgt_c", "cen_s", "cen_t",
                                "scaling"), one, got):
             _same(a[0], c[b], f"G4 {name}, pair {b} alone")
+
+
+def test_fgr_gives_a_pair_the_same_bits_in_any_batch(card):
+    """FGR's 8 golden-shape pairs at B = 1, 2 and 8 and as the first 8 of
+    64, on its captured program: every pair the same transform bits and
+    counts (``chip_smoke.fgr_batch_size_hold`` also holds shards on a
+    mesh and the eager function)."""
+    import chip_smoke
+    from se3_icp_tpu_torch.models import fgr
+    pl = [(p.source, p.target) for p in
+          (fixtures.golden_shape_problem(seed=s) for s in range(1, 65))]
+
+    def per_batch(batch):
+        st = {}
+        res = pairs.register_pairs(batch, "fgr", fgr.FGRConfig(),
+                                   mesh=False, stats=st)
+        return [(r.transformation.tolist(), st["reciprocal"][b],
+                 st["kept_correspondences"][b]) for b, r in enumerate(res)]
+    runs = chip_smoke.batch_size_runs(
+        pl, chip_smoke.one_call_a_batch(per_batch), sizes=(1, 2))
+    differ = chip_smoke.pairs_differing(runs, lambda a, b: a == b)
+    assert not any(differ.values()), differ
+
+
+@pytest.mark.parametrize("n", [4167, 15500], ids=["4608", "15872"])
+@pytest.mark.parametrize("n_pairs", [1, 2, 64])
+def test_center_scale_gives_the_plain_bits_at_every_cluster_size(
+        card, n_pairs, n):
+    """G4 with a cloud on C = 1, 2, 4 and 8 blocks (a pair's cluster 2C
+    blocks): the plain version's bits at each, each launch counted."""
+    src, n_src, tgt, n_tgt = _packed(card, n_pairs, n)
+    scale = reg.hyper(reg.split_cfg(GOLDEN, torch.float32,
+                                    card)[0]).scale_preprocessing
+    want = cuda_prep.center_scale_plain(src, n_src, tgt, n_tgt, scale)
+    assert cuda_prep.cluster_size(n_pairs, card) in cuda_prep.CLUSTERS
+    for c in cuda_prep.CLUSTERS:
+        n0 = _build.launches()["center_scale"]
+        got = cuda_prep.center_scale(src, n_src, tgt, n_tgt, scale,
+                                     cluster=c)
+        assert _build.launches()["center_scale"] == n0 + 1
+        for name, a, b in zip(("src_c", "tgt_c", "cen_s", "cen_t",
+                               "scaling"), got, want):
+            _same(a, b, f"G4 {name}, C = {c}")
+    with pytest.raises(ValueError):
+        cuda_prep.center_scale(src, n_src, tgt, n_tgt, scale, cluster=3)
 
 
 @pytest.mark.parametrize("n_pairs,n", [(64, 4167), (1, 15500)],

@@ -713,6 +713,26 @@ def test_emulated_epilogue_kernel_matches_plain_on_every_cluster(
     assert _k5(emulated, *case, 3)[0] != 0        # no such cluster size
 
 
+@pytest.mark.parametrize("variant,is_se3,overlap,ties", [
+    ("pt2pl", True, 0.75, False),
+    ("pt2pt", True, 0.6, True),
+    ("pt2pl", False, 0.6, True),
+], ids=["pt2pl-trim", "pt2pt-trim-ties", "icp-pt2pl-trim-ties"])
+def test_emulated_epilogue_sums_in_its_plain_versions_order(
+        emulated, variant, is_se3, overlap, ties):
+    """K5's plain version adds in the kernel's order (512 lanes of rows
+    in index order, a tree within each warp, the warp partials in warp
+    order): compiled without FMA contraction, the kernel gives the plain
+    version's A, b and st bit for bit for pt2pl and pt2pt (GICP's
+    whitening is another eigen-solve, held within K5's tolerance)."""
+    case = kcases.epilogue_case(variant, is_se3, False, overlap, ties=ties)
+    want = cuda_loop.loop_epilogue_plain(*case[:5], **case[5])
+    code, got = _k5(emulated, *case, 2)
+    assert code == 0
+    for name, a, b in zip(("A", "b", "st"), got, want):
+        assert torch.equal(a, b), name
+
+
 def _k_level_trim(keys, valid, count, levels):
     """The kernel's trim (``csrc/loop_epilogue.cu``) on one pair in numpy
     float32: the value bisection and the index bisection, each counting

@@ -66,15 +66,19 @@ an ``nn_argmin.cu`` without the tiled entry points runs K6 and K7 through
 ``se3icp_nn_match_packed``, at the S that K9's rule (``split_size``)
 picks.
 The committed sources are not changed.
-``--only glue`` times the committed G2 and G3 beside the
-``frames.cu`` and ``step_update.cu`` of each ``--extra-glue`` directory
-(e.g. another checkout's ``se3_icp_tpu_torch/csrc``) with the same C
-entry points, by device time in turns, and reports whether each gives
-the committed kernel's bits: G2
+``--only glue`` times the committed G2, G3 and G4 beside the
+``frames.cu``, ``step_update.cu`` and ``prep.cu`` of each
+``--extra-glue`` directory (e.g. another checkout's
+``se3_icp_tpu_torch/csrc``) with the same C entry points (a
+``prep.cu`` without the cluster argument is called with its own), by
+device time in turns, and reports whether each gives the committed
+kernel's bits (G4: its plain version's): G2
 on the main path's sources (64 x 4608), its targets with the fused
 normal and the KITTI road's bucket (1 x 15872); G3 two steps into the
 loop of the main path's 64 pairs for pt2pl, GICP trimmed and pt2pt, a
-fifth of the pairs done.
+fifth of the pairs done; G4 at 64 x 4608, 1 x 15872 and 1 x 4608, the
+committed kernel at each cluster size C = 1, 2, 4, 8 (blocks a cloud;
+``wrapper_cluster``: the C the wrapper picks).
 ``--sass DIR`` also writes each variant's machine code (``cuobjdump
 -sass``) into DIR.  Needs a CUDA device and nvcc; prints one JSON line
 per kernel.
@@ -785,18 +789,40 @@ def glue_cases():
         out.append(("G3", f"64 pairs {alg}", dict(
             A=A, b=b, st=st, state=state, hv=c.hv, thr=c.stop_thresh,
             nsf=c.n_src_f, ints=ints)))
+    for tag, probs in (("64 x 4608", problems),
+                       ("1 x 15872", cs.golden_pairs(1, n=15500)),
+                       ("1 x 4608", problems[:1])):
+        out.append(("G4", tag, cs.prep_glue_inputs(probs)))
+    return out
+
+
+G4_CLUSTERS = (1, 2, 4, 8)
+
+
+def _g4_variants(extras):
+    """[(row tag, lib tag, cluster)] of G4: the committed kernel and each
+    extra source with the cluster argument at every cluster size, an
+    extra source without it once (its own signature, cluster None)."""
+    out = [(f"g4_c{c}", "g4", c) for c in G4_CLUSTERS]
+    for t, _, src in extras:
+        if "int cluster" in src:
+            out += [(f"{t}_c{c}", t, c) for c in G4_CLUSTERS]
+        else:
+            out.append((t, t, None))
     return out
 
 
 def sweep_glue(reps, sass_dir, extra_dirs=()):
-    from se3_icp_tpu_torch.ops import _build
-    files = {"G2": "frames.cu", "G3": "step_update.cu"}
+    from se3_icp_tpu_torch.ops import _build, cuda_prep
+    files = {"G2": "frames.cu", "G3": "step_update.cu", "G4": "prep.cu"}
     extras = {k: extra_sources([
         f"{label}={os.path.join(d, f)}"
         for label, d in (spec.split("=", 1) for spec in extra_dirs)],
         k.lower()) for k, f in files.items()}
-    entry = {"G2": "se3icp_frame_assembly", "G3": "se3icp_step_update"}
-    kname = {"G2": "frame_assembly_kernel", "G3": "step_update_kernel"}
+    entry = {"G2": "se3icp_frame_assembly", "G3": "se3icp_step_update",
+             "G4": "se3icp_prep"}
+    kname = {"G2": "frame_assembly_kernel", "G3": "step_update_kernel",
+             "G4": "prep_kernel"}
     with tempfile.TemporaryDirectory() as tmp:
         jobs = [(k.lower(), (_build.CSRC / f).read_text())
                 for k, f in files.items()]
@@ -804,16 +830,56 @@ def sweep_glue(reps, sass_dir, extra_dirs=()):
             jobs += [(t, src) for t, _, src in extras[k]]
         libs = build_all(jobs, tmp, sass_dir)
         rows = {}
+        g4 = _g4_variants(extras["G4"])
         for k in files:
             tags = [k.lower()] + [t for t, _, _ in extras[k]]
             labels = ["committed"] + [lb for _, lb, _ in extras[k]]
             for t, lb in zip(tags, labels):
                 fn = getattr(libs[t][0], entry[k])
-                fn.argtypes = _build.SIGNATURES[entry[k]]
+                sig = _build.SIGNATURES[entry[k]]
+                if k == "G4" and (t, t, None) in g4:
+                    sig = sig[:-2] + sig[-1:]      # no cluster argument
+                fn.argtypes = sig
                 fn.restype = ctypes.c_int
+                if k == "G4":
+                    for row, lib_t, c in g4:
+                        if lib_t == t:
+                            rows[row] = dict(
+                                kernel=k, cluster=c, ms={}, same_bits={},
+                                source=lb if c is None else f"{lb}, C = {c}",
+                                ptxas=resources(libs[t][1], kname[k]))
+                    continue
                 rows[t] = dict(kernel=k, source=lb, ms={}, same_bits={},
                                ptxas=resources(libs[t][1], kname[k]))
         for k, name, a in glue_cases():
+            if k == "G4":
+                fns, outs = {}, {}
+                src, n_src, tgt, n_tgt, scale = a
+                bsz, ns, nt = src.shape[0], src.shape[1], tgt.shape[1]
+                for row, lib_t, c in g4:
+                    fn = getattr(libs[lib_t][0], entry[k])
+                    o = (torch.empty_like(src), torch.empty_like(tgt),
+                         torch.empty((bsz, 3), device="cuda"),
+                         torch.empty((bsz, 3), device="cuda"),
+                         torch.empty(bsz, device="cuda"))
+                    args = [x.data_ptr() for x in (src, n_src, tgt, n_tgt,
+                                                   scale, *o)]
+                    args += [bsz, ns, nt] + ([] if c is None else [c])
+                    outs[row] = o
+                    fns[row] = (lambda fn=fn, args=args: _build.check(
+                        fn(*args, stream()), "G4"))
+                for fn in fns.values():
+                    fn()
+                torch.cuda.synchronize()
+                ref = cuda_prep.center_scale_plain(*a)
+                med = time_turns_device(fns, reps, kname[k])
+                for row in fns:
+                    rows[row]["ms"][name] = med[row]
+                    rows[row]["same_bits"][name] = all(
+                        torch.equal(x, y) for x, y in zip(outs[row], ref))
+                rows["g4_c1"].setdefault("wrapper_cluster", {})[name] = \
+                    cuda_prep.cluster_size(bsz, src.device)
+                continue
             tags = [k.lower()] + [t for t, _, _ in extras[k]]
             fns, outs = {}, {}
             for t in tags:

@@ -270,6 +270,71 @@ def stage_hashes(pair_list, alg: str, cfg, steps: int = 3) -> list:
     return out
 
 
+def eager_result_hashes(pair_list, alg: str, cfg) -> list:
+    """Per pair, {"eager_result": SHA-1} of one batch registered on the
+    eager polled loop (``registration.register_arrays_eager``, the
+    captured program's reference) on the card."""
+    import torch
+    from se3_icp_tpu_torch.parallel import pairs
+    with _this_chip_smoke().EagerLoop():
+        res = pairs.register_pairs(pair_list, alg, cfg, mesh=False)
+    return [{"eager_result": _hashes([
+        torch.as_tensor(r.transformation), torch.tensor(r.num_iterations)])}
+        for r in res]
+
+
+def fgr_stage_hashes(pair_list, cfg, device="cuda") -> list:
+    """Per pair, {stage: SHA-1} of FGR on one batch: the eager body's
+    features, reciprocal matches, tuple-test weights, centring and
+    scale, each Gauss-Newton step's normal equations (``gnNN``) and its
+    transform (``eager_result``), then the captured program's transform
+    and counts (``result``)."""
+    import torch
+    from se3_icp_tpu_torch.models import fgr
+    from se3_icp_tpu_torch.parallel import pairs
+    src, n_src, tgt, n_tgt = (torch.as_tensor(a, device=device)
+                              for a in pairs.pack_pairs(pair_list))
+    inp = dict(src=src, n_src=n_src, tgt=tgt, n_tgt=n_tgt)
+    if cfg.tuple_test:
+        inp["raw"] = fgr.raw_triples(cfg, src.device)
+    probe = {}
+    with torch.no_grad():
+        T = fgr.program_body(inp, cfg, probe)[0]
+    ns, nt = n_src.tolist(), n_tgt.tolist()
+    (fs, ft), (fwd, bwd) = probe["features"], probe["matches"]
+    cen_s, cen_t, scale = probe["centring"]
+    jtj = torch.stack([g[0] for g in probe["gn"]], 1).cpu()
+    jtr = torch.stack([g[1] for g in probe["gn"]], 1).cpu()
+    out = []
+    for b in range(len(pair_list)):
+        row = {}
+        # the feature stages of both clouds, where the checkout records
+        # them: the kNN (indices, distances), the normals, SPFH, FPFH
+        stages = probe.get("feature_stages") or []
+        for name, cols in (("knn", (0, 1)), ("normals", (2,)),
+                           ("spfh", (3,)), ("fpfh", (4,))):
+            if stages:
+                row[name] = _hashes([stages[c][i][b, :n] for c, n in (
+                    (0, ns[b]), (1, nt[b])) for i in cols])
+        row.update({"features": _hashes([fs[b, :ns[b]], ft[b, :nt[b]]]),
+               "matches": _hashes([fwd[b, :ns[b]], bwd[b, :nt[b]]]),
+               "weights": _hashes([probe["weights"][b, :ns[b]]]),
+               "centring": _hashes([cen_s[b], cen_t[b], scale[b]])})
+        for k in range(jtj.shape[1]):
+            row[f"gn{k:02d}"] = _hashes([jtj[b, k], jtr[b, k]])
+        row["eager_result"] = _hashes([T[b]])
+        out.append(row)
+    stats = {}
+    res = pairs.register_pairs(pair_list, "fgr", cfg, mesh=False,
+                               stats=stats, device=device)
+    for b, r in enumerate(res):
+        out[b]["result"] = _hashes([
+            torch.as_tensor(r.transformation),
+            torch.tensor([stats["reciprocal"][b],
+                          stats["kept_correspondences"][b]])])
+    return out
+
+
 def _this_chip_smoke():
     """This checkout's ``chip_smoke.py`` (its batch-size helpers), also
     when ``--root`` names another checkout."""
@@ -290,29 +355,46 @@ def batch_bits(root: str) -> bool:
         raise SystemExit("path_digest: no CUDA device")
     chip_smoke = _this_chip_smoke()
     from se3_icp_tpu_torch.datasets import fixtures
+    from se3_icp_tpu_torch.models import fgr
     from se3_icp_tpu_torch.ops import knn
     from se3_icp_tpu_torch.utils.config import GOLDEN
     report, same = {}, True
+
+    def differing(runs):
+        """{stage: {batching: [pair]}}, only the stages that differ."""
+        differ = {stage: chip_smoke.pairs_differing(
+            runs, lambda a, b, st=stage: a[st] == b[st])
+            for stage in runs["B=8"][0]}
+        return {st: d for st, d in differ.items()
+                if any(v for v in d.values())}
     with knn.full_precision():
         for alg in BATCH_BITS_ALGS:
             kw = fixtures.SMALL_POSE if alg == "pt2pl" else {}
             pl = [(p.source, p.target) for p in
                   (fixtures.golden_shape_problem(seed=s, **kw)
                    for s in range(1, 65))]
-            runs = chip_smoke.batch_size_runs(
+            report[alg] = differing(chip_smoke.batch_size_runs(
                 pl, chip_smoke.one_call_a_batch(
                     lambda b, alg=alg: stage_hashes(b, alg, GOLDEN)),
-                sizes=(1, 2))
-            differ = {stage: chip_smoke.pairs_differing(
-                runs, lambda a, b, st=stage: a[st] == b[st])
-                for stage in runs["B=8"][0]}
-            report[alg] = differ
-            same = same and not any(v for d in differ.values()
-                                    for v in d.values())
+                sizes=(1, 2)))
+            # the eager route alone and in batches of 3
+            report[f"{alg} eager"] = differing(chip_smoke.batch_size_runs(
+                pl, chip_smoke.one_call_a_batch(
+                    lambda b, alg=alg: eager_result_hashes(b, alg, GOLDEN)),
+                sizes=(1, 3)))
+        pl = [(p.source, p.target) for p in
+              (fixtures.golden_shape_problem(seed=s) for s in range(1, 65))]
+        report["fgr"] = differing(chip_smoke.batch_size_runs(
+            pl, chip_smoke.one_call_a_batch(
+                lambda b: fgr_stage_hashes(b, fgr.FGRConfig())),
+            sizes=(1, 2, 3)))
+    same = not any(report.values())
+    first = {what: next(iter(d), None) for what, d in report.items()}
     print(json.dumps({"phase": "path_digest_batch_bits",
                       "root": os.path.abspath(root),
                       "device": torch.cuda.get_device_name(0),
                       "every_stage_same": same,
+                      "first_stage_differing": first,
                       "pairs_differing_from_B8": report}), flush=True)
     return same
 
